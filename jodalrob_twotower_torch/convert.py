@@ -1,0 +1,91 @@
+"""Map the reference's flax variables onto the port's ``state_dict``.
+
+flax keeps a Dense kernel as ``[in, out]``, torch a Linear weight as
+``[out, in]``; flax splits BatchNorm into ``params`` (``scale``, ``bias``)
+and ``batch_stats`` (``mean``, ``var``). The module names are the same on
+both sides (models/tower.py), so for a torch key ``notice_tower.mlp_0.weight``
+the flax leaf is ``params/notice_tower/mlp_0/kernel``, transposed:
+
+=====================================  ============================================
+torch                                  flax
+=====================================  ============================================
+``<layer>.weight`` (Linear)            ``params/<layer>/kernel``, transposed
+``<layer>.bias`` (Linear)              ``params/<layer>/bias``
+``<bn>.weight`` / ``<bn>.bias``        ``params/<bn>/scale`` / ``params/<bn>/bias``
+``<bn>.running_mean`` / ``_var``       ``batch_stats/<bn>/mean`` / ``batch_stats/<bn>/var``
+``<tower>.embeddings.table``           ``params/<tower>/embeddings/table``, as is
+=====================================  ============================================
+
+Every torch entry must find its leaf with the right shape, and every flax
+leaf must be used; anything else raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from jodalrob_twotower_torch.models.embedding import EmbeddingCollection
+from jodalrob_twotower_torch.models.tower import BatchNorm
+
+
+def _flatten(tree: Mapping | None, root: str) -> dict[str, np.ndarray]:
+    out: dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(child, f"{path}/{key}")
+        else:
+            out[path] = np.asarray(node)
+
+    walk(tree or {}, root)
+    return out
+
+
+def _sources(model: nn.Module):
+    """(torch key, flax path, transpose) for every entry of the state_dict."""
+    for name, module in model.named_modules():
+        path = name.replace(".", "/")
+        if isinstance(module, nn.Linear):
+            yield f"{name}.weight", f"params/{path}/kernel", True
+            yield f"{name}.bias", f"params/{path}/bias", False
+        elif isinstance(module, BatchNorm):
+            yield f"{name}.weight", f"params/{path}/scale", False
+            yield f"{name}.bias", f"params/{path}/bias", False
+            yield f"{name}.running_mean", f"batch_stats/{path}/mean", False
+            yield f"{name}.running_var", f"batch_stats/{path}/var", False
+        elif isinstance(module, EmbeddingCollection):
+            yield f"{name}.table", f"params/{path}/table", False
+
+
+def flax_to_state_dict(
+    model: nn.Module, params: Mapping, batch_stats: Mapping | None = None
+) -> dict[str, torch.Tensor]:
+    """``model``'s state_dict filled from flax ``params`` and ``batch_stats``
+    (nested dicts of numpy arrays, rooted at the towers, e.g.
+    ``params["notice_tower"]["proj_bidntcenm"]["kernel"]``)."""
+    leaves = {**_flatten(params, "params"), **_flatten(batch_stats, "batch_stats")}
+    expected = model.state_dict()
+    out: dict[str, torch.Tensor] = {}
+    for key, path, transpose in _sources(model):
+        if path not in leaves:
+            raise ValueError(f"flax variables lack {path} (for {key})")
+        value = leaves.pop(path)
+        value = value.T if transpose else value
+        want = tuple(expected[key].shape)
+        if value.shape != want:
+            raise ValueError(
+                f"{path} has shape {value.shape}{' transposed' if transpose else ''}, "
+                f"{key} needs {want}"
+            )
+        out[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+    missing = set(expected) - set(out)
+    if missing:
+        raise ValueError(f"no flax source known for {sorted(missing)}")
+    if leaves:
+        raise ValueError(f"flax leaves with no place in the model: {sorted(leaves)}")
+    return out

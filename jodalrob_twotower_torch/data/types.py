@@ -1,0 +1,53 @@
+"""Batch containers (port of ``jodalrob_twotower_tpu/data/types.py``).
+
+Every categorical feature has exactly one id per sample, so ids are a dense
+``[B, K]`` int32 matrix. The containers hold host numpy arrays (what the
+feature store returns) or tensors (what the towers take).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class TowerBatch(NamedTuple):
+    """Inputs for one tower.
+
+    dense: float32 [B, dense_dim] - numeric features ++ text embeddings.
+    cat_ids: int32 [B, K] - one label-encoded id per categorical feature.
+    """
+
+    dense: torch.Tensor | np.ndarray
+    cat_ids: torch.Tensor | np.ndarray
+
+    @property
+    def batch_size(self) -> int:
+        return self.dense.shape[0]
+
+    def to(self, device: torch.device) -> "TowerBatch":
+        """Both fields as tensors on ``device``. Host data bound for the card
+        goes through pinned memory with a ``non_blocking`` copy, so the host
+        does not wait for the work already queued on the card."""
+        device = torch.device(device)
+
+        def move(x):
+            t = torch.as_tensor(x)
+            if device.type == "cuda" and t.device.type == "cpu":
+                return (t if t.is_pinned() else t.pin_memory()).to(device, non_blocking=True)
+            return t.to(device)
+
+        return TowerBatch(move(self.dense), move(self.cat_ids))
+
+
+class PairBatch(NamedTuple):
+    """A batch of aligned positive pairs: row i of notice matches row i of company."""
+
+    notice: TowerBatch
+    company: TowerBatch
+
+    @property
+    def batch_size(self) -> int:
+        return self.notice.batch_size

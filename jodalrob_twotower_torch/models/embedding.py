@@ -1,0 +1,161 @@
+"""Unified categorical embedding table (port of
+``jodalrob_twotower_tpu/models/embedding.py``).
+
+All features share one ``[total_rows, D]`` table; each feature's row block
+starts at a 128-row boundary, and per-feature ids are clamped into their
+vocab and shifted by static offsets, so one lookup serves every feature.
+The layout fixes the param shapes, so the flax table maps 1:1 onto this one.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from jodalrob_twotower_torch.ops.embedding_grad import make_onehot_lookup
+from jodalrob_twotower_torch.ops.embedding_lookup import embedding_lookup
+
+# Each feature's row block is padded to a multiple of 128 rows, so every
+# 128-row tile belongs to exactly ONE feature (the one-hot lookup's block
+# test relies on that). The waste is < 128 rows per feature.
+ROW_ALIGNMENT = 128
+
+
+def table_layout(vocab_sizes: tuple[int, ...], row_alignment: int = ROW_ALIGNMENT):
+    """Compute (offsets, total_rows) for the unified table; every feature's
+    block starts at a row_alignment boundary."""
+    offsets = np.zeros(len(vocab_sizes), dtype=np.int32)
+    acc = 0
+    for i, v in enumerate(vocab_sizes):
+        offsets[i] = acc
+        acc += -(-v // row_alignment) * row_alignment
+    return offsets, max(acc, row_alignment)
+
+
+def absolute_rows(vocab_sizes: tuple[int, ...], cat_ids: torch.Tensor) -> torch.Tensor:
+    """Clamp per-feature ids into their vocab and add the unified-table
+    offsets - the mapping EmbeddingCollection applies. cat_ids: int [B, K]
+    -> int32 [B, K]."""
+    offsets, _ = table_layout(vocab_sizes)
+    vmax = np.asarray(vocab_sizes, np.int32) - 1
+    dev = cat_ids.device
+    return _shift(cat_ids, torch.as_tensor(vmax, device=dev), torch.as_tensor(offsets, device=dev))
+
+
+def _shift(cat_ids: torch.Tensor, vmax: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    ids = torch.minimum(torch.clamp(cat_ids.to(torch.int32), min=0), vmax[None, :])
+    return ids + offsets[None, :]
+
+
+def resolve_lookup_mode(model_cfg) -> str:
+    """``ModelConfig.embedding_lookup`` with the dtype gate applied: "auto"
+    demotes to "gather" when ``compute_dtype != bfloat16`` - the one-hot
+    lookup emits bf16 activations, which is free exactly when the towers
+    already compute in bf16. "onehot" stays forced."""
+    mode = getattr(model_cfg, "embedding_lookup", "auto")
+    if mode == "auto" and getattr(model_cfg, "compute_dtype", "bfloat16") != "bfloat16":
+        return "gather"
+    return mode
+
+
+def tile_feature_map(vocab_sizes: tuple[int, ...], row_alignment: int = ROW_ALIGNMENT):
+    """Static map tile_index -> owning feature for the aligned layout."""
+    out = []
+    for k, v in enumerate(vocab_sizes):
+        out.extend([k] * (-(-v // row_alignment)))
+    return np.asarray(out or [0], dtype=np.int32)
+
+
+class EmbeddingCollection(nn.Module):
+    """One embedding table row-block per categorical feature, unified.
+
+    Call with int ids ``[B, K]`` -> embeddings ``[B, K * embed_dim]``: float32
+    from the gather, bfloat16 from the one-hot lookup kernel.
+    """
+
+    # Above this many table rows the reference's dense one-hot path stops
+    # paying (its cost grows with rows x batch); the port keeps the same
+    # envelope for "auto" and the forced mode.
+    DENSE_GRAD_MAX_ROWS = 1 << 16
+
+    def __init__(
+        self,
+        vocab_sizes: tuple[int, ...],
+        embed_dim: int,
+        *,
+        grad_mode: str = "auto",
+        lookup_mode: str = "auto",
+    ) -> None:
+        super().__init__()
+        self.vocab_sizes = tuple(vocab_sizes)
+        self.embed_dim = embed_dim
+        self.grad_mode = grad_mode
+        self.lookup_mode = lookup_mode
+        offsets, self.total_rows = table_layout(self.vocab_sizes)
+        self._offsets = offsets
+        self.table = nn.Parameter(torch.empty(self.total_rows, embed_dim))
+        nn.init.normal_(self.table, std=1.0 / np.sqrt(embed_dim))
+        self._onehot = make_onehot_lookup(self.total_rows, tile_feature_map(self.vocab_sizes))
+        self._consts: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _rows(self, cat_ids: torch.Tensor) -> torch.Tensor:
+        # absolute_rows with its two small constants kept on each device: a
+        # fresh host-to-device copy per call would synchronise the stream
+        consts = self._consts.get(cat_ids.device)
+        if consts is None:
+            consts = self._consts[cat_ids.device] = (
+                torch.as_tensor(np.asarray(self.vocab_sizes, np.int32) - 1, device=cat_ids.device),
+                torch.as_tensor(self._offsets, device=cat_ids.device),
+            )
+        return _shift(cat_ids, *consts)
+
+    def forward(self, cat_ids: torch.Tensor) -> torch.Tensor:
+        if cat_ids.dim() != 2 or cat_ids.shape[1] != len(self.vocab_sizes):
+            raise ValueError(
+                f"cat_ids must be [B, {len(self.vocab_sizes)}], got {tuple(cat_ids.shape)}"
+            )
+        rows = self._rows(cat_ids)
+        if self._onehot_lookup_active(rows):
+            emb = self._onehot(self.table, rows)
+        else:
+            emb = embedding_lookup(self.table, rows)
+        b, k = cat_ids.shape
+        return emb.reshape(b, k * self.embed_dim)
+
+    def _onehot_lookup_active(self, rows: torch.Tensor) -> bool:
+        """``lookup_mode`` resolution (the caller has already applied
+        :func:`resolve_lookup_mode`'s dtype gate). "auto" takes the kernel for
+        CUDA tensors when the table is within the dense envelope, the grad
+        mode keeps the matching dense backward and embed_dim % 8 == 0.
+        "gather" never does. "onehot" forces it (its plain version on the
+        CPU) and raises where it cannot run, instead of silently reverting."""
+        if self.lookup_mode == "gather":
+            return False
+        if self.lookup_mode == "onehot":
+            if self.grad_mode == "scatter":
+                raise ValueError(
+                    "embedding_lookup='onehot' forces the one-hot lookup, whose "
+                    "backward is the dense one-hot gradient - it cannot honor "
+                    "embedding_grad='scatter'; use embedding_lookup='auto'/'gather' "
+                    "to keep the scatter backward, or embedding_grad='auto'/'dense'"
+                )
+            if self.total_rows > self.DENSE_GRAD_MAX_ROWS:
+                raise ValueError(
+                    f"embedding_lookup='onehot' forced but the unified table "
+                    f"({self.total_rows} rows) exceeds the dense one-hot envelope "
+                    f"({self.DENSE_GRAD_MAX_ROWS}); use 'auto' or 'gather'"
+                )
+            if self.embed_dim % 8:
+                raise ValueError(
+                    f"embedding_lookup='onehot' needs embed_dim % 8 == 0 (the "
+                    f"kernel moves 16-byte row pieces); got {self.embed_dim} - use "
+                    "'auto' or 'gather'"
+                )
+            return True
+        return (
+            rows.is_cuda
+            and self.total_rows <= self.DENSE_GRAD_MAX_ROWS
+            and self.grad_mode != "scatter"
+            and self.embed_dim % 8 == 0
+        )

@@ -1,0 +1,119 @@
+"""One retrieval tower (port of ``jodalrob_twotower_tpu/models/tower.py``).
+
+Learned projections of the numeric block and each text block, a dense
+projection to the first hidden width, the categorical embeddings, an MLP of
+Linear -> ReLU -> BatchNorm (-> Dropout in training) blocks, a head and an
+L2 normalisation in float32. Layer names are the flax module names, so the
+converter (convert.py) maps the reference's params 1:1.
+
+Numerics follow flax ``Dense(dtype=compute_dtype)``: inputs, weights and
+biases are cast to the compute dtype. This slice runs the towers in
+inference form only (running BatchNorm statistics, no dropout); the forward
+raises in training mode until the training slice adds it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from jodalrob_twotower_torch.config import ModelConfig
+from jodalrob_twotower_torch.data.types import TowerBatch
+from jodalrob_twotower_torch.models.embedding import EmbeddingCollection, resolve_lookup_mode
+from jodalrob_twotower_torch.schema import SideSchema
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` in inference form: eps 1e-5, statistics in
+    float32, output in the compute dtype. ``weight``/``bias`` are flax's
+    ``scale``/``bias``; ``running_mean``/``running_var`` its ``batch_stats``
+    ``mean``/``var``."""
+
+    eps = 1e-5
+
+    def __init__(self, width: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+        self.register_buffer("running_mean", torch.zeros(width))
+        self.register_buffer("running_var", torch.ones(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean) * mul + self.bias
+        return y.to(x.dtype)
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax Dense(dtype=x.dtype): weight and bias cast to the input's dtype."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+class Tower(nn.Module):
+    """Encode a :class:`TowerBatch` of tensors into an L2-normalized
+    [B, final_dim] float32 embedding."""
+
+    def __init__(self, schema: SideSchema, config: ModelConfig) -> None:
+        super().__init__()
+        self.schema = schema
+        self.config = config
+        self.compute_dtype = _DTYPES[config.compute_dtype]
+        proj = config.dense_projection_dim
+        self.blocks: list[tuple[str, int, int]] = []  # (layer name, start, width) in dense
+        off = 0
+        if schema.num_numeric:
+            self.blocks.append(("proj_numeric", 0, schema.num_numeric))
+            off = schema.num_numeric
+        for t in schema.text:
+            self.blocks.append((f"proj_{t.name}", off, t.embed_dim))
+            off += t.embed_dim
+        for name, _, width in self.blocks:
+            self.add_module(name, nn.Linear(width, proj))
+        if self.blocks:
+            self.dense_projection = nn.Linear(proj * len(self.blocks), config.tower_hidden_dims[0])
+        if schema.num_categorical:
+            self.embeddings = EmbeddingCollection(
+                schema.vocab_sizes,
+                config.categorical_embedding_dim,
+                grad_mode=config.embedding_grad,
+                lookup_mode=resolve_lookup_mode(config),
+            )
+        if not self.blocks and not schema.num_categorical:
+            raise ValueError(f"tower {schema.table!r} has no features")
+        width = (config.tower_hidden_dims[0] if self.blocks else 0) + (
+            schema.num_categorical * config.categorical_embedding_dim
+        )
+        for i, out in enumerate(config.tower_hidden_dims[1:]):
+            self.add_module(f"mlp_{i}", nn.Linear(width, out))
+            if config.use_batch_norm:
+                self.add_module(f"bn_{i}", BatchNorm(out))
+            width = out
+        self.head = nn.Linear(width, config.final_embedding_dim)
+
+    def forward(self, batch: TowerBatch) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "the port's towers run in inference form only until the training "
+                "slice lands; call .eval() (build_model returns an eval-mode model)"
+            )
+        cfg = self.config
+        dense = batch.dense.to(self.compute_dtype)
+        parts = []
+        if self.blocks:
+            projected = [
+                F.relu(_dense(getattr(self, name), dense[:, start : start + width]))
+                for name, start, width in self.blocks
+            ]
+            parts.append(_dense(self.dense_projection, torch.cat(projected, dim=1)))
+        if self.schema.num_categorical:
+            parts.append(self.embeddings(batch.cat_ids).to(self.compute_dtype))
+        x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        for i in range(len(cfg.tower_hidden_dims) - 1):
+            x = F.relu(_dense(getattr(self, f"mlp_{i}"), x))
+            if cfg.use_batch_norm:
+                x = getattr(self, f"bn_{i}")(x)
+        x = _dense(self.head, x).float()
+        return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)

@@ -1,0 +1,56 @@
+"""Two-tower model: notice tower + company tower (port of
+``jodalrob_twotower_tpu/models/two_tower.py``)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from jodalrob_twotower_torch.config import ModelConfig
+from jodalrob_twotower_torch.data.types import PairBatch, TowerBatch
+from jodalrob_twotower_torch.models.tower import BatchNorm, Tower
+from jodalrob_twotower_torch.schema import TwoTowerSchema
+
+
+class TwoTowerModel(nn.Module):
+    """Both towers share one :class:`ModelConfig`, so their final dims match.
+    Constructed in eval mode (the only mode this slice runs)."""
+
+    def __init__(self, schema: TwoTowerSchema, config: ModelConfig) -> None:
+        super().__init__()
+        self.schema = schema
+        self.config = config
+        self.notice_tower = Tower(schema.notice, config)
+        self.company_tower = Tower(schema.company, config)
+        self.eval()
+
+    def forward(self, batch: PairBatch) -> tuple[torch.Tensor, torch.Tensor]:
+        """(notice_emb, company_emb), both [B, final_dim], L2-normalized."""
+        return self.notice_tower(batch.notice), self.company_tower(batch.company)
+
+    def encode_notice(self, batch: TowerBatch) -> torch.Tensor:
+        return self.notice_tower(batch)
+
+    def encode_company(self, batch: TowerBatch) -> torch.Tensor:
+        return self.company_tower(batch)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "TwoTowerModel":
+        """Random weights from ``generator`` with flax's default distributions
+        (lecun-normal kernels as a plain normal, zero biases, N(0, 1/D)
+        tables) and random BatchNorm statistics, so that a wrong statistics
+        map shows in a comparison. Returns self."""
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                fan_in = module.weight.shape[1]
+                module.weight.copy_(torch.randn(module.weight.shape, generator=generator) / np.sqrt(fan_in))
+                module.bias.zero_()
+            elif isinstance(module, BatchNorm):
+                n = module.weight.shape[0]
+                module.running_mean.copy_(0.1 * torch.randn(n, generator=generator))
+                module.running_var.copy_(0.5 + torch.rand(n, generator=generator))
+        for name, p in self.named_parameters():
+            if name.endswith("embeddings.table"):
+                p.copy_(torch.randn(p.shape, generator=generator) / np.sqrt(p.shape[1]))
+        return self

@@ -1,0 +1,405 @@
+"""MIPS top-k indexes over a frozen corpus of tower embeddings (port of
+``jodalrob_twotower_tpu/serving/index.py``, single device).
+
+* :class:`BruteForceIndex` - exact maximum-inner-product search: [Q, N]
+  float32 matmul + top-k, corpus resident on the device.
+* :class:`Int8Index` - corpus rows quantized to int8 with one f32 scale per
+  row (max-abs symmetric); scores are ``(bf16(q) . int8_row) * row_scale``
+  with float32 accumulation, optionally rescored exactly on the best
+  ``rescore_depth`` candidates.
+
+``corpus_chunk`` stores the corpus as [n_chunks, C, D] and searches chunk by
+chunk with a running top-k, so peak memory is one [Q, C] score block.
+
+The scoring products and top-k stay ``torch.matmul`` and ``torch.topk``, as
+the reference left them to XLA. Products of bf16-rounded values are formed
+in float32: exact, and the same sum as a bf16 product with float32
+accumulation. The reference's ``approx_max_k`` has no PyTorch counterpart,
+so ``approx_recall`` raises. The mesh-sharded index arrives with the
+parallel slice. The npz format of ``save_index``/``load_index`` is the
+reference's, so an index saved by either package loads in the other.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from jodalrob_twotower_torch.device import resolve_device
+
+
+class SearchResult(NamedTuple):
+    scores: np.ndarray  # [Q, k] float32, descending
+    indices: np.ndarray  # [Q, k] int32 corpus rows
+
+
+_NEG = float(np.finfo(np.float32).min)
+
+
+class HostCopy:
+    """Device-to-host copies of result tensors into pinned memory, started
+    with ``non_blocking`` at construction and waited on in :meth:`result`."""
+
+    def __init__(self, *tensors: torch.Tensor) -> None:
+        self.event = None
+        if tensors[0].is_cuda:
+            self.hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for host, t in zip(self.hosts, tensors):
+                host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(tensors[0].device))
+        else:
+            self.hosts = [t.detach() for t in tensors]
+
+    def result(self) -> list[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.hosts]
+
+
+def _check_approx(approx_recall: float | None) -> None:
+    if approx_recall is not None:
+        raise ValueError(
+            "approx_recall selects jax.lax.approx_max_k, which has no PyTorch "
+            "counterpart; the port searches exactly (use rescore_depth for the "
+            "two-stage int8 search)"
+        )
+
+
+def _check_rescore_depth(depth: int | None) -> int | None:
+    if depth is not None and depth < 1:
+        raise ValueError(f"rescore_depth must be >= 1, got {depth}")
+    return depth
+
+
+def _pad_chunks(arr: torch.Tensor, chunk: int) -> torch.Tensor:
+    """[N, ...] -> [n_chunks, chunk, ...]; padding rows are zeros."""
+    n = arr.shape[0]
+    n_chunks = max(1, -(-n // chunk))
+    pad = n_chunks * chunk - n
+    if pad:
+        arr = torch.cat([arr, arr.new_zeros((pad, *arr.shape[1:]))])
+    return arr.reshape(n_chunks, chunk, *arr.shape[1:])
+
+
+def _as_corpus(corpus_emb, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(corpus_emb).to(device=device, dtype=torch.float32)
+
+
+def _merge_topk(scores_a, idx_a, scores_b, idx_b, k: int):
+    """Merge two per-query candidate sets into the best k of their union."""
+    s, sel = torch.topk(torch.cat([scores_a, scores_b], dim=1), k, dim=1)
+    return s, torch.gather(torch.cat([idx_a, idx_b], dim=1), 1, sel)
+
+
+def _rescore_topk(queries, cand_scores, cand_idx, k: int, rescore_rows, rescore_scales=None):
+    """Second-stage exact rescore of first-pass candidates.
+
+    ``cand_idx`` [Q, R] (R >= k) indexes ``rescore_rows`` [N, D] (a bf16/f32
+    full-precision copy, or the int8 values with ``rescore_scales`` for a
+    dequantized rescore). The R candidate rows per query are gathered and
+    scored exactly (the query rounded to the rows' type, or to bf16 for int8
+    rows) before the final top-k."""
+    cand = rescore_rows[cand_idx]  # [Q, R, D]
+    dtype = torch.bfloat16 if cand.dtype == torch.int8 else cand.dtype
+    q = queries.to(dtype).float()
+    s = torch.bmm(cand.to(dtype).float(), q[:, :, None])[..., 0]
+    if rescore_scales is not None:
+        s = s * rescore_scales[:, 0][cand_idx]
+    # first-pass padding sentinels stay unselectable
+    s = torch.where(cand_scores <= _NEG, _NEG, s)
+    s2, sel = torch.topk(s, k, dim=1)
+    return s2, torch.gather(cand_idx, 1, sel)
+
+
+def _scanned_topk(chunk_sims_fn, n_chunks: int, chunk_rows: int, n_valid: int,
+                  queries: torch.Tensor, k: int):
+    """Running top-k over corpus chunks; peak memory is one [Q, chunk] block.
+
+    ``chunk_sims_fn(queries, ci) -> [Q, chunk_rows] f32`` scores chunk ci.
+    Padding rows (global row >= n_valid) are masked to the float32 minimum."""
+    q = queries.shape[0]
+    best_s = torch.full((q, k), _NEG, dtype=torch.float32, device=queries.device)
+    best_i = torch.zeros((q, k), dtype=torch.int64, device=queries.device)
+    cols = torch.arange(chunk_rows, device=queries.device)
+    for ci in range(n_chunks):
+        sims = chunk_sims_fn(queries, ci)
+        if (ci + 1) * chunk_rows > n_valid:
+            sims = torch.where(ci * chunk_rows + cols[None, :] < n_valid, sims, _NEG)
+        s, i = torch.topk(sims, k, dim=1)
+        best_s, best_i = _merge_topk(best_s, best_i, s, i + ci * chunk_rows, k)
+    return best_s, best_i
+
+
+def _search(index, queries, k: int) -> SearchResult:
+    queries = torch.as_tensor(queries).to(index.device)
+    scores, indices = [], []
+    for start in range(0, queries.shape[0], index.query_chunk):
+        s, i = HostCopy(*index.topk_body(queries[start : start + index.query_chunk], k)).result()
+        scores.append(s)
+        indices.append(i)
+    return SearchResult(np.concatenate(scores), np.concatenate(indices))
+
+
+class BruteForceIndex:
+    """Exact MIPS: corpus [N, D] f32 resident on the device.
+
+    ``corpus_chunk=None`` keeps one flat [N, D] tensor and a single-matmul
+    search. With ``corpus_chunk=C`` the corpus lives as [n_chunks, C, D] and
+    search scans the chunks.
+    """
+
+    kind = "exact"
+
+    def __init__(self, corpus_emb, *, query_chunk: int = 1024,
+                 corpus_chunk: int | None = None,
+                 approx_recall: float | None = None,
+                 rescore_depth: int | None = None,
+                 device=None) -> None:
+        _check_approx(approx_recall)
+        self.device = resolve_device(device)
+        corpus = _as_corpus(corpus_emb, self.device)
+        self.query_chunk = query_chunk
+        self.corpus_chunk = corpus_chunk
+        self.approx_recall = None
+        self.rescore_depth = _check_rescore_depth(rescore_depth)
+        self.n_valid = corpus.shape[0]
+        self.corpus = corpus if corpus_chunk is None else _pad_chunks(corpus, corpus_chunk)
+
+    def topk_body(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device search of one query block: (scores [Q, k] f32, rows [Q, k] int32)."""
+        q32 = queries.float()
+        corpus = self.corpus
+        kk = max(k, self.rescore_depth or 0)
+        if self.corpus_chunk is None:
+            kk = max(k, min(kk, corpus.shape[0]))
+            s, i = torch.topk(q32 @ corpus.T, kk, dim=1)
+            flat = corpus
+        else:
+            nc, c, _ = corpus.shape
+            kk = max(k, min(kk, c))  # per-chunk candidate cap
+            s, i = _scanned_topk(lambda qs, ci: qs @ corpus[ci].T, nc, c, self.n_valid, q32, kk)
+            flat = corpus.reshape(-1, corpus.shape[-1])
+        if self.rescore_depth:
+            # exact second pass over the kk candidates: scores become exact
+            # f32 dots and the chunk-merge selection is re-ranked
+            s, i = _rescore_topk(q32, s, i, k, flat)
+        return s, i.to(torch.int32)
+
+    def __len__(self) -> int:
+        return self.n_valid
+
+    def search(self, queries, k: int = 10) -> SearchResult:
+        return _search(self, queries, k)
+
+    def _host_corpus(self) -> np.ndarray:
+        flat = self.corpus.reshape(-1, self.corpus.shape[-1])[: self.n_valid]
+        return flat.cpu().numpy()
+
+
+class Int8Index:
+    """Row-wise symmetric int8 quantized MIPS."""
+
+    kind = "int8"
+
+    def __init__(self, corpus_emb, *, query_chunk: int = 1024,
+                 corpus_chunk: int | None = None,
+                 approx_recall: float | None = None,
+                 rescore_depth: int | None = None,
+                 rescore_dtype: str = "int8",
+                 device=None) -> None:
+        device = resolve_device(device)
+        corpus = _as_corpus(corpus_emb, device)
+        values, scales = quantize_int8(corpus)
+        rescore_rows = corpus if rescore_depth and rescore_dtype == "bfloat16" else None
+        self._init_from_quantized(values, scales, query_chunk, corpus_chunk, approx_recall,
+                                  rescore_depth, rescore_dtype, rescore_rows, device)
+
+    def _init_from_quantized(self, values, scales, query_chunk: int,
+                             corpus_chunk: int | None,
+                             approx_recall: float | None,
+                             rescore_depth: int | None,
+                             rescore_dtype: str,
+                             rescore_rows,
+                             device: torch.device) -> None:
+        _check_approx(approx_recall)
+        if rescore_dtype not in ("int8", "bfloat16"):
+            raise ValueError(
+                f"rescore_dtype must be 'int8' or 'bfloat16', got {rescore_dtype!r}"
+            )
+        if rescore_depth and rescore_dtype == "bfloat16" and rescore_rows is None:
+            raise ValueError(
+                "bfloat16 rescore needs the full-precision corpus; build via "
+                "Int8Index(corpus_emb, ...) or pass rescore_rows"
+            )
+        if rescore_rows is not None and rescore_rows.shape[0] != values.shape[0]:
+            raise ValueError(
+                f"rescore_rows has {rescore_rows.shape[0]} rows but values has "
+                f"{values.shape[0]} - they must cover the same corpus"
+            )
+        self.device = device
+        self.query_chunk = query_chunk
+        self.corpus_chunk = corpus_chunk
+        self.approx_recall = None
+        self.rescore_depth = _check_rescore_depth(rescore_depth)
+        self.rescore_dtype = rescore_dtype
+        values = torch.as_tensor(values).to(device)
+        scales = torch.as_tensor(scales).to(device)
+        self.n_valid = values.shape[0]
+        if corpus_chunk is None:
+            self.values, self.scales = values, scales  # [N, D] int8, [N, 1] f32
+        else:
+            self.values = _pad_chunks(values, corpus_chunk)  # [nc, C, D]
+            self.scales = _pad_chunks(scales, corpus_chunk)  # [nc, C, 1]
+        self.rescore_rows = None
+        if self.rescore_depth and rescore_dtype == "bfloat16":
+            rows = torch.as_tensor(rescore_rows).to(device=device, dtype=torch.bfloat16)
+            if corpus_chunk is not None:
+                # pad to the chunked row count so candidate indices into
+                # padding rows stay in bounds (their scores are masked)
+                rows = _pad_chunks(rows, corpus_chunk).reshape(-1, rows.shape[-1])
+            self.rescore_rows = rows  # [N_pad, D] bf16
+
+    @classmethod
+    def from_quantized(cls, values, scales, *, query_chunk: int = 1024,
+                       corpus_chunk: int | None = None,
+                       approx_recall: float | None = None,
+                       rescore_depth: int | None = None,
+                       rescore_dtype: str = "int8",
+                       rescore_rows=None,
+                       device=None) -> "Int8Index":
+        """Build from already-quantized rows (numpy or tensors)."""
+        idx = cls.__new__(cls)
+        idx._init_from_quantized(values, scales, query_chunk, corpus_chunk, approx_recall,
+                                 rescore_depth, rescore_dtype, rescore_rows,
+                                 resolve_device(device))
+        return idx
+
+    def topk_body(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device search of one query block: (scores [Q, k] f32, rows [Q, k] int32)."""
+        qbf = queries.to(torch.bfloat16).float()
+        values, scales = self.values, self.scales
+        kk = max(k, self.rescore_depth or 0)
+        if self.corpus_chunk is None:
+            kk = max(k, min(kk, values.shape[0]))
+            sims = (qbf @ values.float().T).mul_(scales[:, 0][None, :])
+            s, i = torch.topk(sims, kk, dim=1)
+            values_flat, scales_flat = values, scales
+        else:
+            nc, c, _ = values.shape
+            kk = max(k, min(kk, c))  # per-chunk candidate cap
+
+            def chunk_sims(qs, ci):
+                return (qs @ values[ci].float().T).mul_(scales[ci][:, 0][None, :])
+
+            s, i = _scanned_topk(chunk_sims, nc, c, self.n_valid, qbf, kk)
+            values_flat = values.reshape(-1, values.shape[-1])
+            scales_flat = scales.reshape(-1, 1)
+        if self.rescore_depth:
+            if self.rescore_rows is not None:  # bf16 full-precision second pass
+                s, i = _rescore_topk(queries, s, i, k, self.rescore_rows)
+            else:  # dequantized int8: re-ranks the chunk-merge selection only
+                s, i = _rescore_topk(queries, s, i, k, values_flat, scales_flat)
+        return s, i.to(torch.int32)
+
+    def __len__(self) -> int:
+        return self.n_valid
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes the index pins: int8 values + f32 scales + the bf16
+        rescore copy when present."""
+        n = self.values.numel() + self.scales.numel() * 4
+        if self.rescore_rows is not None:
+            n += self.rescore_rows.numel() * 2
+        return n
+
+    def search(self, queries, k: int = 10) -> SearchResult:
+        return _search(self, queries, k)
+
+    def _host_quantized(self) -> tuple[np.ndarray, np.ndarray]:
+        v = self.values.reshape(-1, self.values.shape[-1])[: self.n_valid]
+        s = self.scales.reshape(-1, 1)[: self.n_valid]
+        return v.cpu().numpy(), s.cpu().numpy()
+
+
+def quantize_int8(corpus):
+    """Row-wise symmetric int8: values [N, D] int8, scales [N, 1] f32.
+
+    Works on numpy arrays or tensors (on their device), with the same
+    arithmetic, so both give the reference's bits."""
+    if isinstance(corpus, torch.Tensor):
+        amax = corpus.abs().amax(dim=1, keepdim=True)
+        scales = (amax / 127.0).float()
+        safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+        values = torch.clamp(torch.round(corpus / safe), -127, 127).to(torch.int8)
+        return values, scales
+    amax = np.max(np.abs(corpus), axis=1, keepdims=True)
+    scales = (amax / 127.0).astype(np.float32)
+    safe = np.where(scales > 0, scales, np.ones_like(scales))
+    values = np.clip(np.round(corpus / safe), -127, 127).astype(np.int8)
+    return values, scales
+
+
+def save_index(index: "BruteForceIndex | Int8Index", path) -> None:
+    """Persist a built index (npz, the reference's format): rebuildable
+    without the towers."""
+    if isinstance(index, Int8Index):
+        values, scales = index._host_quantized()
+        extra = {}
+        if index.rescore_rows is not None:
+            # bf16 doesn't survive npz: persist as f32 (exact superset),
+            # without the chunk padding - load re-pads
+            extra["rescore_rows"] = index.rescore_rows[: index.n_valid].float().cpu().numpy()
+        np.savez_compressed(
+            path, kind="int8", values=values, scales=scales,
+            query_chunk=index.query_chunk,
+            corpus_chunk=index.corpus_chunk or 0,
+            approx_recall=0.0,
+            rescore_depth=index.rescore_depth or 0,
+            rescore_dtype=index.rescore_dtype,
+            **extra,
+        )
+    else:
+        np.savez_compressed(
+            path, kind="exact", corpus=index._host_corpus(),
+            query_chunk=index.query_chunk,
+            corpus_chunk=index.corpus_chunk or 0,
+            approx_recall=0.0,
+            rescore_depth=index.rescore_depth or 0,
+        )
+
+
+def load_index(path, *, device=None) -> "BruteForceIndex | Int8Index":
+    with np.load(path) as z:
+        kind = str(z["kind"])
+        corpus_chunk = int(z["corpus_chunk"]) if "corpus_chunk" in z else 0
+        approx = float(z["approx_recall"]) if "approx_recall" in z else 0.0
+        depth = int(z["rescore_depth"]) if "rescore_depth" in z else 0
+        if kind == "int8":
+            return Int8Index.from_quantized(
+                z["values"], z["scales"],
+                query_chunk=int(z["query_chunk"]),
+                corpus_chunk=corpus_chunk or None,
+                approx_recall=approx or None,
+                rescore_depth=depth or None,
+                rescore_dtype=(str(z["rescore_dtype"]) if "rescore_dtype" in z else "int8"),
+                rescore_rows=(z["rescore_rows"] if "rescore_rows" in z else None),
+                device=device,
+            )
+        return BruteForceIndex(z["corpus"], query_chunk=int(z["query_chunk"]),
+                               corpus_chunk=corpus_chunk or None,
+                               approx_recall=approx or None,
+                               rescore_depth=depth or None,
+                               device=device)
+
+
+def recall_vs_exact(approx: SearchResult, exact: SearchResult, k: int | None = None) -> float:
+    """Fraction of exact top-k that the approximate index recovered."""
+    k = k or exact.indices.shape[1]
+    hits = 0
+    for a_row, e_row in zip(approx.indices[:, :k], exact.indices[:, :k]):
+        hits += len(set(a_row.tolist()) & set(e_row.tolist()))
+    return hits / (exact.indices.shape[0] * k)

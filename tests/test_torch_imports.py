@@ -1,0 +1,50 @@
+"""The PyTorch port and chip_smoke.py stand alone: they import no JAX, flax,
+optax or JAX-package module (the machine with the card has none of them),
+and importing the port pulls in none of them either."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "jodalrob_twotower_tpu"}
+SOURCES = sorted((REPO / "jodalrob_twotower_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_source_imports_nothing_of_jax(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in SOURCES
+        if p.name != "chip_smoke.py"
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr

@@ -1,0 +1,160 @@
+"""The port's towers against flax in eval mode, with the same numpy inputs
+and the reference's variables mapped by the converter. JAX runs the
+one-hot lookup through its Pallas kernel in interpret mode
+(``embedding_lookup="onehot"``); the port runs the kernel's plain version.
+Tolerances: atol 1e-5 in float32 compute; 2e-2 in bfloat16 compute, where
+the two frameworks round the Dense outputs and bias adds at other places."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from jodalrob_twotower_torch.config import MeshConfig
+from jodalrob_twotower_torch.config import TrainConfig as TorchTrainConfig
+from jodalrob_twotower_torch.convert import flax_to_state_dict
+from jodalrob_twotower_torch.data.types import TowerBatch as TorchTowerBatch
+from jodalrob_twotower_torch.models import build_model
+from jodalrob_twotower_torch.models.embedding import EmbeddingCollection
+from jodalrob_twotower_torch.models.two_tower import TwoTowerModel as TorchTwoTowerModel
+from jodalrob_twotower_torch.serving.service import FrozenState
+from jodalrob_twotower_torch.train.train_step import make_encode_fn
+from jodalrob_twotower_tpu.data.types import TowerBatch as JaxTowerBatch
+from jodalrob_twotower_tpu.models.two_tower import TwoTowerModel as JaxTwoTowerModel
+
+from torch_parity import flax_variables, model_configs, schemas, side_inputs
+
+CASES = {
+    # (compute dtype, lookup) -> atol
+    ("float32", "onehot"): 1e-5,
+    ("bfloat16", "onehot"): 2e-2,
+    ("float32", "auto"): 1e-5,
+}
+
+
+@pytest.fixture(scope="module", params=list(CASES), ids=lambda c: "-".join(c))
+def pair(request):
+    compute_dtype, lookup = request.param
+    j_schema, t_schema = schemas()
+    j_cfg, t_cfg = model_configs(compute_dtype=compute_dtype, embedding_lookup=lookup)
+    j_model = JaxTwoTowerModel(j_schema, j_cfg)
+    variables = flax_variables(j_model, j_schema, np.random.default_rng(7))
+    t_model = TorchTwoTowerModel(t_schema, t_cfg)
+    state = FrozenState(flax_to_state_dict(t_model, variables["params"], variables["batch_stats"]))
+    return j_schema, j_model, variables, t_model, state, CASES[request.param]
+
+
+def _both(pair, side, dense, cat):
+    j_schema, j_model, variables, t_model, state, _ = pair
+    method = {"notice": j_model.encode_notice, "company": j_model.encode_company}[side]
+    want = j_model.apply(variables, JaxTowerBatch(dense=dense, cat_ids=cat), method=method)
+    got = make_encode_fn(t_model, side)(
+        state, TorchTowerBatch(torch.from_numpy(dense), torch.from_numpy(cat))
+    )
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("side", ["notice", "company"])
+def test_encode_matches_flax(pair, side):
+    rng = np.random.default_rng(11)
+    dense, cat = side_inputs(pair[0].side(side), rng, 37)
+    got, want = _both(pair, side, dense, cat)
+    assert got.dtype == np.float32 and got.shape == (37, 16)
+    np.testing.assert_allclose(got, want, atol=pair[-1], rtol=0)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-5)
+
+
+def test_out_of_range_ids_clamp_like_flax(pair):
+    rng = np.random.default_rng(12)
+    side = pair[0].notice
+    dense, cat = side_inputs(side, rng, 29, out_of_range=True)
+    assert (cat < 0).any() and (cat >= np.asarray(side.vocab_sizes)).any()
+    got, want = _both(pair, "notice", dense, cat)
+    np.testing.assert_allclose(got, want, atol=pair[-1], rtol=0)
+    clipped = np.clip(cat, 0, np.asarray(side.vocab_sizes) - 1).astype(np.int32)
+    np.testing.assert_array_equal(got, _both(pair, "notice", dense, clipped)[0])
+
+
+def test_wrong_cat_width_raises(pair):
+    _, _, _, t_model, state, _ = pair
+    encode = make_encode_fn(t_model, "company")
+    dense = torch.zeros(3, t_model.schema.company.dense_dim)
+    with pytest.raises(ValueError, match=r"cat_ids must be \[B, 2\]"):
+        encode(state, TorchTowerBatch(dense, torch.zeros(3, 3, dtype=torch.int32)))
+
+
+def test_converter_names_follow_flax(pair):
+    _, _, variables, t_model, _, _ = pair
+    flat = {
+        "/".join(str(k.key) for k in path): np.shape(leaf)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(variables)[0]
+    }
+    assert flat["params/notice_tower/proj_title/kernel"] == (12, 16)
+    assert flat["params/notice_tower/embeddings/table"] == (128 + 256 + 1024, 8)
+    sd = t_model.state_dict()
+    assert tuple(sd["notice_tower.proj_title.weight"].shape) == (16, 12)
+    assert "notice_tower.bn_0.running_var" in sd and "company_tower.head.bias" in sd
+
+
+@pytest.mark.parametrize(
+    "mutate,match",
+    [
+        (lambda p, s: p["notice_tower"]["mlp_0"].pop("kernel"), "lack params/notice_tower/mlp_0/kernel"),
+        (lambda p, s: s["company_tower"]["bn_0"].pop("var"), "lack batch_stats/company_tower/bn_0/var"),
+        (lambda p, s: p["company_tower"]["head"].update(kernel=np.zeros((16, 32), np.float32)), "shape"),
+        (lambda p, s: p["notice_tower"]["embeddings"].update(table=np.zeros((1400, 8), np.float32)), "shape"),
+        (lambda p, s: p["notice_tower"].update(extra={"kernel": np.zeros(3)}), "no place"),
+    ],
+)
+def test_converter_rejects_missing_or_misshaped(mutate, match):
+    j_schema, t_schema = schemas()
+    j_cfg, t_cfg = model_configs()
+    variables = flax_variables(JaxTwoTowerModel(j_schema, j_cfg), j_schema, np.random.default_rng(0))
+    params = jax.tree_util.tree_map(np.copy, variables["params"])
+    stats = jax.tree_util.tree_map(np.copy, variables["batch_stats"])
+    params = {k: {m: dict(v) for m, v in t.items()} for k, t in params.items()}
+    stats = {k: {m: dict(v) for m, v in t.items()} for k, t in stats.items()}
+    mutate(params, stats)
+    with pytest.raises(ValueError, match=match):
+        flax_to_state_dict(TorchTwoTowerModel(t_schema, t_cfg), params, stats)
+
+
+@pytest.mark.parametrize(
+    "kw,match",
+    [
+        (dict(grad_mode="scatter"), "embedding_grad='scatter'"),
+        (dict(vocabs=(70_000,)), "exceeds the dense one-hot envelope"),
+        (dict(embed_dim=12), "embed_dim % 8 == 0"),
+    ],
+)
+def test_forced_onehot_raises_where_it_cannot_run(kw, match):
+    kw = dict(kw)
+    vocabs = kw.pop("vocabs", (30, 40))
+    coll = EmbeddingCollection(vocabs, kw.pop("embed_dim", 8), lookup_mode="onehot", **kw)
+    with pytest.raises(ValueError, match=match), torch.no_grad():
+        coll(torch.zeros(2, len(vocabs), dtype=torch.int32))
+
+
+def test_build_model_single_device_only():
+    _, t_schema = schemas()
+    cfg = TorchTrainConfig()
+    model = build_model(t_schema, cfg)
+    assert not model.training
+    with pytest.raises(NotImplementedError, match="one device"):
+        build_model(t_schema, cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="use_pallas_lookup"):
+        build_model(t_schema, cfg.replace(mesh=MeshConfig(use_pallas_lookup=True)))
+    model.train()
+    batch = TorchTowerBatch(
+        torch.zeros(2, t_schema.company.dense_dim), torch.zeros(2, 2, dtype=torch.int32)
+    )
+    with pytest.raises(NotImplementedError, match="inference form"):
+        model.encode_company(batch)
+
+
+def test_reference_shape_has_the_reference_param_count():
+    """TrainConfig() on reference_shaped_schema(): 2.19M params, as flax."""
+    from jodalrob_twotower_torch.schema import reference_shaped_schema
+
+    model = build_model(reference_shaped_schema(), TorchTrainConfig())
+    assert sum(p.numel() for p in model.parameters()) == 2_186_112
