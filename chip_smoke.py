@@ -2,16 +2,26 @@
 """Smoke run of the PyTorch/CUDA port (``jodalrob_twotower_torch``) on one
 NVIDIA card.
 
-1. Builds every hand-written kernel from the checkout's sources.
+1. Builds every hand-written kernel from the checkout's sources, one nvcc
+   process per source, all at once.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at the shapes the serving path gives it (bit-exact for the one-hot
-   lookup), and times kernel, plain version and the nearest library call.
+   card at the shapes its path gives it (bit-exact for the one-hot lookup;
+   two calls bit-equal for the table gradient and the CE backward), and
+   times kernel, plain version and the nearest library call beside the
+   kernel's bound.
 3. Serving phase: drives the serving path at full width - ``TrainConfig()``
    on ``reference_shaped_schema()`` (2.19M params), random weights from a
    seeded generator, a synthetic corpus of 1,000,000 companies - through
    ``RetrievalService`` (exact flat, and int8 chunked with a bf16 rescore),
    checks its answers against plain float32 scans, shows through the launch
    counters that the path ran the kernels, and measures throughput.
+4. Training phase: the headline bench's workload (``jodalrob_twotower_torch.
+   bench``: the same config at B=8192, 16 steps per call, stores and pairs
+   on the card) for one warm-up and several timed calls; the launch counters
+   show that the steps ran all four kernels; every loss must be finite and
+   the last call's mean below the first's. Then one step's loss and
+   gradients at B=1024 on the card against the same step on the CPU through
+   the plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
 nonzero; so does a machine without a CUDA device. The second-to-last line is
@@ -22,30 +32,55 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from jodalrob_twotower_torch.config import TrainConfig
+from jodalrob_twotower_torch import bench
+from jodalrob_twotower_torch.config import LossConfig, TrainConfig
 from jodalrob_twotower_torch.data.synthetic import make_synthetic_dataset
+from jodalrob_twotower_torch.data.types import PairBatch, default_tower_gather
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.models.embedding import table_layout, tile_feature_map
 from jodalrob_twotower_torch.ops import _build
 from jodalrob_twotower_torch.ops.embedding_grad import (
+    dense_table_grad,
+    dense_table_grad_plain,
     dense_table_lookup,
     dense_table_lookup_plain,
+)
+from jodalrob_twotower_torch.ops.fused_logits import (
+    _bwd_constants,
+    fused_ce_bwd,
+    fused_ce_bwd_plain,
+    fused_lean_lse,
+    fused_lean_lse_plain,
 )
 from jodalrob_twotower_torch.schema import reference_shaped_schema
 from jodalrob_twotower_torch.serving.index import recall_vs_exact
 from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
-from jodalrob_twotower_torch.train.train_step import make_encode_fn
+from jodalrob_twotower_torch.train.train_step import create_train_state, loss_and_grads, make_encode_fn
+from jodalrob_twotower_torch.utils.flops import H100_PEAK_BF16_FLOPS
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at the 700 W limit
-KERNEL_SOURCES = ["onehot_lookup"]  # csrc/<name>.cu
+KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd"]  # csrc/<name>.cu
+LAUNCH_COUNTERS = (dense_table_lookup, dense_table_grad, fused_lean_lse, fused_ce_bwd)
 TIMED_RUNS = 100
+CE_BATCH, CE_DIM = 8192, 128  # the training path's loss shape
+TRAIN_TIMED_CALLS = 10
+GRAD_CHECK_BATCH = 1024
+# stated tolerances, kernel against plain version on the card
+LSE_ATOL = 1e-4  # lse of 8192 terms: f32 sums in another order, __expf (a few ulp)
+CE_BWD_RTOL = 1e-3  # of max |plain|: A is rounded to bf16, an entry on a boundary may round apart
+GRAD_ATOL = 1e-4  # f32 sums of <= a few hundred bf16 values of g ~ N(0, 1), another order
+# one step, card against CPU: the loss within 2e-3 (bf16 activations); each
+# gradient leaf within 1.5 times its own bf16 noise (the CPU's bf16 gradient
+# against a float32 one) plus 0.005 (relative norms)
+STEP_GRAD_NOISE_FACTOR = 1.5
+STEP_GRAD_SLACK = 0.005
+STEP_LOSS_ATOL = 2e-3
 N_COMPANIES = 1_000_000
 N_NOTICES = 20_000
 QUERY_BATCH = 1024
@@ -56,14 +91,6 @@ SEED = 0
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip smoke check failed: {what}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def median_ms(fn, flush: torch.Tensor) -> float:
@@ -88,7 +115,7 @@ def median_ms(fn, flush: torch.Tensor) -> float:
 
 
 def lookup_case(name: str, vocabs: tuple[int, ...], batch: int, table_dtype, gen, *, ragged: bool):
-    """Inputs of the one-hot lookup at one of the serving path's shapes."""
+    """Inputs of the one-hot lookup at one of its paths' shapes."""
     offsets, total_rows = table_layout(vocabs)
     # ragged: ids also reach the block's alignment padding (in block, served)
     ids = np.stack([gen.integers(0, -(-v // 128) * 128 if ragged else v, size=batch) for v in vocabs], axis=1)
@@ -104,8 +131,8 @@ def lookup_case(name: str, vocabs: tuple[int, ...], batch: int, table_dtype, gen
     return {
         "case": name,
         "table": table.to("cuda", table_dtype),
-        "rows": torch.from_numpy(rows.astype(np.int32)).cuda(),
-        "tile_feature": torch.from_numpy(tile_feature_map(vocabs)).cuda(),
+        "rows": torch.from_numpy(rows.astype(np.int32)).to("cuda"),
+        "tile_feature": torch.from_numpy(tile_feature_map(vocabs)).to("cuda"),
     }
 
 
@@ -120,10 +147,11 @@ def lookup_bytes(table, rows, tile_feature) -> int:
     return rows.numel() * 4 + tile_feature.numel() * 4 + unique_rows * d * table.element_size() + b * k * d * 2
 
 
-def kernel_phase(flush: torch.Tensor) -> dict:
+def lookup_phase(flush: torch.Tensor) -> dict:
     gen = np.random.default_rng(SEED)
     schema = reference_shaped_schema()
-    cases = [
+    cases = [  # the training path's shapes first (its record reports the first), then serving's
+        lookup_case("notice B=8192 K=32 R=32768", schema.notice.vocab_sizes, 8192, torch.float32, gen, ragged=False),
         lookup_case("notice B=1024 K=32 R=32768", schema.notice.vocab_sizes, 1024, torch.float32, gen, ragged=False),
         lookup_case("company B=8192 K=6 R=6144", schema.company.vocab_sizes, 8192, torch.float32, gen, ragged=False),
         lookup_case("ragged B=1000 K=32 R=32768", schema.notice.vocab_sizes, 1000, torch.float32, gen, ragged=True),
@@ -150,6 +178,178 @@ def kernel_phase(flush: torch.Tensor) -> dict:
         check(equal, f"onehot_lookup != plain version, case {c['case']} (max abs err {err})")
         results.append(row)
     return {"onehot_lookup": results}
+
+
+def unit_rows(gen: torch.Generator, b: int, d: int, device) -> torch.Tensor:
+    x = torch.randn(b, d, generator=gen, device=device)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def ce_inputs(b: int, d: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tower-like embeddings: unit rows, each positive near its row
+    (tau = 1, the default, so N/tau = N and |S| <= 1)."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n = unit_rows(gen, b, d, device)
+    c = n + 0.8 * unit_rows(gen, b, d, device)
+    return n, c / c.norm(dim=1, keepdim=True)
+
+
+def timed(row: dict, fn, plain, library, flush) -> dict:
+    row["ms"] = median_ms(fn, flush)
+    row["plain_ms"] = median_ms(plain, flush)
+    row["library_ms"] = median_ms(library, flush)
+    return row
+
+
+def ce_fwd_phase(flush: torch.Tensor, b: int = CE_BATCH, d: int = CE_DIM) -> list[dict]:
+    n, c = ce_inputs(b, d, "cuda")
+    nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
+    flops = 2 * b * b * d
+    nbytes = 2 * b * d * 2 + 2 * b * 4
+    rows = []
+    for nomax in (True, False):
+        got = fused_lean_lse(n, c, nomax=nomax)
+        want = fused_lean_lse_plain(n, c, nomax=nomax)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        row = {"case": f"B={b} D={d} {'nomax' if nomax else 'shifted'}", "max_abs_err": err, "tolerance": LSE_ATOL,
+               "bound_ms": max(flops / H100_PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+               "bound_by": "operations" if flops / H100_PEAK_BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes"}
+
+        def library():
+            s = (nb @ cb.T).float()
+            return torch.logsumexp(s, 1), torch.logsumexp(s, 0)
+
+        timed(row, lambda: fused_lean_lse(n, c, nomax=nomax), lambda: fused_lean_lse_plain(n, c, nomax=nomax),
+              library, flush)
+        print("kernel fused_ce_fwd", json.dumps(row), flush=True)
+        check(err <= LSE_ATOL, f"fused_ce_fwd ({row['case']}) vs plain: max abs err {err} > {LSE_ATOL}")
+        rows.append(row)
+    # agreement only, at the step check's batch
+    n, c = ce_inputs(GRAD_CHECK_BATCH, d, "cuda")
+    for nomax in (True, False):
+        got, want = fused_lean_lse(n, c, nomax=nomax), fused_lean_lse_plain(n, c, nomax=nomax)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        row = {"case": f"B={GRAD_CHECK_BATCH} D={d} {'nomax' if nomax else 'shifted'}", "max_abs_err": err,
+               "tolerance": LSE_ATOL}
+        print("kernel fused_ce_fwd", json.dumps(row), flush=True)
+        check(err <= LSE_ATOL, f"fused_ce_fwd ({row['case']}) vs plain: max abs err {err} > {LSE_ATOL}")
+        rows.append(row)
+    return rows
+
+
+def ce_bwd_phase(flush: torch.Tensor, b: int = CE_BATCH, d: int = CE_DIM) -> list[dict]:
+    n, c = ce_inputs(b, d, "cuda")
+    nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
+    rl, cl = fused_lean_lse_plain(n, c, nomax=True)
+    got = fused_ce_bwd(n, c, rl, cl)
+    again = fused_ce_bwd(n, c, rl, cl)
+    want = fused_ce_bwd_plain(n, c, rl, cl)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(got, again))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+    flops = 6 * b * b * d
+    nbytes = 2 * b * d * 2 + 2 * b * 4 + 2 * b * d * 4
+    inv2b, _, _ = _bwd_constants(b, 0.0)
+    eye = torch.arange(b, device="cuda")
+
+    def library():
+        s = (nb @ cb.T).float()
+        x = torch.exp(s - rl[:, None]) + torch.exp(s - cl[None, :])
+        x[eye, eye] -= 2.0
+        a = (inv2b * x).to(torch.bfloat16)
+        return a @ cb, a.T @ nb
+
+    row = {"case": f"B={b} D={d}", "two_calls_equal": equal, "max_abs_err": err, "max_rel_err": rel,
+           "tolerance_rel": CE_BWD_RTOL,
+           "bound_ms": max(flops / H100_PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+           "bound_by": "operations" if flops / H100_PEAK_BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes"}
+    timed(row, lambda: fused_ce_bwd(n, c, rl, cl), lambda: fused_ce_bwd_plain(n, c, rl, cl), library, flush)
+    print("kernel fused_ce_bwd", json.dumps(row), flush=True)
+    check(equal, "fused_ce_bwd: two calls differ")
+    check(rel <= CE_BWD_RTOL, f"fused_ce_bwd vs plain: max err {rel} of max |plain| > {CE_BWD_RTOL}")
+    rows = [row]
+    # agreement only: the second half of N as a row shard against all of C
+    # (the diagonal at column row + offset), and the step check's batch
+    half = b // 2
+    shard = (n[half:], c, rl[half:], cl, 0.0, half)
+    m, mc = ce_inputs(GRAD_CHECK_BATCH, d, "cuda")
+    small = (m, mc, *fused_lean_lse_plain(m, mc, nomax=True))
+    for case, args in ((f"rows {half}..{b} of B={b}, row_offset={half}", shard), (f"B={GRAD_CHECK_BATCH}", small)):
+        got, again, want = fused_ce_bwd(*args), fused_ce_bwd(*args), fused_ce_bwd_plain(*args)
+        rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+        row = {"case": case, "two_calls_equal": all(torch.equal(x, y) for x, y in zip(got, again)),
+               "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+               "max_rel_err": rel, "tolerance_rel": CE_BWD_RTOL}
+        print("kernel fused_ce_bwd", json.dumps(row), flush=True)
+        check(row["two_calls_equal"], f"fused_ce_bwd ({case}): two calls differ")
+        check(rel <= CE_BWD_RTOL, f"fused_ce_bwd ({case}) vs plain: max err {rel} of max |plain| > {CE_BWD_RTOL}")
+        rows.append(row)
+    return rows
+
+
+def table_grad_phase(flush: torch.Tensor, batch: int = 8192) -> list[dict]:
+    """The table gradient at the training path's shapes: the ids of the
+    bench's synthetic data (cluster-correlated, as the step sees them) and a
+    bf16 cotangent ~ N(0, 1)."""
+    gen = np.random.default_rng(SEED + 2)
+    schema = reference_shaped_schema()
+    ds = make_synthetic_dataset(schema, n_notices=20_000, n_companies=20_000, n_pairs=batch,
+                                n_clusters=bench.N_CLUSTERS, seed=SEED)
+    rows_out = []
+    for name, side, store, col in (("notice", schema.notice, ds.notice_store, 0),
+                                   ("company", schema.company, ds.company_store, 1)):
+        offsets, total = table_layout(side.vocab_sizes)
+        ids = store.cat_ids[ds.pairs[:, col]]
+        rows = torch.from_numpy((ids + offsets[None, :]).astype(np.int32)).to("cuda")
+        k = rows.shape[1]
+        g = torch.from_numpy(gen.normal(size=(batch, k, 32)).astype(np.float32)).to("cuda", torch.bfloat16)
+        tf = torch.from_numpy(tile_feature_map(side.vocab_sizes)).to("cuda")
+        got = dense_table_grad(rows, g, tf)
+        again = dense_table_grad(rows, g, tf)
+        want = dense_table_grad_plain(rows, g, tf)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, again)
+        err = float((got - want).abs().max())
+        nbytes = rows.numel() * 4 + g.numel() * 2 + total * 32 * 4 + tf.numel() * 4
+        rows_flat, g_flat = rows.reshape(-1).long(), g.reshape(-1, 32)
+        row = {"case": f"{name} B={batch} K={k} R={total} D=32", "two_calls_equal": equal, "max_abs_err": err,
+               "tolerance": GRAD_ATOL, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        timed(row, lambda: dense_table_grad(rows, g, tf), lambda: dense_table_grad_plain(rows, g, tf),
+              lambda: torch.zeros(total, 32, device="cuda").index_add_(0, rows_flat, g_flat.float()), flush)
+        print("kernel table_grad", json.dumps(row), flush=True)
+        check(equal, f"table_grad ({name}): two calls differ")
+        check(err <= GRAD_ATOL, f"table_grad ({name}) vs plain: max abs err {err} > {GRAD_ATOL}")
+        rows_out.append(row)
+    # agreement only: a ragged batch whose ids reach other features' blocks,
+    # their own block's padding, -1 and past the table; and a skewed batch
+    # whose every id of a feature hits one row (one list of 8192 per row)
+    vocabs = schema.notice.vocab_sizes
+    ragged = lookup_case("ragged", vocabs, 1000, torch.float32, gen, ragged=True)
+    skewed = np.broadcast_to(table_layout(vocabs)[0][None, :] + 7, (batch, len(vocabs)))
+    tf = torch.from_numpy(tile_feature_map(vocabs)).to("cuda")
+    for case, rows, scale in (("notice ragged B=1000", ragged["rows"], 1.0),
+                              (f"notice skewed B={batch}", torch.from_numpy(skewed.astype(np.int32)).to("cuda"), 0.01)):
+        g = torch.from_numpy(gen.normal(0.0, scale, size=(*rows.shape, 32)).astype(np.float32))
+        g = g.to("cuda", torch.bfloat16)
+        got, again, want = dense_table_grad(rows, g, tf), dense_table_grad(rows, g, tf), dense_table_grad_plain(rows, g, tf)
+        row = {"case": case, "two_calls_equal": torch.equal(got, again),
+               "max_abs_err": float((got - want).abs().max()), "tolerance": GRAD_ATOL}
+        print("kernel table_grad", json.dumps(row), flush=True)
+        check(row["two_calls_equal"], f"table_grad ({case}): two calls differ")
+        check(row["max_abs_err"] <= GRAD_ATOL, f"table_grad ({case}) vs plain: max abs err {row['max_abs_err']}")
+        rows_out.append(row)
+    return rows_out
+
+
+def kernel_phase(flush: torch.Tensor) -> dict:
+    return {
+        **lookup_phase(flush),
+        "table_grad": table_grad_phase(flush),
+        "fused_ce_fwd": ce_fwd_phase(flush),
+        "fused_ce_bwd": ce_bwd_phase(flush),
+    }
 
 
 # -- serving phase -------------------------------------------------------------
@@ -182,7 +382,16 @@ def check_exact_vs_plain_scan(res, q: torch.Tensor, corpus: torch.Tensor) -> int
     return ties
 
 
-def serving_phase(launch_counters) -> dict:
+def reset_counters() -> None:
+    for counter in LAUNCH_COUNTERS:
+        counter.launches = 0
+
+
+def read_counters() -> dict[str, int]:
+    return {c.__name__: c.launches for c in LAUNCH_COUNTERS}
+
+
+def serving_phase() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products (the default), stated
     cfg = TrainConfig()
     schema = reference_shaped_schema()
@@ -198,8 +407,7 @@ def serving_phase(launch_counters) -> dict:
           f"(synthetic data {data_s:.1f} s)", flush=True)
 
     # -- the main path: counters from 0, read right after ----------------------
-    for counter in launch_counters:
-        counter.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     exact = RetrievalService(model, cfg, state, ds.company_store, index_kind="exact", device="cuda")
@@ -217,10 +425,9 @@ def serving_phase(launch_counters) -> dict:
         answers.append((exact.search(b, TOP_K), int8.search(b, TOP_K),
                         exact.search_keys(b, TOP_K), int8.search_keys(b, TOP_K)))
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in launch_counters}
+    launches = read_counters()
     print("serving main path launches", json.dumps(launches), flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the serving path")
+    check(launches["dense_table_lookup"] > 0, "kernel dense_table_lookup was not launched on the serving path")
 
     # -- checks ----------------------------------------------------------------
     gather_model = build_model(
@@ -262,7 +469,10 @@ def serving_phase(launch_counters) -> dict:
         kind: qps_bench(svc, ds.notice_store, k=TOP_K, batch_size=QUERY_BATCH, n_batches=20)
         for kind, svc in (("exact", exact), ("int8", int8))
     }
-    breakdown = {kind: device_breakdown(svc, batches[0]) for kind, svc in (("exact", exact), ("int8", int8))}
+    breakdown = {
+        kind: device_breakdown(lambda svc=svc: svc.search(batches[0], TOP_K))
+        for kind, svc in (("exact", exact), ("int8", int8))
+    }
     for kind, row in breakdown.items():
         print(f"device time of one {kind} query batch " + json.dumps(row), flush=True)
     return {
@@ -276,39 +486,181 @@ def serving_phase(launch_counters) -> dict:
     }
 
 
-def device_breakdown(service, batch, repeats: int = 3) -> dict:
-    """Where one query batch's time goes: torch.profiler's CUDA events
-    (kernels and copies) over ``repeats`` serial searches, summed by name,
-    and the card's busy share of the wall time."""
+def device_breakdown(fn, repeats: int = 3, top: int = 8, host_top: int = 0) -> dict:
+    """Where one call of ``fn`` (a query batch, a training call) spends its
+    time: torch.profiler's CUDA events (kernels and copies) over ``repeats``
+    serial calls, summed by name, and the card's busy share of the wall
+    time; with ``host_top``, also the host operators with the most self CPU
+    time (profiled, so inflated by the profiler's own cost)."""
     from torch.profiler import ProfilerActivity, profile
 
-    service.search(batch, TOP_K)  # warm-up
+    fn()  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(repeats):
-            service.search(batch, TOP_K)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, float] = {}
+    n_events = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name[:90]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / repeats
+            n_events += 1
     busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
-        "wall_ms_per_batch": wall_us / repeats / 1e3,
-        "device_ms_per_batch": busy_us / 1e3,
+        "wall_ms_per_call": wall_us / repeats / 1e3,
+        "device_ms_per_call": busy_us / 1e3,
         "busy_share": busy_us * repeats / wall_us if busy_us else None,
-        "top_ms": {name: us / 1e3 for name, us in top},
+        "device_events_per_call": n_events / repeats,
+        "top_ms": {name: us / 1e3 for name, us in ranked},
+        "host_top": [
+            {"op": a.key[:60], "calls": a.count / repeats, "self_cpu_ms": a.self_cpu_time_total / repeats / 1e3}
+            for a in sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:host_top]
+        ],
     }
+
+
+# -- training phase ---------------------------------------------------------------
+
+
+def training_phase() -> dict:
+    """The headline bench's workload on the card: one warm-up call and
+    TRAIN_TIMED_CALLS timed calls of 16 steps at B=8192, the launch counters
+    read around them, then a profiler breakdown of one more call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = bench.build_workload(device="cuda", seed=SEED)
+    n_params = sum(p.numel() for p in work.state.params.values())
+    print(f"training: {n_params} params, B={work.batch_size}, "
+          f"{bench.N_NOTICES} notices x {bench.N_COMPANIES} companies, {bench.N_PAIRS} pairs "
+          f"(data and upload {work.data_s:.1f} s)", flush=True)
+
+    # -- the main path: counters from 0, read right after ----------------------
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = work.call(0)["loss"].cpu().numpy()
+    warm_s = time.perf_counter() - t0
+    out = bench.timed_calls(work, TRAIN_TIMED_CALLS)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    print("training main path launches", json.dumps(launches), flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the training path")
+    losses = np.asarray([first.tolist()] + out["losses"])
+    check(bool(np.isfinite(losses).all()), "non-finite training loss")
+    check(float(losses[-1].mean()) < float(losses[0].mean()),
+          f"training loss did not decrease: first call {losses[0].mean()}, last {losses[-1].mean()}")
+    breakdown = device_breakdown(
+        lambda: work.call(10_000 + work.state.step)["loss"].cpu(), repeats=1, top=12, host_top=12
+    )
+    print("device time of one training call " + json.dumps(breakdown), flush=True)
+    return {
+        "params": n_params, "batch": work.batch_size, "steps_per_call": len(first),
+        "timed_calls": TRAIN_TIMED_CALLS, "warmup_call_s": warm_s,
+        "examples_per_sec": out["examples_per_sec"], "ms_per_step": out["ms_per_step"], "mfu": out["mfu"],
+        "call_ms": out["call_ms"],
+        "model_gflops_per_step": out["model_gflops_per_step"],
+        "loss_first_call": float(losses[0].mean()), "loss_last_call": float(losses[-1].mean()),
+        "launches": launches, "launches_per_step": {k: v / losses.size for k, v in launches.items()},
+        "device_busy_share": breakdown["busy_share"], "device_ms_per_call": breakdown["device_ms_per_call"],
+        # the profiled call's device time over the unprofiled calls' wall time
+        "device_busy_share_timed": breakdown["device_ms_per_call"] / (out["ms_per_step"] * len(first)),
+        "device_events_per_call": breakdown["device_events_per_call"], "host_top": breakdown["host_top"],
+        "wall_ms_per_call": breakdown["wall_ms_per_call"], "top_ms": breakdown["top_ms"],
+    }
+
+
+def step_grad_check() -> dict:
+    """One training-form step at B=GRAD_CHECK_BATCH, dropout 0, from the same
+    state and pairs: on the card (the kernels) and on the CPU (their plain
+    versions: the config forces the one-hot lookup and the fused loss, so
+    both run the same functions), plus a float32 reference on the CPU (f32
+    towers, gather lookup, materialized f32 loss) that calibrates bf16's own
+    noise. Gradients, not post-Adam params, since the first Adam step is
+    about lr * sign(g) and a gradient near zero may take either sign. Each
+    leaf's card gradient must lie within STEP_GRAD_NOISE_FACTOR times that
+    leaf's own bf16 noise (the CPU bf16 gradient's distance from the f32
+    one), plus STEP_GRAD_SLACK, of the CPU gradient (relative norms). The
+    noise is measured from the gradient, so a leaf whose gradient is zero up
+    to rounding (the bias of a layer that feeds a training-form BatchNorm,
+    where the ReLU passes the whole batch) gets the wide tolerance its
+    rounding earns and every other leaf a tight one; no leaf is exempt."""
+    base = TrainConfig().model
+    cfg = TrainConfig(
+        model=dataclasses.replace(base, dropout_rate=0.0, embedding_lookup="onehot"),
+        loss=LossConfig(use_fused_logits=True),
+    )
+    cfg32 = TrainConfig(
+        model=dataclasses.replace(base, dropout_rate=0.0, compute_dtype="float32", embedding_lookup="gather"),
+        loss=LossConfig(use_fused_logits=False),
+    )
+    schema = reference_shaped_schema()
+    ds = make_synthetic_dataset(schema, n_notices=20_000, n_companies=20_000, n_pairs=GRAD_CHECK_BATCH,
+                                n_clusters=bench.N_CLUSTERS, seed=SEED + 3)
+    model = build_model(schema, cfg).init_weights(torch.Generator().manual_seed(SEED + 3))
+    model32 = build_model(schema, cfg32)
+    model32.load_state_dict(model.state_dict())
+    results = {}
+    for run, device, m, c in (("card", "cuda", model, cfg), ("cpu", "cpu", model, cfg), ("f32", "cpu", model32, cfg32)):
+        state, _ = create_train_state(m, c, SEED, 1000, device=device)
+        stores = [
+            (torch.from_numpy(st.dense).to(torch.bfloat16).to(device), torch.from_numpy(st.cat_ids).to(device))
+            for st in (ds.notice_store, ds.company_store)
+        ]
+        idx = torch.from_numpy(ds.pairs).to(device)
+        batch = PairBatch(default_tower_gather(stores[0], idx[:, 0]), default_tower_gather(stores[1], idx[:, 1]))
+        loss, _, grads = loss_and_grads(m, c, state, batch)
+        results[run] = (float(loss), {k: g.float().cpu() for k, g in grads.items()})
+
+    def rel(a: str, b: str) -> dict[str, float]:
+        ref = results[b][1]
+        return {k: float((g - ref[k]).norm() / ref[k].norm().clamp_min(1e-30)) for k, g in results[a][1].items()}
+
+    card_vs_cpu, card_vs_f32, cpu_vs_f32 = rel("card", "cpu"), rel("card", "f32"), rel("cpu", "f32")
+    tolerance = {k: STEP_GRAD_NOISE_FACTOR * v + STEP_GRAD_SLACK for k, v in cpu_vs_f32.items()}
+    share = {k: card_vs_cpu[k] / tolerance[k] for k in tolerance}
+    worst = max(share, key=share.get)
+    loss_err = abs(results["card"][0] - results["cpu"][0])
+    leaves = {k: {"card_vs_cpu": card_vs_cpu[k], "cpu_bf16_vs_f32": cpu_vs_f32[k], "card_vs_f32": card_vs_f32[k],
+                  "tolerance": tolerance[k]} for k in sorted(share, key=share.get, reverse=True)}
+    print("step gradient leaves " + json.dumps(leaves), flush=True)
+    row = {"batch": GRAD_CHECK_BATCH, "loss_card": results["card"][0], "loss_cpu": results["cpu"][0],
+           "loss_f32": results["f32"][0], "loss_abs_err": loss_err, "loss_tolerance": STEP_LOSS_ATOL,
+           "max_grad_rel_err": max(card_vs_cpu.values()), "max_grad_rel_err_leaf": max(card_vs_cpu, key=card_vs_cpu.get),
+           "worst_leaf_vs_tolerance": worst, "worst_card_vs_cpu": card_vs_cpu[worst],
+           "worst_tolerance": tolerance[worst], "worst_share_of_tolerance": share[worst]}
+    print("step card vs cpu " + json.dumps(row), flush=True)
+    check(loss_err <= STEP_LOSS_ATOL, f"step loss card vs CPU: {loss_err} > {STEP_LOSS_ATOL}")
+    check(share[worst] <= 1.0,
+          f"step gradient {worst}: card vs CPU {card_vs_cpu[worst]} > tolerance {tolerance[worst]}")
+    return row
+
+
+def kernel_record(name: str, source: str, replaces: str, rows: list[dict], launches: dict, counter: str) -> dict:
+    main = rows[0]  # the main path's shape comes first
+    rec = {
+        "name": name, "route": "cuda", "source": f"jodalrob_twotower_torch/csrc/{source}",
+        "replaces": replaces, "launches": launches["training"][counter],
+        "launches_by_path": {path: counts[counter] for path, counts in launches.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main.get("bound_by", "bytes"), "library_ms": main["library_ms"], "cases": rows,
+    }
+    if "equal" in main:
+        rec["equal"] = all(r["equal"] for r in rows)
+    if "two_calls_equal" in main:
+        rec["two_calls_equal"] = all(r["two_calls_equal"] for r in rows)
+    return rec
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
-    card = card_line()
+    card = bench.card_line()
     print(card, flush=True)  # name, power limit: every number below is this card's
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
 
@@ -323,27 +675,29 @@ def main() -> int:
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     kernels = kernel_phase(flush)
     del flush
-    serving = serving_phase([dense_table_lookup])
+    serving = serving_phase()
     serving["card"] = card
     print("serving " + json.dumps(serving), flush=True)
+    training = training_phase()
+    training["card"] = card
+    print("training " + json.dumps(training), flush=True)
+    step_check = step_grad_check()
 
-    notice = kernels["onehot_lookup"][0]
-    record = {"kernels": [{
-        "name": "onehot_lookup",
-        "route": "cuda",
-        "source": "jodalrob_twotower_torch/csrc/onehot_lookup.cu",
-        "replaces": "jodalrob_twotower_tpu/ops/embedding_grad.py:358",
-        "replaces_function": "ops/embedding_grad._lookup_kernel",
-        "launches": serving["launches"]["dense_table_lookup"],
-        "equal": all(c["equal"] for c in kernels["onehot_lookup"]),
-        "max_abs_err": max(c["max_abs_err"] for c in kernels["onehot_lookup"]),
-        "ms": notice["ms"], "plain_ms": notice["plain_ms"],
-        "bound_ms": notice["bound_ms"], "bound_by": "bytes",
-        "library_ms": notice["library_ms"],
-        "kernel_us": notice["ms"] * 1e3, "library_us": notice["library_ms"] * 1e3,
-        "bound_us": notice["bound_ms"] * 1e3,
-        "cases": kernels["onehot_lookup"],
-    }]}
+    launches = {"serving": serving["launches"], "training": training["launches"]}
+    record = {"kernels": [
+        kernel_record("onehot_lookup", "onehot_lookup.cu", "jodalrob_twotower_tpu/ops/embedding_grad.py:358",
+                      kernels["onehot_lookup"], launches, "dense_table_lookup"),
+        kernel_record("table_grad", "table_grad.cu", "jodalrob_twotower_tpu/ops/embedding_grad.py:45",
+                      kernels["table_grad"], launches, "dense_table_grad"),
+        kernel_record("fused_ce_fwd", "fused_ce_fwd.cu", "jodalrob_twotower_tpu/ops/fused_logits.py:280",
+                      kernels["fused_ce_fwd"], launches, "fused_lean_lse"),
+        kernel_record("fused_ce_bwd", "fused_ce_bwd.cu", "jodalrob_twotower_tpu/ops/fused_logits.py:819",
+                      kernels["fused_ce_bwd"], launches, "fused_ce_bwd"),
+    ], "training": {k: training[k] for k in ("examples_per_sec", "ms_per_step", "mfu", "device_busy_share",
+                                         "device_busy_share_timed")},
+        "step_check": {k: step_check[k] for k in ("loss_abs_err", "max_grad_rel_err", "worst_share_of_tolerance")},
+        "card": card}
+    record["kernels"][2]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

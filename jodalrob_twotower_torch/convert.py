@@ -1,4 +1,6 @@
-"""Map the reference's flax variables onto the port's ``state_dict``.
+"""Map the reference's flax variables onto the port's ``state_dict``, and
+back (:func:`state_dict_to_flax`, which the parity tests use to compare
+every leaf after training steps).
 
 flax keeps a Dense kernel as ``[in, out]``, torch a Linear weight as
 ``[out, in]``; flax splits BatchNorm into ``params`` (``scale``, ``bias``)
@@ -89,3 +91,27 @@ def flax_to_state_dict(
     if leaves:
         raise ValueError(f"flax leaves with no place in the model: {sorted(leaves)}")
     return out
+
+
+def state_dict_to_flax(
+    model: nn.Module, state_dict: Mapping[str, torch.Tensor]
+) -> tuple[dict, dict]:
+    """The inverse of :func:`flax_to_state_dict`: (params, batch_stats) as
+    nested dicts of float32 numpy arrays in flax's layout, from a state_dict
+    of ``model`` (a TrainState's ``state_dict`` included)."""
+    trees: dict[str, dict] = {"params": {}, "batch_stats": {}}
+    expected = set(model.state_dict())
+    if set(state_dict) != expected:
+        raise ValueError(
+            f"state_dict keys differ from the model's: missing {sorted(expected - set(state_dict))}, "
+            f"extra {sorted(set(state_dict) - expected)}"
+        )
+    for key, path, transpose in _sources(model):
+        value = state_dict[key].detach().to("cpu", torch.float32).numpy()
+        value = np.ascontiguousarray(value.T if transpose else value)
+        root, *parts = path.split("/")
+        node = trees[root]
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return trees["params"], trees["batch_stats"]

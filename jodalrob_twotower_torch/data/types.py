@@ -51,3 +51,11 @@ class PairBatch(NamedTuple):
     @property
     def batch_size(self) -> int:
         return self.notice.batch_size
+
+
+def default_tower_gather(store, rows: torch.Tensor) -> TowerBatch:
+    """Batch assembly from a device-resident store: plain row gathers from a
+    (dense [N, D], cat_ids [N, K]) tuple of tensors (reference
+    ``data/types.default_tower_gather``)."""
+    dense, cat = store
+    return TowerBatch(dense=dense.index_select(0, rows), cat_ids=cat.index_select(0, rows))

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from jodalrob_twotower_torch.ops.embedding_grad import make_onehot_lookup
+from jodalrob_twotower_torch.ops.embedding_grad import make_dense_grad_lookup, make_onehot_lookup
 from jodalrob_twotower_torch.ops.embedding_lookup import embedding_lookup
 
 # Each feature's row block is padded to a multiple of 128 rows, so every
@@ -71,7 +71,10 @@ class EmbeddingCollection(nn.Module):
     """One embedding table row-block per categorical feature, unified.
 
     Call with int ids ``[B, K]`` -> embeddings ``[B, K * embed_dim]``: float32
-    from the gather, bfloat16 from the one-hot lookup kernel.
+    from the gather, bfloat16 from the one-hot lookup kernel. The table's
+    gradient is the dense table-gradient kernel wherever the one-hot lookup
+    or the dense gradient is active (:meth:`_dense_grad_active`), else the
+    gather's own scatter.
     """
 
     # Above this many table rows the reference's dense one-hot path stops
@@ -96,7 +99,9 @@ class EmbeddingCollection(nn.Module):
         self._offsets = offsets
         self.table = nn.Parameter(torch.empty(self.total_rows, embed_dim))
         nn.init.normal_(self.table, std=1.0 / np.sqrt(embed_dim))
-        self._onehot = make_onehot_lookup(self.total_rows, tile_feature_map(self.vocab_sizes))
+        tiles = tile_feature_map(self.vocab_sizes)
+        self._onehot = make_onehot_lookup(self.total_rows, tiles)
+        self._dense_grad = make_dense_grad_lookup(self.total_rows, tiles)
         self._consts: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def _rows(self, cat_ids: torch.Tensor) -> torch.Tensor:
@@ -118,6 +123,8 @@ class EmbeddingCollection(nn.Module):
         rows = self._rows(cat_ids)
         if self._onehot_lookup_active(rows):
             emb = self._onehot(self.table, rows)
+        elif self._dense_grad_active(rows):
+            emb = self._dense_grad(self.table, rows)
         else:
             emb = embedding_lookup(self.table, rows)
         b, k = cat_ids.shape
@@ -159,3 +166,16 @@ class EmbeddingCollection(nn.Module):
             and self.grad_mode != "scatter"
             and self.embed_dim % 8 == 0
         )
+
+    def _dense_grad_active(self, rows: torch.Tensor) -> bool:
+        """``grad_mode`` resolution for the gather forward (reference
+        ``models/embedding.py:212-228``): "dense" always takes the dense
+        table-gradient backward, "scatter" never; "auto" takes it for CUDA
+        tensors (the port runs on one device) when the table is within the
+        dense envelope. On the CPU "auto" keeps the gather's scatter, as the
+        reference does on its CPU backend."""
+        if self.grad_mode == "dense":
+            return True
+        if self.grad_mode == "scatter":
+            return False
+        return rows.is_cuda and self.total_rows <= self.DENSE_GRAD_MAX_ROWS

@@ -7,9 +7,10 @@ L2 normalisation in float32. Layer names are the flax module names, so the
 converter (convert.py) maps the reference's params 1:1.
 
 Numerics follow flax ``Dense(dtype=compute_dtype)``: inputs, weights and
-biases are cast to the compute dtype. This slice runs the towers in
-inference form only (running BatchNorm statistics, no dropout); the forward
-raises in training mode until the training slice adds it.
+biases are cast to the compute dtype. In training form (``train=True``)
+BatchNorm normalises with the batch's own statistics and updates its running
+statistics as flax does, and dropout follows each BatchNorm, drawn from the
+``torch.Generator`` the caller passes.
 """
 
 from __future__ import annotations
@@ -27,12 +28,19 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` in inference form: eps 1e-5, statistics in
-    float32, output in the compute dtype. ``weight``/``bias`` are flax's
-    ``scale``/``bias``; ``running_mean``/``running_var`` its ``batch_stats``
-    ``mean``/``var``."""
+    """flax ``nn.BatchNorm``: eps 1e-5, statistics in float32, output in the
+    compute dtype. ``weight``/``bias`` are flax's ``scale``/``bias``;
+    ``running_mean``/``running_var`` its ``batch_stats`` ``mean``/``var``.
+
+    ``train=True`` normalises with the batch statistics as flax computes
+    them (``use_fast_variance``: var = max(0, E[x^2] - E[x]^2), the biased
+    variance, in float32) and updates the running statistics in place,
+    running = 0.99 running + 0.01 batch (flax's momentum 0.99; torch's own
+    BatchNorm would take the unbiased variance and weigh the new value
+    0.1)."""
 
     eps = 1e-5
+    momentum = 0.99
 
     def __init__(self, width: int) -> None:
         super().__init__()
@@ -41,10 +49,28 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(width))
         self.register_buffer("running_var", torch.ones(width))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x32 = x.float()
+        if train:
+            mean = x32.mean(0)
+            var = torch.clamp((x32 * x32).mean(0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean + (1 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var + (1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean) * mul + self.bias
         return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate,
+    scaled by 1/(1 - rate) in x's dtype, else 0. The mask comes from
+    ``generator`` (on x's device), so a run is replayable from its seed."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -93,13 +119,23 @@ class Tower(nn.Module):
             width = out
         self.head = nn.Linear(width, config.final_embedding_dim)
 
-    def forward(self, batch: TowerBatch) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "the port's towers run in inference form only until the training "
-                "slice lands; call .eval() (build_model returns an eval-mode model)"
-            )
+    def forward(
+        self,
+        batch: TowerBatch,
+        *,
+        train: bool | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """``train`` (default: the module's ``training`` flag) selects the
+        training form; with ``dropout_rate > 0`` it needs ``generator``, a
+        ``torch.Generator`` on the batch's device for the dropout masks."""
         cfg = self.config
+        train = self.training if train is None else train
+        if train and cfg.dropout_rate > 0 and generator is None:
+            raise ValueError(
+                f"training form with dropout_rate={cfg.dropout_rate} needs a torch.Generator "
+                "for the dropout masks (generator=...)"
+            )
         dense = batch.dense.to(self.compute_dtype)
         parts = []
         if self.blocks:
@@ -114,6 +150,8 @@ class Tower(nn.Module):
         for i in range(len(cfg.tower_hidden_dims) - 1):
             x = F.relu(_dense(getattr(self, f"mlp_{i}"), x))
             if cfg.use_batch_norm:
-                x = getattr(self, f"bn_{i}")(x)
+                x = getattr(self, f"bn_{i}")(x, train)
+            if train and cfg.dropout_rate > 0:
+                x = dropout(x, cfg.dropout_rate, generator)
         x = _dense(self.head, x).float()
         return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)

@@ -15,7 +15,8 @@ from jodalrob_twotower_torch.schema import TwoTowerSchema
 
 class TwoTowerModel(nn.Module):
     """Both towers share one :class:`ModelConfig`, so their final dims match.
-    Constructed in eval mode (the only mode this slice runs)."""
+    Constructed in eval mode; the train step asks for the training form per
+    call (``train=True``), so the module's flag stays as the caller set it."""
 
     def __init__(self, schema: TwoTowerSchema, config: ModelConfig) -> None:
         super().__init__()
@@ -25,9 +26,20 @@ class TwoTowerModel(nn.Module):
         self.company_tower = Tower(schema.company, config)
         self.eval()
 
-    def forward(self, batch: PairBatch) -> tuple[torch.Tensor, torch.Tensor]:
-        """(notice_emb, company_emb), both [B, final_dim], L2-normalized."""
-        return self.notice_tower(batch.notice), self.company_tower(batch.company)
+    def forward(
+        self,
+        batch: PairBatch,
+        *,
+        train: bool | None = None,
+        generator: torch.Generator | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(notice_emb, company_emb), both [B, final_dim], L2-normalized.
+        ``train`` and ``generator`` as in :meth:`Tower.forward`; the notice
+        tower draws its dropout masks from ``generator`` first."""
+        return (
+            self.notice_tower(batch.notice, train=train, generator=generator),
+            self.company_tower(batch.company, train=train, generator=generator),
+        )
 
     def encode_notice(self, batch: TowerBatch) -> torch.Tensor:
         return self.notice_tower(batch)

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers,
-so nvcc takes seconds, not minutes) and is compiled for ``sm_90a`` into a
+so nvcc takes seconds, not minutes), may include the shared ``csrc/*.cuh``
+headers, and is compiled for ``sm_90a`` into a
 shared library that ``ctypes`` loads. Builds happen at first use, from the
 package's own sources, into ``_build/`` beside them (listed in .gitignore).
 A library's file name carries a hash of its source and the flags, so an
@@ -45,8 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path; its hash covers the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

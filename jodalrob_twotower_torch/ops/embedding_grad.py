@@ -1,16 +1,23 @@
-"""One-hot embedding lookup on the unified table (port of the forward half of
-``jodalrob_twotower_tpu/ops/embedding_grad.py``).
+"""One-hot embedding lookup on the unified table and its dense table
+gradient (port of ``jodalrob_twotower_tpu/ops/embedding_grad.py``).
 
-``dense_table_lookup`` is the wrapper of the hand-written CUDA kernel
-``csrc/onehot_lookup.cu``, which replaces the TPU kernel
-``embedding_grad.py:358 _lookup_kernel``. The TPU computed the lookup as a
-one-hot matmul because its row DMAs were slow; the Hopper kernel is a direct
-row gather with the same result, emitted in the towers' ``[B, K, D]``
-layout. ``dense_table_lookup_plain`` is the same function in plain PyTorch:
-the CPU path and the reference the card's run is held against.
+* :func:`dense_table_lookup` wraps the CUDA kernel ``csrc/onehot_lookup.cu``,
+  which replaces the TPU kernel ``embedding_grad.py:358 _lookup_kernel``.
+  The TPU computed the lookup as a one-hot matmul because its row DMAs were
+  slow; the Hopper kernel is a direct row gather with the same result,
+  emitted in the towers' ``[B, K, D]`` layout.
+* :func:`dense_table_grad` wraps ``csrc/table_grad.cu``, which replaces the
+  TPU kernel ``embedding_grad.py:45 _grad_kernel`` (both orientations): the
+  dense ``[R, D]`` f32 table gradient, read from the cotangent in its native
+  ``[B, K, D]`` layout (the TPU's ``[D, R]`` transposed output existed only
+  for its lanes).
+* :func:`make_onehot_lookup` is a ``torch.autograd.Function`` with the
+  lookup kernel forward and the gradient kernel backward;
+  :func:`make_dense_grad_lookup` a plain gather forward with the gradient
+  kernel backward.
 
-The gradient kernels of this module (the dense-vocab table gradient) arrive
-with the training slice of the port.
+``*_plain`` are the same functions in plain PyTorch: the CPU path and the
+reference the card's runs are held against.
 """
 
 from __future__ import annotations
@@ -91,11 +98,6 @@ def dense_table_lookup(
         return dense_table_lookup_plain(table, rows, tile_feature)
     if table.device.type != "cuda":
         raise ValueError(f"dense_table_lookup runs on CUDA or CPU tensors, got {table.device}")
-    if torch.is_grad_enabled() and table.requires_grad:
-        raise NotImplementedError(
-            "the one-hot lookup kernel has no backward yet (it arrives with the "
-            "training slice); call it under torch.no_grad() or inference_mode()"
-        )
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned for the kernel's vector loads")
     b, k = rows.shape
@@ -121,11 +123,128 @@ def dense_table_lookup(
 dense_table_lookup.launches = 0
 
 
-def make_onehot_lookup(total_rows: int, tile_feature):
-    """Lookup (table [R, D], rows [B, K]) -> [B, K, D] bf16 through
-    :func:`dense_table_lookup`, for a fixed table layout. The tile map is
-    copied to each device once. Clamp semantics live in the caller's row
-    mapping (models/embedding.absolute_rows)."""
+# -- the dense table gradient ----------------------------------------------------
+
+
+def dense_table_grad_plain(
+    rows: torch.Tensor, g: torch.Tensor, tile_feature: torch.Tensor
+) -> torch.Tensor:
+    """dT [R, D] f32 (R = 128 * len(tile_feature)): dT[v] = sum of
+    f32(bf16(g[b, k])) over the (b, k) with rows[b, k] == v in feature k's
+    tile block; other rows (another feature's block, -1, past the table)
+    contribute nothing."""
+    total_rows = TILE_ROWS * tile_feature.shape[0]
+    b, k = rows.shape
+    d = g.shape[-1]
+    safe = rows.clamp(0, total_rows - 1).long()
+    features = torch.arange(k, device=rows.device)
+    in_block = (rows >= 0) & (rows < total_rows) & (tile_feature[safe // TILE_ROWS] == features)
+    vals = g.reshape(b, k, d).to(torch.bfloat16).float()
+    vals = torch.where(in_block[..., None], vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+    out = torch.zeros((total_rows, d), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, safe.reshape(-1), vals.reshape(-1, d))
+
+
+def _grad_lib() -> ctypes.CDLL:
+    lib = _build.load("table_grad")
+    if not getattr(lib, "_typed", False):
+        lib.table_grad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.table_grad.restype = ctypes.c_int
+        lib.table_grad_error_string.argtypes = [ctypes.c_int]
+        lib.table_grad_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+GRAD_KERNEL_DIMS = (16, 32, 64, 128)  # the embed widths table_grad.cu is built for
+
+
+def dense_table_grad(
+    rows: torch.Tensor, g: torch.Tensor, tile_feature: torch.Tensor
+) -> torch.Tensor:
+    """The dense table gradient: (rows [B, K] absolute int32 rows, g
+    [B, K, D] cotangent, rounded to bf16 as on the TPU, tile_feature
+    [R/128] int32) -> [R, D] f32; see :func:`dense_table_grad_plain`.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel on
+    the current stream, or raise: there is no fallback. Its sums run in a
+    fixed order, so two calls give the same bits. ``launches`` counts the
+    kernel's launches."""
+    if rows.dim() != 2 or rows.dtype != torch.int32:
+        raise ValueError(f"rows must be [B, K] int32, got {tuple(rows.shape)} {rows.dtype}")
+    b, k = rows.shape
+    if g.dim() != 3 or g.shape[:2] != (b, k):
+        raise ValueError(f"g must be [{b}, {k}, D], got {tuple(g.shape)}")
+    if tile_feature.dim() != 1 or tile_feature.dtype != torch.int32:
+        raise ValueError(f"tile_feature must be [R/128] int32, got {tuple(tile_feature.shape)} {tile_feature.dtype}")
+    if not (rows.device == g.device == tile_feature.device):
+        raise ValueError(f"rows, g and tile_feature must share a device, got {rows.device}, {g.device}, {tile_feature.device}")
+    if g.device.type == "cpu":
+        return dense_table_grad_plain(rows, g, tile_feature)
+    if g.device.type != "cuda":
+        raise ValueError(f"dense_table_grad runs on CUDA or CPU tensors, got {g.device}")
+    d = g.shape[2]
+    if d not in GRAD_KERNEL_DIMS:
+        raise ValueError(f"the table gradient kernel takes D in {GRAD_KERNEL_DIMS}, got {d}")
+    total_rows = TILE_ROWS * tile_feature.shape[0]
+    gb = g.to(torch.bfloat16).contiguous()
+    rows = rows.contiguous()
+    tile_feature = tile_feature.contiguous()
+    out = torch.empty((total_rows, d), dtype=torch.float32, device=g.device)
+    if gb.data_ptr() % 16:
+        raise ValueError("g must be 16-byte aligned for the kernel's vector loads")
+    lib = _grad_lib()
+    with torch.cuda.device(g.device):
+        err = lib.table_grad(
+            rows.data_ptr(), gb.data_ptr(), tile_feature.data_ptr(), out.data_ptr(),
+            b, k, d, total_rows, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"table_grad launch failed: {lib.table_grad_error_string(err).decode()}")
+    dense_table_grad.launches += 1
+    return out
+
+
+dense_table_grad.launches = 0
+
+
+# -- differentiable lookups --------------------------------------------------------
+
+
+class _OneHotLookup(torch.autograd.Function):
+    """Forward: the one-hot lookup kernel (bf16 out). Backward: the dense
+    table gradient, cast back to the table's dtype (the reference's
+    ``make_onehot_lookup`` custom VJP, embedding_grad.py:464-486)."""
+
+    @staticmethod
+    def forward(ctx, table, rows, tile_feature):
+        ctx.save_for_backward(rows, tile_feature)
+        ctx.table_dtype = table.dtype
+        return dense_table_lookup(table, rows, tile_feature)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, tile_feature = ctx.saved_tensors
+        return dense_table_grad(rows, g, tile_feature).to(ctx.table_dtype), None, None
+
+
+class _DenseGradLookup(torch.autograd.Function):
+    """Forward: a plain row gather in the table's dtype. Backward: the dense
+    table gradient kernel in place of the scatter (the reference's
+    ``make_dense_grad_lookup``, embedding_grad.py:495-518)."""
+
+    @staticmethod
+    def forward(ctx, table, rows, tile_feature):
+        ctx.save_for_backward(rows, tile_feature)
+        return table.index_select(0, rows.reshape(-1)).reshape(*rows.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, tile_feature = ctx.saved_tensors
+        return dense_table_grad(rows, g, tile_feature).to(g.dtype), None, None
+
+
+def _layout_lookup(fn, total_rows: int, tile_feature):
     tf = np.asarray(tile_feature, np.int32)
     if tf.shape != (total_rows // TILE_ROWS,) or total_rows % TILE_ROWS:
         raise ValueError(
@@ -138,6 +257,22 @@ def make_onehot_lookup(total_rows: int, tile_feature):
         t = on_device.get(table.device)
         if t is None:
             t = on_device[table.device] = torch.from_numpy(tf).to(table.device)
-        return dense_table_lookup(table, rows.to(torch.int32).contiguous(), t)
+        return fn.apply(table, rows.to(torch.int32).contiguous(), t)
 
     return lookup
+
+
+def make_onehot_lookup(total_rows: int, tile_feature):
+    """Differentiable lookup (table [R, D], rows [B, K]) -> [B, K, D] bf16
+    for a fixed table layout: forward :func:`dense_table_lookup`, backward
+    :func:`dense_table_grad`. The tile map is copied to each device once.
+    Clamp semantics live in the caller's row mapping
+    (models/embedding.absolute_rows)."""
+    return _layout_lookup(_OneHotLookup, total_rows, tile_feature)
+
+
+def make_dense_grad_lookup(total_rows: int, tile_feature):
+    """Differentiable lookup (table [R, D], rows [B, K]) -> [B, K, D] in the
+    table's dtype: a plain gather forward whose backward is
+    :func:`dense_table_grad` instead of a scatter."""
+    return _layout_lookup(_DenseGradLookup, total_rows, tile_feature)

@@ -1,1 +1,1 @@
-"""Encoders for serving; the training step arrives with the training slice."""
+"""The train step, its loss, optimizer and metrics, and the encoders."""

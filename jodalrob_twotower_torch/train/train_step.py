@@ -1,30 +1,281 @@
-"""Encoders (port of ``make_encode_fn`` from
-``jodalrob_twotower_tpu/train/train_step.py``; the train and eval steps
-arrive with the training slice)."""
+"""Train steps, the train state and the encoders (port of
+``jodalrob_twotower_tpu/train/train_step.py``, one device).
+
+A step gathers its batch, runs both towers in training form, the loss, the
+backward pass and the optimizer update. The reference compiles that into one
+XLA program; here it runs eagerly, with the hand-written kernels on the card
+(the one-hot lookup and the table gradient for the embeddings, the fused CE
+forward and backward for the loss). ``n_inner`` steps per call are a Python
+loop whose losses stay on the device until the call returns.
+
+Randomness is a pure function of (seed, step): each step's dropout masks and
+each sampled batch come from a ``torch.Generator`` seeded from the state's
+base seed (or the call's sample seed) and the global step counter, so
+``n_inner`` steps in one call equal ``n_inner`` separate calls, as
+``lax.scan`` over a folded-in key guarantees in the reference. torch's
+generators do not give JAX's bits: parity with the reference runs with
+dropout 0 and fixed pair indices.
+
+The state is updated in place: parameters and optimizer moments by the
+optimizer, BatchNorm running statistics by the towers. A step returns the
+same state object.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, Mapping
+
+import numpy as np
 import torch
 from torch.func import functional_call
 
-from jodalrob_twotower_torch.data.types import TowerBatch
+from jodalrob_twotower_torch.data.types import PairBatch, TowerBatch, default_tower_gather
+from jodalrob_twotower_torch.device import resolve_device
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel
+from jodalrob_twotower_torch.train.loss import compute_loss, resolve_use_fused
+from jodalrob_twotower_torch.train.metrics import in_batch_metrics
+from jodalrob_twotower_torch.train.optimizer import Optimizer, build_optimizer
+
+DROPOUT_STREAM = 0
+SAMPLE_STREAM = 1
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What training carries from step to step, all on one device.
+
+    ``params`` and ``batch_stats`` are keyed as the model's ``state_dict``
+    (parameters; BatchNorm running statistics); ``seed`` is the base of
+    every step's dropout generator."""
+
+    step: int
+    params: dict[str, torch.Tensor]
+    batch_stats: dict[str, torch.Tensor]
+    opt_state: dict
+    seed: int
+
+    @property
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        return {**self.params, **self.batch_stats}
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.params.values())).device
+
+
+def create_train_state(
+    model: TwoTowerModel,
+    cfg,
+    seed: int,
+    total_steps: int,
+    *,
+    device=None,
+) -> tuple[TrainState, Optimizer]:
+    """A state holding copies of ``model``'s current weights on ``device``
+    (None means the card) and a fresh optimizer state; returns it with the
+    optimizer."""
+    dev = resolve_device(device)
+    buffers = {k for k, _ in model.named_buffers()}
+    sd = model.state_dict()
+    params = {k: v.detach().to(dev, torch.float32).clone() for k, v in sd.items() if k not in buffers}
+    batch_stats = {k: v.detach().to(dev, torch.float32).clone() for k, v in sd.items() if k in buffers}
+    tx = build_optimizer(cfg.optimizer, total_steps)
+    return TrainState(0, params, batch_stats, tx.init(params), int(seed)), tx
+
+
+def resolve_dropout_rng_impl(model_cfg) -> str:
+    """``ModelConfig.dropout_rng_impl`` with "auto" resolved: "threefry",
+    never "rbg" (the TPU's hardware generator). The port draws its masks from
+    a ``torch.Generator`` seeded per step whichever name is set; the name
+    stays the reference's, so a config file means the same in both."""
+    v = model_cfg.dropout_rng_impl
+    return "threefry" if v == "auto" else v
+
+
+def step_generator(device: torch.device, seed: int, step: int, stream: int) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, stream, step) alone."""
+    words = np.random.SeedSequence([int(seed) & 0xFFFFFFFF, stream, int(step)]).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(words[0]) << 31) ^ int(words[1]))
+    return gen
+
+
+def resolve_store_dtype(cfg):
+    """dtype of the device-resident dense blocks (``DataConfig.device_store_dtype``;
+    None keeps float32). "auto" stores at the compute dtype: bf16 halves the
+    store and changes nothing, since the towers cast the dense block to the
+    compute dtype first."""
+    mode = cfg.data.device_store_dtype
+    if mode == "bfloat16" or (mode == "auto" and cfg.model.compute_dtype == "bfloat16"):
+        return torch.bfloat16
+    return None
+
+
+def device_store(feature_store, *, dtype=None, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A host FeatureStore's (dense, cat_ids) as tensors on ``device`` (None
+    means the card), once, for indexed steps. The dense block is cast to
+    ``dtype`` on the host, so only the smaller copy crosses to the card."""
+    dev = resolve_device(device)
+    dense = torch.from_numpy(np.ascontiguousarray(feature_store.dense))
+    if dtype is not None:
+        dense = dense.to(dtype)
+    return dense.to(dev), torch.from_numpy(np.ascontiguousarray(feature_store.cat_ids)).to(dev)
+
+
+def _forward_loss(model, cfg, weights: Mapping[str, torch.Tensor], batch: PairBatch, generator, *, train: bool):
+    """(loss, similarity or None) of one batch; the towers run on ``weights``
+    (the model's state_dict keys) through ``functional_call``."""
+    n_emb, c_emb = functional_call(
+        model, dict(weights), (batch,), {"train": train, "generator": generator}, strict=True
+    )
+    return compute_loss(
+        cfg.loss.loss_type,
+        n_emb,
+        c_emb,
+        temperature=cfg.loss.temperature,
+        label_smoothing=cfg.loss.label_smoothing,
+        margin=cfg.loss.cosine_margin,
+        use_fused=resolve_use_fused(cfg.loss, n_emb.device),
+        # tower outputs are L2-normalized (models/tower.py), which proves
+        # |logits| <= 1/temperature for the fused forward
+        normalized_inputs=True,
+    )
+
+
+def loss_and_grads(model, cfg, state: TrainState, batch: PairBatch):
+    """(loss, similarity or None, grads keyed as ``state.params``) of one
+    training-form step on ``batch``, without the update. BatchNorm running
+    statistics in ``state`` advance as in a step."""
+    generator = None
+    if cfg.model.dropout_rate > 0:
+        generator = step_generator(state.device, state.seed, state.step, DROPOUT_STREAM)
+    params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+    loss, sim = _forward_loss(model, cfg, {**params, **state.batch_stats}, batch, generator, train=True)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), sim, dict(zip(params, grads))
+
+
+def _train_on_batch(model, cfg, tx: Optimizer, state: TrainState, batch: PairBatch, with_metrics: bool):
+    loss, sim, grads = loss_and_grads(model, cfg, state, batch)
+    tx.update(state.params, grads, state.opt_state)
+    state.step += 1
+    metrics = {"loss": loss}
+    if with_metrics and sim is not None:
+        metrics.update(in_batch_metrics(sim.detach()))
+    return state, metrics
+
+
+def make_train_step(model: TwoTowerModel, cfg, tx: Optimizer, *, with_metrics: bool = True):
+    """``step(state, batch: PairBatch) -> (state, metrics)``: grads, update
+    and, on the materialized loss path, the in-batch metrics."""
+
+    def step(state: TrainState, batch: PairBatch):
+        return _train_on_batch(model, cfg, tx, state, batch, with_metrics)
+
+    return step
+
+
+def make_indexed_train_step(
+    model: TwoTowerModel,
+    cfg,
+    tx: Optimizer,
+    *,
+    with_metrics: bool = True,
+    store_gather: Callable | None = None,
+):
+    """Train step over device-resident stores:
+    ``step(state, pair_idx [B, 2], notice_store, company_store)``, each
+    store a (dense, cat_ids) tuple of tensors on the state's device; the
+    batch is gathered on the device. ``store_gather(store, rows) ->
+    TowerBatch`` replaces the plain gather."""
+    gather = store_gather or default_tower_gather
+
+    def step(state: TrainState, pair_idx: torch.Tensor, notice_store, company_store):
+        batch = PairBatch(
+            notice=gather(notice_store, pair_idx[:, 0]),
+            company=gather(company_store, pair_idx[:, 1]),
+        )
+        return _train_on_batch(model, cfg, tx, state, batch, with_metrics)
+
+    return step
+
+
+def _stack(metrics: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def make_scanned_train_steps(
+    model: TwoTowerModel, cfg, tx: Optimizer, n_inner: int, *, with_metrics: bool = False
+):
+    """``steps(state, pair_idx_stack [n_inner, B, 2], notice_store,
+    company_store) -> (state, metrics stacked [n_inner])``: n_inner indexed
+    steps per call."""
+    inner = make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics)
+
+    def steps(state: TrainState, pair_idx_stack: torch.Tensor, notice_store, company_store):
+        if pair_idx_stack.shape[0] != n_inner:
+            raise ValueError(f"pair_idx_stack must hold {n_inner} steps, got {pair_idx_stack.shape[0]}")
+        out = []
+        for pair_idx in pair_idx_stack:
+            state, m = inner(state, pair_idx, notice_store, company_store)
+            out.append(m)
+        return state, _stack(out)
+
+    return steps
+
+
+def sampled_scan_fn(inner, n_inner: int, batch_size: int):
+    """The ``n_inner``-step body with on-device batch sampling: each step
+    draws ``batch_size`` pairs IID with replacement from a generator seeded
+    from (sample_seed, global step), so draws are replayable and
+    resume-exact."""
+
+    def steps(state: TrainState, sample_seed: int, pairs_dev: torch.Tensor, notice_store, company_store):
+        n_pairs = pairs_dev.shape[0]
+        out = []
+        for _ in range(n_inner):
+            gen = step_generator(pairs_dev.device, sample_seed, state.step, SAMPLE_STREAM)
+            rows = torch.randint(0, n_pairs, (batch_size,), generator=gen, device=pairs_dev.device)
+            state, m = inner(state, pairs_dev.index_select(0, rows), notice_store, company_store)
+            out.append(m)
+        return state, _stack(out)
+
+    return steps
+
+
+def make_sampled_train_steps(
+    model: TwoTowerModel,
+    cfg,
+    tx: Optimizer,
+    n_inner: int,
+    batch_size: int,
+    *,
+    with_metrics: bool = False,
+):
+    """``steps(state, sample_seed, pairs_dev [P, 2], notice_store,
+    company_store) -> (state, metrics stacked [n_inner])``: n_inner train
+    steps per call, each on a batch sampled on the device from the resident
+    pair set; the host sends one integer seed per call."""
+    inner = make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics)
+    return sampled_scan_fn(inner, n_inner, batch_size)
 
 
 def make_encode_fn(model: TwoTowerModel, side: str):
     """Single-side encoder for index building / serving:
-    ``encode(state, batch) -> [B, final_dim]`` float32, in inference mode.
+    ``encode(state, batch) -> [B, final_dim]`` float32, in inference form.
 
     As in the reference, the model is the structure and ``state`` holds the
-    weights (``state.state_dict``, the model's keys): the tower runs through
-    ``torch.func.functional_call`` on them, so one model serves any state on
-    any device. ``batch`` is a :class:`TowerBatch` of tensors on that device."""
+    weights (``state.state_dict``, the model's keys: a FrozenState or a
+    TrainState): the tower runs through ``torch.func.functional_call`` on
+    them, so one model serves any state on any device. ``batch`` is a
+    :class:`TowerBatch` of tensors on that device."""
     tower = {"notice": model.notice_tower, "company": model.company_tower}[side]
     prefix = f"{side}_tower."
 
     def encode(state, batch: TowerBatch) -> torch.Tensor:
         weights = {k[len(prefix):]: v for k, v in state.state_dict.items() if k.startswith(prefix)}
         with torch.inference_mode():
-            return functional_call(tower, weights, (batch,), strict=True)
+            return functional_call(tower, weights, (batch,), {"train": False}, strict=True)
 
     return encode

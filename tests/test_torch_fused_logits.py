@@ -1,0 +1,177 @@
+"""The port's fused in-batch CE (K6 forward, K11 backward and the autograd
+wrapper) against the reference's Pallas kernels in interpret mode, on the
+same numpy inputs: unit-norm rows, so |S| <= 1/tau as in training.
+
+Tolerances: the lse values 5e-6 (both sides take bf16 operands with f32
+sums; only the order of the sums differs, about 1e-6 measured). dn/dc and
+the gradients 1e-4 of their largest entry: A is rounded to bf16 before the
+contractions, and an A entry that lies on a rounding boundary can round one
+bf16 ulp (2^-8 of itself) apart when its exp was summed in another order
+(about 1e-6 measured, with no such entry at these inputs). The loss 1e-5."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jodalrob_twotower_torch.ops import fused_logits as tfl
+from jodalrob_twotower_tpu.ops import fused_logits as jfl
+
+B, D = 256, 128
+
+
+def _unit_rows(rng, b, d):
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    rng = np.random.default_rng(3)
+    n = _unit_rows(rng, B, D)
+    # positives close to their rows, so the diagonal matters
+    c = _unit_rows(rng, B, D) * 0.5 + n
+    c = (c / np.linalg.norm(c, axis=1, keepdims=True)).astype(np.float32)
+    return n, c
+
+
+def _rel(got, want):
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(np.asarray(want)).max())
+
+
+@pytest.mark.parametrize("tau", [1.0, 0.1])
+@pytest.mark.parametrize("nomax", [True, False], ids=["nomax", "shifted"])
+def test_lean_lse_matches_pallas(pair, tau, nomax):
+    n, c = pair
+    n_scaled = n / np.float32(tau)
+    want_r, want_c = jfl._fused_lean_call(
+        jnp.asarray(n_scaled), jnp.asarray(c), interpret=True,
+        max_abs_logit=(1.0 / tau) if nomax else None,
+    )
+    got_r, got_c = tfl.fused_lean_lse(torch.from_numpy(n_scaled), torch.from_numpy(c), nomax=nomax)
+    assert got_r.dtype == torch.float32 and got_r.shape == (B,) and got_c.shape == (B,)
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), rtol=0, atol=5e-6)
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=0, atol=5e-6)
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+@pytest.mark.parametrize("tau", [1.0, 0.1])
+def test_bwd_matches_pallas(pair, tau, eps):
+    n, c = pair
+    n_scaled = n / np.float32(tau)
+    row_lse, col_lse = jfl._fused_lean_call(jnp.asarray(n_scaled), jnp.asarray(c), interpret=True)
+    want_dn, want_dc = jfl._fused_bwd_call(
+        jnp.asarray(n_scaled), jnp.asarray(c), row_lse, col_lse, eps, interpret=True
+    )
+    got_dn, got_dc = tfl.fused_ce_bwd(
+        torch.from_numpy(n_scaled), torch.from_numpy(c),
+        torch.from_numpy(np.array(row_lse)), torch.from_numpy(np.array(col_lse)), eps,
+    )
+    assert got_dn.shape == (B, D) and got_dc.shape == (B, D) and got_dn.dtype == torch.float32
+    assert _rel(got_dn.numpy(), want_dn) < 1e-4
+    assert _rel(got_dc.numpy(), want_dc) < 1e-4
+
+
+def test_bwd_row_offset_places_the_diagonal():
+    """A row shard of N against the full C: dn equals the full batch's rows
+    of dn, and the shard's dc is its share of the full dc."""
+    rng = np.random.default_rng(4)
+    n, c = _unit_rows(rng, B, D), _unit_rows(rng, B, D)
+    n_t, c_t = torch.from_numpy(n), torch.from_numpy(c)
+    rl, cl = tfl.fused_lean_lse_plain(n_t, c_t, nomax=True)
+    dn, dc = tfl.fused_ce_bwd(n_t, c_t, rl, cl)
+    half = B // 2
+    dn_lo, dc_lo = tfl.fused_ce_bwd(n_t[:half], c_t, rl[:half], cl, row_offset=0)
+    dn_hi, dc_hi = tfl.fused_ce_bwd(n_t[half:], c_t, rl[half:], cl, row_offset=half)
+    np.testing.assert_allclose(torch.cat([dn_lo, dn_hi]).numpy(), dn.numpy(), rtol=0, atol=1e-7)
+    np.testing.assert_allclose((dc_lo + dc_hi).numpy(), dc.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "tau,max_abs",
+    [(1.0, "bound"), (0.1, "bound"), (0.1, None)],
+    ids=["tau1-nomax", "tau0.1-nomax", "tau0.1-shifted"],
+)
+def test_fused_ce_loss_and_grads_match_jax(pair, tau, max_abs):
+    n, c = pair
+    max_abs_logit = (1.0 / tau) if max_abs == "bound" else None
+
+    def jax_loss(nn_, cc):
+        return jfl.fused_bidirectional_ce(nn_, cc, tau, 0.0, True, max_abs_logit)
+
+    want_loss, (want_dn, want_dc) = jax.value_and_grad(jax_loss, argnums=(0, 1))(
+        jnp.asarray(n), jnp.asarray(c)
+    )
+    n_t = torch.from_numpy(n).requires_grad_(True)
+    c_t = torch.from_numpy(c).requires_grad_(True)
+    loss = tfl.fused_bidirectional_ce(n_t, c_t, tau, 0.0, max_abs_logit)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=0, atol=1e-5)
+    assert n_t.grad.dtype == torch.float32
+    assert _rel(n_t.grad.numpy(), want_dn) < 1e-4
+    assert _rel(c_t.grad.numpy(), want_dc) < 1e-4
+
+
+def test_outside_the_envelopes_is_materialized_f32():
+    """B=100 fits no kernel: both sides take the f32 [B, B] path."""
+    rng = np.random.default_rng(5)
+    n, c = _unit_rows(rng, 100, D), _unit_rows(rng, 100, D)
+    assert tfl.ce_route(100, D, 0.0, on_cuda=True) == "materialized"
+
+    def jax_loss(nn_, cc):
+        return jfl.fused_bidirectional_ce(nn_, cc, 0.5, 0.0, True, 2.0)
+
+    want_loss, (want_dn, want_dc) = jax.value_and_grad(jax_loss, argnums=(0, 1))(
+        jnp.asarray(n), jnp.asarray(c)
+    )
+    n_t = torch.from_numpy(n).requires_grad_(True)
+    c_t = torch.from_numpy(c).requires_grad_(True)
+    loss = tfl.fused_bidirectional_ce(n_t, c_t, 0.5, 0.0, 2.0)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(n_t.grad.numpy(), np.asarray(want_dn), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(c_t.grad.numpy(), np.asarray(want_dc), rtol=0, atol=1e-7)
+
+
+def test_label_smoothing_takes_the_stats_path_on_cpu(pair):
+    n, c = pair
+
+    def jax_loss(nn_, cc):
+        return jfl.fused_bidirectional_ce(nn_, cc, 0.5, 0.1, True, 2.0)
+
+    want_loss, (want_dn, _) = jax.value_and_grad(jax_loss, argnums=(0, 1))(jnp.asarray(n), jnp.asarray(c))
+    n_t = torch.from_numpy(n).requires_grad_(True)
+    loss = tfl.fused_bidirectional_ce(n_t, torch.from_numpy(c), 0.5, 0.1, 2.0)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=0, atol=1e-5)
+    assert _rel(n_t.grad.numpy(), want_dn) < 1e-4
+
+
+@pytest.mark.parametrize(
+    "b,d,eps,route",
+    [
+        (8192, 128, 0.0, "kernel"),
+        (256, 128, 0.1, "stats"),
+        (16384, 128, 0.0, "kernel"),
+        (16384, 128, 0.1, "stats"),
+        (100, 128, 0.0, "materialized"),
+        (256, 64, 0.0, "materialized"),
+    ],
+)
+def test_route_on_cpu(b, d, eps, route):
+    assert tfl.ce_route(b, d, eps, on_cuda=False) == route
+
+
+@pytest.mark.parametrize(
+    "b,d,eps,match",
+    [
+        (16384, 128, 0.0, "col-blocked"),
+        (8192, 128, 0.1, "stats kernel"),
+        (256, 256, 0.0, "D=128"),
+    ],
+)
+def test_route_on_cuda_raises_for_unported_kernels(b, d, eps, match):
+    with pytest.raises(NotImplementedError, match=match):
+        tfl.ce_route(b, d, eps, on_cuda=True)
+    assert tfl.ce_route(8192, 128, 0.0, on_cuda=True) == "kernel"

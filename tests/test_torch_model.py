@@ -144,12 +144,15 @@ def test_build_model_single_device_only():
         build_model(t_schema, cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="use_pallas_lookup"):
         build_model(t_schema, cfg.replace(mesh=MeshConfig(use_pallas_lookup=True)))
+    # the training form follows the module's flag and needs a generator for dropout
     model.train()
     batch = TorchTowerBatch(
-        torch.zeros(2, t_schema.company.dense_dim), torch.zeros(2, 2, dtype=torch.int32)
+        torch.randn(4, t_schema.company.dense_dim), torch.zeros(4, 2, dtype=torch.int32)
     )
-    with pytest.raises(NotImplementedError, match="inference form"):
+    with pytest.raises(ValueError, match="torch.Generator"):
         model.encode_company(batch)
+    out = model.company_tower(batch, generator=torch.Generator().manual_seed(0))
+    assert out.shape == (4, cfg.model.final_embedding_dim) and torch.isfinite(out).all()
 
 
 def test_reference_shape_has_the_reference_param_count():
