@@ -5,10 +5,15 @@ NVIDIA card.
 1. Builds every hand-written kernel from the checkout's sources, one nvcc
    process per source, all at once.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at the shapes its path gives it (bit-exact for the one-hot lookup;
-   two calls bit-equal for the table gradient and the CE backward), and
-   times kernel, plain version and the nearest library call beside the
-   kernel's bound.
+   card at the shapes its paths give it (bit-exact for the one-hot lookup;
+   two calls bit-equal for the table gradient, the CE backward and the
+   statistics kernels; ranks under the near-tie rule), and times kernel,
+   plain version and the nearest library call beside the kernel's bound:
+   the CE kernels at B=8192 (K6, K11) and in the col-blocked range at
+   B=16384 and 32768 (K7, K10), the statistics sweep at B=8192 and 1024 (K5)
+   and 16384 and 32768 (K9) with its diagonal (K8); at B=65536 the
+   statistics forward against the lean forward, and the label-smoothed loss
+   and its gradients finite.
 3. Serving phase: drives the serving path at full width - ``TrainConfig()``
    on ``reference_shaped_schema()`` (2.19M params), random weights from a
    seeded generator, a synthetic corpus of 1,000,000 companies - through
@@ -18,10 +23,19 @@ NVIDIA card.
 4. Training phase: the headline bench's workload (``jodalrob_twotower_torch.
    bench``: the same config at B=8192, 16 steps per call, stores and pairs
    on the card) for one warm-up and several timed calls; the launch counters
-   show that the steps ran all four kernels; every loss must be finite and
-   the last call's mean below the first's. Then one step's loss and
-   gradients at B=1024 on the card against the same step on the CPU through
-   the plain versions.
+   show that the steps ran the lookup, table-gradient and CE kernels; every
+   loss must be finite and the last call's mean below the first's.
+5. Evaluation phase, on the trained state: ``Evaluator.evaluate_indexed``
+   over held-out pairs at B=8192 (K5 and K8) and at B=16384 (K8 and K9),
+   one batch's fused metrics against ``in_batch_metrics`` of the same
+   embeddings, then ``corpus_retrieval_eval`` of the held-out notices
+   against the 100,000 companies; in-batch recall@10 and corpus recall@100
+   must beat their random baselines.
+6. Extra training paths: one call of the sampled train steps at B=16384 (the
+   col-blocked CE, K7 and K10) and one at B=8192 with label smoothing 0.1
+   (the statistics forward K8 + K5, and K11); every loss finite.
+7. One step's loss and gradients at B=1024 on the card against the same step
+   on the CPU through the plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
 nonzero; so does a machine without a CUDA device. The second-to-last line is
@@ -42,9 +56,16 @@ from jodalrob_twotower_torch import bench
 from jodalrob_twotower_torch.config import LossConfig, TrainConfig
 from jodalrob_twotower_torch.data.synthetic import make_synthetic_dataset
 from jodalrob_twotower_torch.data.types import PairBatch, default_tower_gather
+from jodalrob_twotower_torch.evaluation.evaluator import (
+    Evaluator,
+    corpus_retrieval_eval,
+    demonstrate_predictions,
+    qualitative_assessment,
+)
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.models.embedding import table_layout, tile_feature_map
 from jodalrob_twotower_torch.ops import _build
+from jodalrob_twotower_torch.ops import fused_logits as fl
 from jodalrob_twotower_torch.ops.embedding_grad import (
     dense_table_grad,
     dense_table_grad_plain,
@@ -57,17 +78,32 @@ from jodalrob_twotower_torch.ops.fused_logits import (
     fused_ce_bwd_plain,
     fused_lean_lse,
     fused_lean_lse_plain,
+    fused_stats_sweep,
+    fused_stats_sweep_plain,
+    same_tile_diag,
+    same_tile_diag_plain,
 )
 from jodalrob_twotower_torch.schema import reference_shaped_schema
 from jodalrob_twotower_torch.serving.index import recall_vs_exact
 from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
-from jodalrob_twotower_torch.train.train_step import create_train_state, loss_and_grads, make_encode_fn
+from jodalrob_twotower_torch.train.metrics import diagonal_ranks, in_batch_metrics, random_baselines
+from jodalrob_twotower_torch.train.train_step import (
+    create_train_state,
+    loss_and_grads,
+    make_encode_fn,
+    make_sampled_train_steps,
+)
 from jodalrob_twotower_torch.utils.flops import H100_PEAK_BF16_FLOPS
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at the 700 W limit
-KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd"]  # csrc/<name>.cu
-LAUNCH_COUNTERS = (dense_table_lookup, dense_table_grad, fused_lean_lse, fused_ce_bwd)
+# the special-function units' exponentials: 16 per clock and SM (CUDA C++
+# Programming Guide, arithmetic throughput, compute capability 9.0), 132 SMs
+# at the 1.98 GHz boost clock (H100 SXM data sheet)
+H100_EXP_PER_S = 132 * 16 * 1.98e9
+KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd", "fused_stats"]  # csrc/<name>.cu
+LAUNCH_COUNTERS = (dense_table_lookup, dense_table_grad, fused_lean_lse, fused_ce_bwd, same_tile_diag, fused_stats_sweep)
 TIMED_RUNS = 100
+LARGE_TIMED_RUNS = 20  # B >= 16384, where the plain versions take tens of ms
 CE_BATCH, CE_DIM = 8192, 128  # the training path's loss shape
 TRAIN_TIMED_CALLS = 10
 GRAD_CHECK_BATCH = 1024
@@ -81,6 +117,25 @@ GRAD_ATOL = 1e-4  # f32 sums of <= a few hundred bf16 values of g ~ N(0, 1), ano
 STEP_GRAD_NOISE_FACTOR = 1.5
 STEP_GRAD_SLACK = 0.005
 STEP_LOSS_ATOL = 2e-3
+# the statistics kernels against their plain versions on the same bf16
+# operands (only the order of the f32 sums differs): lse 1e-4 absolute (as
+# K6), the diagonal 1e-5 absolute (a sum of 128 exact products), the row and
+# column sums 1e-3 of their largest magnitude (sums of B terms that cancel);
+# ranks may differ only where S_ij lies within NEAR_TIE_ATOL of the diagonal
+# in the plain S, on at most RANK_ROW_SHARE of the rows (the TPU selftest's
+# rule, scripts/tpu_selftest.py:56-77, with its lse/sum gates tightened since
+# the plain version here takes bf16 operands too)
+STATS_LSE_ATOL = 1e-4
+DIAG_ATOL = 1e-5
+STATS_SUM_RTOL = 1e-3
+NEAR_TIE_ATOL = 1e-5
+RANK_ROW_SHARE = 1e-3
+STATS_TAU = 0.3  # the TPU selftest's temperature for the statistics checks
+BLOCKED_BATCHES = (16384, 32768)  # the col-blocked range's cases (K7-K10)
+LARGEST_BATCH = 65536  # the envelope's top: stats against lean forward, loss and grads finite
+EVAL_PAIRS = 32768  # held-out pairs: 4 eval batches at 8192, 2 at 16384
+EVAL_SIM_ATOL = 1e-4  # fused eval similarities against in_batch_metrics
+EXTRA_STEPS = 2  # steps per call of the extra training paths
 N_COMPANIES = 1_000_000
 N_NOTICES = 20_000
 QUERY_BATCH = 1024
@@ -93,14 +148,14 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip smoke check failed: {what}")
 
 
-def median_ms(fn, flush: torch.Tensor) -> float:
-    """Median over TIMED_RUNS launches, each timed alone with CUDA events
+def median_ms(fn, flush: torch.Tensor, runs: int = TIMED_RUNS) -> float:
+    """Median over ``runs`` launches, each timed alone with CUDA events
     after the L2 cache is flushed (the bound assumes device-memory traffic).
     The flush keeps the card busy long enough for the host to enqueue the
     events and the launch behind it, so no host time falls between them."""
     fn()  # warm-up
     pairs = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -171,9 +226,8 @@ def lookup_phase(flush: torch.Tensor) -> dict:
         library_ms = median_ms(
             lambda: torch.nn.functional.embedding(rows_long, c["table"]).to(torch.bfloat16), flush
         )
-        bound_ms = lookup_bytes(*args) / HBM_BYTES_PER_S * 1e3
         row = {"case": c["case"], "equal": equal, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms}
+               "plain_ms": plain_ms, "library_ms": library_ms, **bound(0, lookup_bytes(*args))}
         print("kernel onehot_lookup", json.dumps(row), flush=True)
         check(equal, f"onehot_lookup != plain version, case {c['case']} (max abs err {err})")
         results.append(row)
@@ -194,99 +248,248 @@ def ce_inputs(b: int, d: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return n, c / c.norm(dim=1, keepdim=True)
 
 
-def timed(row: dict, fn, plain, library, flush) -> dict:
-    row["ms"] = median_ms(fn, flush)
-    row["plain_ms"] = median_ms(plain, flush)
-    row["library_ms"] = median_ms(library, flush)
+def timed(row: dict, fn, plain, library, flush, runs: int = TIMED_RUNS) -> dict:
+    row["ms"] = median_ms(fn, flush, runs)
+    row["plain_ms"] = median_ms(plain, flush, runs)
+    row["library_ms"] = median_ms(library, flush, runs)
     return row
 
 
-def ce_fwd_phase(flush: torch.Tensor, b: int = CE_BATCH, d: int = CE_DIM) -> list[dict]:
+def bound(flops: float, nbytes: float, exps: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate (bf16 tensor-core
+    products; exponentials on the special-function units)."""
+    ops_s = max(flops / H100_PEAK_BF16_FLOPS, exps / H100_EXP_PER_S)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3, "bound_by": "operations" if ops_s > bytes_s else "bytes"}
+
+
+def lean_case(flush: torch.Tensor, b: int, nomax: bool, runs: int = 0, label: str = "fused_ce_fwd") -> dict:
+    """The lean forward (K6; K7 past B=8192) at batch b against its plain
+    version; timed beside its bound and a library yardstick when ``runs``."""
+    d = CE_DIM
     n, c = ce_inputs(b, d, "cuda")
-    nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
-    flops = 2 * b * b * d
-    nbytes = 2 * b * d * 2 + 2 * b * 4
-    rows = []
-    for nomax in (True, False):
-        got = fused_lean_lse(n, c, nomax=nomax)
-        want = fused_lean_lse_plain(n, c, nomax=nomax)
-        torch.cuda.synchronize()
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        row = {"case": f"B={b} D={d} {'nomax' if nomax else 'shifted'}", "max_abs_err": err, "tolerance": LSE_ATOL,
-               "bound_ms": max(flops / H100_PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
-               "bound_by": "operations" if flops / H100_PEAK_BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes"}
+    got = fused_lean_lse(n, c, nomax=nomax)
+    want = fused_lean_lse_plain(n, c, nomax=nomax)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    row = {"case": f"B={b} D={d} {'nomax' if nomax else 'shifted'}", "max_abs_err": err, "tolerance": LSE_ATOL}
+    if runs:
+        nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
+        # products 2 B^2 D; one exponential per entry unshifted, two shifted (row and column max)
+        row.update(bound(2 * b * b * d, 2 * b * d * 2 + 2 * b * 4, exps=(1 if nomax else 2) * b * b))
 
         def library():
             s = (nb @ cb.T).float()
             return torch.logsumexp(s, 1), torch.logsumexp(s, 0)
 
         timed(row, lambda: fused_lean_lse(n, c, nomax=nomax), lambda: fused_lean_lse_plain(n, c, nomax=nomax),
-              library, flush)
-        print("kernel fused_ce_fwd", json.dumps(row), flush=True)
-        check(err <= LSE_ATOL, f"fused_ce_fwd ({row['case']}) vs plain: max abs err {err} > {LSE_ATOL}")
-        rows.append(row)
-    # agreement only, at the step check's batch
-    n, c = ce_inputs(GRAD_CHECK_BATCH, d, "cuda")
-    for nomax in (True, False):
-        got, want = fused_lean_lse(n, c, nomax=nomax), fused_lean_lse_plain(n, c, nomax=nomax)
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        row = {"case": f"B={GRAD_CHECK_BATCH} D={d} {'nomax' if nomax else 'shifted'}", "max_abs_err": err,
-               "tolerance": LSE_ATOL}
-        print("kernel fused_ce_fwd", json.dumps(row), flush=True)
-        check(err <= LSE_ATOL, f"fused_ce_fwd ({row['case']}) vs plain: max abs err {err} > {LSE_ATOL}")
-        rows.append(row)
-    return rows
+              library, flush, runs)
+    print(f"kernel {label}", json.dumps(row), flush=True)
+    check(err <= LSE_ATOL, f"{label} ({row['case']}) vs plain: max abs err {err} > {LSE_ATOL}")
+    return row
 
 
-def ce_bwd_phase(flush: torch.Tensor, b: int = CE_BATCH, d: int = CE_DIM) -> list[dict]:
+def bwd_case(flush: torch.Tensor, b: int, eps: float = 0.0, runs: int = 0, shard: bool = False,
+             label: str = "fused_ce_bwd") -> dict:
+    """The backward (K11; K10 past B=8192) at batch b against its plain
+    version, two calls bit-equal; with ``shard`` the second half of N as a
+    row shard against all of C (the diagonal at column row + offset)."""
+    d = CE_DIM
     n, c = ce_inputs(b, d, "cuda")
-    nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
     rl, cl = fused_lean_lse_plain(n, c, nomax=True)
-    got = fused_ce_bwd(n, c, rl, cl)
-    again = fused_ce_bwd(n, c, rl, cl)
-    want = fused_ce_bwd_plain(n, c, rl, cl)
+    args = (n, c, rl, cl, eps, 0)
+    case = f"B={b} D={d}" + (f" eps={eps}" if eps else "")
+    if shard:
+        half = b // 2
+        args = (n[half:], c, rl[half:], cl, eps, half)
+        case = f"rows {half}..{b} of B={b}, row_offset={half}"
+    got, again, want = fused_ce_bwd(*args), fused_ce_bwd(*args), fused_ce_bwd_plain(*args)
     torch.cuda.synchronize()
-    equal = all(torch.equal(x, y) for x, y in zip(got, again))
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
-    flops = 6 * b * b * d
-    nbytes = 2 * b * d * 2 + 2 * b * 4 + 2 * b * d * 4
-    inv2b, _, _ = _bwd_constants(b, 0.0)
-    eye = torch.arange(b, device="cuda")
+    row = {"case": case, "two_calls_equal": all(torch.equal(x, y) for x, y in zip(got, again)),
+           "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+           "max_rel_err": rel, "tolerance_rel": CE_BWD_RTOL}
+    if runs:
+        nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
+        # products 6 B^2 D; two exponentials per entry in each of the dn and dc sweeps
+        row.update(bound(6 * b * b * d, 2 * b * d * 2 + 2 * b * 4 + 2 * b * d * 4, exps=4 * b * b))
+        inv2b, _, _ = _bwd_constants(b, 0.0)
+        eye = torch.arange(b, device="cuda")
 
-    def library():
-        s = (nb @ cb.T).float()
-        x = torch.exp(s - rl[:, None]) + torch.exp(s - cl[None, :])
-        x[eye, eye] -= 2.0
-        a = (inv2b * x).to(torch.bfloat16)
-        return a @ cb, a.T @ nb
+        def library():
+            s = (nb @ cb.T).float()
+            x = torch.exp(s - rl[:, None]) + torch.exp(s - cl[None, :])
+            x[eye, eye] -= 2.0
+            a = (inv2b * x).to(torch.bfloat16)
+            return a @ cb, a.T @ nb
 
-    row = {"case": f"B={b} D={d}", "two_calls_equal": equal, "max_abs_err": err, "max_rel_err": rel,
-           "tolerance_rel": CE_BWD_RTOL,
-           "bound_ms": max(flops / H100_PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
-           "bound_by": "operations" if flops / H100_PEAK_BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes"}
-    timed(row, lambda: fused_ce_bwd(n, c, rl, cl), lambda: fused_ce_bwd_plain(n, c, rl, cl), library, flush)
-    print("kernel fused_ce_bwd", json.dumps(row), flush=True)
-    check(equal, "fused_ce_bwd: two calls differ")
-    check(rel <= CE_BWD_RTOL, f"fused_ce_bwd vs plain: max err {rel} of max |plain| > {CE_BWD_RTOL}")
-    rows = [row]
-    # agreement only: the second half of N as a row shard against all of C
-    # (the diagonal at column row + offset), and the step check's batch
-    half = b // 2
-    shard = (n[half:], c, rl[half:], cl, 0.0, half)
-    m, mc = ce_inputs(GRAD_CHECK_BATCH, d, "cuda")
-    small = (m, mc, *fused_lean_lse_plain(m, mc, nomax=True))
-    for case, args in ((f"rows {half}..{b} of B={b}, row_offset={half}", shard), (f"B={GRAD_CHECK_BATCH}", small)):
-        got, again, want = fused_ce_bwd(*args), fused_ce_bwd(*args), fused_ce_bwd_plain(*args)
-        rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
-        row = {"case": case, "two_calls_equal": all(torch.equal(x, y) for x, y in zip(got, again)),
-               "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
-               "max_rel_err": rel, "tolerance_rel": CE_BWD_RTOL}
-        print("kernel fused_ce_bwd", json.dumps(row), flush=True)
-        check(row["two_calls_equal"], f"fused_ce_bwd ({case}): two calls differ")
-        check(rel <= CE_BWD_RTOL, f"fused_ce_bwd ({case}) vs plain: max err {rel} of max |plain| > {CE_BWD_RTOL}")
-        rows.append(row)
-    return rows
+        timed(row, lambda: fused_ce_bwd(*args), lambda: fused_ce_bwd_plain(*args), library, flush, runs)
+    print(f"kernel {label}", json.dumps(row), flush=True)
+    check(row["two_calls_equal"], f"{label} ({case}): two calls differ")
+    check(rel <= CE_BWD_RTOL, f"{label} ({case}) vs plain: max err {rel} of max |plain| > {CE_BWD_RTOL}")
+    return row
+
+
+def ce_phase(flush: torch.Tensor) -> dict:
+    """K6 and K11 at the training batch (timed) and the step check's batch;
+    K7 and K10, the same kernels in the col-blocked range, at B=16384 and
+    32768 (timed) with the other variant at 16384."""
+    big = BLOCKED_BATCHES
+    return {
+        "fused_ce_fwd": [lean_case(flush, CE_BATCH, True, TIMED_RUNS), lean_case(flush, CE_BATCH, False, TIMED_RUNS),
+                         lean_case(flush, GRAD_CHECK_BATCH, True), lean_case(flush, GRAD_CHECK_BATCH, False)],
+        "fused_ce_bwd": [bwd_case(flush, CE_BATCH, runs=TIMED_RUNS), bwd_case(flush, CE_BATCH, shard=True),
+                         bwd_case(flush, GRAD_CHECK_BATCH)],
+        "fused_ce_fwd_blocked": [lean_case(flush, b, True, LARGE_TIMED_RUNS, "fused_ce_fwd_blocked") for b in big]
+        + [lean_case(flush, big[0], False, label="fused_ce_fwd_blocked")],
+        "fused_ce_bwd_blocked": [bwd_case(flush, b, runs=LARGE_TIMED_RUNS, label="fused_ce_bwd_blocked") for b in big]
+        + [bwd_case(flush, big[0], eps=0.1, label="fused_ce_bwd_blocked")],
+    }
+
+
+def stats_inputs(b: int, seed: int = SEED) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tower-like unit rows, N scaled by 1/STATS_TAU, each positive from
+    near its row to nearly random, so the ranks spread from 0 to hundreds."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = unit_rows(gen, b, CE_DIM, "cuda")
+    noise = 0.5 + 11.5 * torch.rand(b, 1, generator=gen, device="cuda")
+    c = n + noise * unit_rows(gen, b, CE_DIM, "cuda")
+    return n / STATS_TAU, c / c.norm(dim=1, keepdim=True)
+
+
+def rank_gate(got: torch.Tensor, want: torch.Tensor, n_scaled, c, diag, row_offset: int, what: str) -> dict:
+    """Ranks of the kernel against the plain version: at most
+    RANK_ROW_SHARE of the rows may differ, each by no more than the number
+    of its entries within NEAR_TIE_ATOL of the diagonal in the plain S (the
+    diagonal's own column left out)."""
+    rows = got.shape[0]
+    bad = torch.nonzero(got != want).flatten()
+    n_bad = int(bad.numel())
+    check(n_bad <= RANK_ROW_SHARE * rows, f"{what}: ranks differ on {n_bad} of {rows} rows")
+    worst, ties = 0, 0
+    if n_bad:
+        s = n_scaled[bad].to(torch.bfloat16).float() @ c.to(torch.bfloat16).float().T
+        near = (s - diag[bad, None]).abs() <= NEAR_TIE_ATOL
+        near[torch.arange(n_bad, device=s.device), bad + row_offset] = False
+        delta = (got[bad] - want[bad]).abs()
+        near_ties = near.sum(1)
+        check(bool((delta <= near_ties).all()),
+              f"{what}: a rank differs by more than its row's near-ties ({delta.tolist()} vs {near_ties.tolist()})")
+        worst, ties = int(delta.max()), int(near_ties.max())
+    return {"rank_rows_differing": n_bad, "rank_max_diff": worst, "rank_max_near_ties": ties}
+
+
+def stats_case(flush: torch.Tensor, b: int, runs: int = 0, row_offset: int = 0, rows: int = 0) -> tuple[dict, dict]:
+    """K8 and the statistics sweep (K5; K9 past B=8192) at batch b against
+    their plain versions on the same inputs (the sweep's plain version takes
+    the kernel's diagonal), each two calls bit-equal; with ``rows`` a row
+    shard of N from ``row_offset``. The kernels are reached through the
+    module, so a fault planted there (planted_faults.py) shows here.
+    Returns (the K8 row, the sweep row)."""
+    d = CE_DIM
+    n, c = stats_inputs(b)
+    if rows:
+        n = n[row_offset : row_offset + rows]
+    m = n.shape[0]
+    case = f"B={b} D={d} tau={STATS_TAU}" + (f" rows {row_offset}..{row_offset + m}" if rows else "")
+    diag, diag_again = fl.same_tile_diag(n, c, row_offset), fl.same_tile_diag(n, c, row_offset)
+    got, again = fl.fused_stats_sweep(n, c, diag, row_offset), fl.fused_stats_sweep(n, c, diag, row_offset)
+    want_diag = same_tile_diag_plain(n, c, row_offset)
+    want_rows, want_cols = fused_stats_sweep_plain(n, c, diag, row_offset)
+    torch.cuda.synchronize()
+    got_rows, got_cols = got
+    diag_err = float((diag - want_diag).abs().max())
+    diag_row = {"case": case, "two_calls_equal": torch.equal(diag, diag_again), "max_abs_err": diag_err,
+                "tolerance": DIAG_ATOL}
+
+    def abs_err(g, w):
+        return float((g - w).abs().max())
+
+    row_sum_err, col_sum_err = abs_err(got_rows[:, 1], want_rows[:, 1]), abs_err(got_cols[1], want_cols[1])
+    errs = {
+        "row_lse_abs_err": abs_err(got_rows[:, 0], want_rows[:, 0]),
+        "col_lse_abs_err": abs_err(got_cols[0], want_cols[0]),
+        "diag_passed_through": torch.equal(got_rows[:, 2], diag),
+        "row_sum_rel_err": row_sum_err / float(want_rows[:, 1].abs().max()),
+        "col_sum_rel_err": col_sum_err / float(want_cols[1].abs().max()),
+        "sum_abs_err": max(row_sum_err, col_sum_err),
+    }
+    stats_row = {"case": case, "two_calls_equal": all(torch.equal(x, y) for x, y in zip(got, again)),
+                 "max_abs_err": max(errs["row_lse_abs_err"], errs["col_lse_abs_err"], errs["sum_abs_err"]),
+                 **errs, "tolerance_lse": STATS_LSE_ATOL, "tolerance_sum_rel": STATS_SUM_RTOL,
+                 "rank_mean": float(want_rows[:, 3].mean()),
+                 **rank_gate(got_rows[:, 3], want_rows[:, 3], n, c, diag, row_offset, f"fused_stats {case}")}
+    if runs:
+        nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
+        # K8: the diagonal tiles' operands in, the diagonal out
+        diag_row.update(bound(2 * m * 64 * d, 2 * m * d * 2 + m * 4))
+        timed(diag_row, lambda: fl.same_tile_diag(nb, cb, row_offset),
+              lambda: same_tile_diag_plain(nb, cb, row_offset),
+              lambda: (nb * cb[row_offset : row_offset + m]).sum(1), flush, runs)
+        # the sweep: products 2 m b d, two exponentials per entry, N, C and diag in, the statistics out
+        stats_row.update(bound(2 * m * b * d, (m + b) * d * 2 + m * 4 + m * 16 + b * 8, exps=2 * m * b))
+
+        def library():
+            s = (nb @ cb.T).float()
+            return torch.logsumexp(s, 1), s.sum(1), (s > diag[:, None]).sum(1), torch.logsumexp(s, 0), s.sum(0)
+
+        timed(stats_row, lambda: fl.fused_stats_sweep(nb, cb, diag, row_offset),
+              lambda: fused_stats_sweep_plain(nb, cb, diag, row_offset), library, flush, runs)
+    print("kernel same_tile_diag", json.dumps(diag_row), flush=True)
+    print("kernel fused_stats", json.dumps(stats_row), flush=True)
+    check(diag_row["two_calls_equal"] and stats_row["two_calls_equal"], f"statistics kernels ({case}): two calls differ")
+    check(diag_err <= DIAG_ATOL, f"same_tile_diag ({case}) vs plain: max abs err {diag_err} > {DIAG_ATOL}")
+    check(errs["diag_passed_through"], f"fused_stats ({case}): row diag is not the diag it was given")
+    for key in ("row_lse_abs_err", "col_lse_abs_err"):
+        check(errs[key] <= STATS_LSE_ATOL, f"fused_stats ({case}) vs plain: {key} {errs[key]} > {STATS_LSE_ATOL}")
+    for key in ("row_sum_rel_err", "col_sum_rel_err"):
+        check(errs[key] <= STATS_SUM_RTOL, f"fused_stats ({case}) vs plain: {key} {errs[key]} > {STATS_SUM_RTOL}")
+    return diag_row, stats_row
+
+
+def stats_phase(flush: torch.Tensor) -> dict:
+    """K8 with K5 at B=8192 (timed), 1024 and a row shard; with K9 at
+    B=16384 and 32768 (timed). K8's record leads with B=16384, the shape
+    the col-blocked eval runs it at."""
+    k5 = [stats_case(flush, CE_BATCH, TIMED_RUNS), stats_case(flush, GRAD_CHECK_BATCH, TIMED_RUNS),
+          stats_case(flush, CE_BATCH, row_offset=CE_BATCH // 2, rows=CE_BATCH // 4)]
+    k9 = [stats_case(flush, b, LARGE_TIMED_RUNS) for b in BLOCKED_BATCHES]
+    return {
+        "same_tile_diag": [k9[0][0], k5[0][0], k5[1][0], k5[2][0], k9[1][0]],
+        "fused_stats": [r for _, r in k5],
+        "fused_stats_blocked": [r for _, r in k9],
+    }
+
+
+def largest_batch_check() -> dict:
+    """At B=65536, where the plain versions cannot run ([B, B] f32 is 17
+    GB per temporary): the statistics forward (K8 + K9) against the lean
+    forward (K7), lse within 1e-5 relative, and the label-smoothed loss
+    (eps 0.1) and its gradients (K9, K10) finite and near log B (the TPU
+    selftest's check_blocked_large)."""
+    b = LARGEST_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    n, c = unit_rows(gen, b, CE_DIM, "cuda"), unit_rows(gen, b, CE_DIM, "cuda")
+    stats = fl.fused_stats(n, c, temperature=STATS_TAU)
+    row_lean, col_lean = fused_lean_lse(n / STATS_TAU, c, nomax=False)
+
+    def rel(a, ref):
+        return float(((a - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+
+    lse_err = max(rel(stats.row_lse, row_lean), rel(stats.col_lse, col_lean))
+    nt, ct = n.clone().requires_grad_(True), c.clone().requires_grad_(True)
+    loss = fl.fused_bidirectional_ce(nt, ct, STATS_TAU, 0.1)
+    loss.backward()
+    loss = float(loss.detach())
+    finite = bool(np.isfinite(loss)) and bool(torch.isfinite(nt.grad).all()) and bool(torch.isfinite(ct.grad).all())
+    row = {"case": f"B={b} D={CE_DIM} tau={STATS_TAU}", "stats_vs_lean_lse_max_rel_err": lse_err,
+           "loss_eps0.1": loss, "log_b": float(np.log(b)), "finite": finite,
+           "workspace_mb": {"fused_stats": 3 * (b // 64) * b * 4 / 2**20, "fused_lean_lse": 2 * (b // 64) * b * 4 / 2**20}}
+    print("kernel largest batch " + json.dumps(row), flush=True)
+    check(lse_err < 1e-5, f"B={b}: statistics lse vs lean lse max rel err {lse_err}")
+    check(finite and abs(loss - np.log(b)) < 2.0, f"B={b}: label-smoothed loss {loss} or its grads")
+    return row
 
 
 def table_grad_phase(flush: torch.Tensor, batch: int = 8192) -> list[dict]:
@@ -315,7 +518,7 @@ def table_grad_phase(flush: torch.Tensor, batch: int = 8192) -> list[dict]:
         nbytes = rows.numel() * 4 + g.numel() * 2 + total * 32 * 4 + tf.numel() * 4
         rows_flat, g_flat = rows.reshape(-1).long(), g.reshape(-1, 32)
         row = {"case": f"{name} B={batch} K={k} R={total} D=32", "two_calls_equal": equal, "max_abs_err": err,
-               "tolerance": GRAD_ATOL, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+               "tolerance": GRAD_ATOL, **bound(0, nbytes)}
         timed(row, lambda: dense_table_grad(rows, g, tf), lambda: dense_table_grad_plain(rows, g, tf),
               lambda: torch.zeros(total, 32, device="cuda").index_add_(0, rows_flat, g_flat.float()), flush)
         print("kernel table_grad", json.dumps(row), flush=True)
@@ -347,8 +550,9 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     return {
         **lookup_phase(flush),
         "table_grad": table_grad_phase(flush),
-        "fused_ce_fwd": ce_fwd_phase(flush),
-        "fused_ce_bwd": ce_bwd_phase(flush),
+        **ce_phase(flush),
+        **stats_phase(flush),
+        "largest_batch": largest_batch_check(),
     }
 
 
@@ -527,10 +731,14 @@ def device_breakdown(fn, repeats: int = 3, top: int = 8, host_top: int = 0) -> d
 # -- training phase ---------------------------------------------------------------
 
 
-def training_phase() -> dict:
+TRAINING_KERNELS = ("dense_table_lookup", "dense_table_grad", "fused_lean_lse", "fused_ce_bwd")
+
+
+def training_phase() -> tuple[dict, bench.Workload]:
     """The headline bench's workload on the card: one warm-up call and
     TRAIN_TIMED_CALLS timed calls of 16 steps at B=8192, the launch counters
-    read around them, then a profiler breakdown of one more call."""
+    read around them, then a profiler breakdown of one more call. Returns
+    the record and the workload, whose trained state the evaluation uses."""
     torch.backends.cuda.matmul.allow_tf32 = False
     work = bench.build_workload(device="cuda", seed=SEED)
     n_params = sum(p.numel() for p in work.state.params.values())
@@ -548,8 +756,8 @@ def training_phase() -> dict:
     torch.cuda.synchronize()
     launches = read_counters()
     print("training main path launches", json.dumps(launches), flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the training path")
+    for name in TRAINING_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the training path")
     losses = np.asarray([first.tolist()] + out["losses"])
     check(bool(np.isfinite(losses).all()), "non-finite training loss")
     check(float(losses[-1].mean()) < float(losses[0].mean()),
@@ -571,7 +779,153 @@ def training_phase() -> dict:
         "device_busy_share_timed": breakdown["device_ms_per_call"] / (out["ms_per_step"] * len(first)),
         "device_events_per_call": breakdown["device_events_per_call"], "host_top": breakdown["host_top"],
         "wall_ms_per_call": breakdown["wall_ms_per_call"], "top_ms": breakdown["top_ms"],
-    }
+    }, work
+
+
+# -- evaluation phase -------------------------------------------------------------
+
+
+def held_out_pairs(ds, n: int, seed: int) -> np.ndarray:
+    """n positive pairs by the synthetic generator's rule (a uniform notice,
+    then a uniform company of the notice's cluster; data/synthetic.py), from
+    another seed than the training pairs."""
+    rng = np.random.default_rng(seed)
+    by_cluster = [np.flatnonzero(ds.company_cluster == k) for k in range(bench.N_CLUSTERS)]
+    counts = np.asarray([len(m) for m in by_cluster])
+    offsets = np.concatenate([[0], np.cumsum(counts[:-1])])
+    members = np.concatenate(by_cluster)
+    notices = rng.integers(0, len(ds.notice_cluster), size=n)
+    cluster = ds.notice_cluster[notices]
+    companies = members[offsets[cluster] + (rng.random(n) * counts[cluster]).astype(np.int64)]
+    return np.stack([notices, companies], axis=1).astype(np.int64)
+
+
+def eval_metric_check(ev: Evaluator, state, cfg, idx: torch.Tensor, notice_store, company_store) -> dict:
+    """One eval batch: the eval step's metrics (the fused path: K6 for the
+    loss, K8 + the sweep for the metrics) against ``in_batch_metrics`` and
+    the materialized loss of the same embeddings, S formed from the bf16
+    operands the kernels take with f32 sums. Ranks under the near-tie rule;
+    the rank metrics may then differ by the share of rows whose rank
+    differs; similarities within EVAL_SIM_ATOL; the loss within 1e-4."""
+    b, tau = idx.shape[0], cfg.loss.temperature
+    batch = PairBatch(default_tower_gather(notice_store, idx[:, 0]), default_tower_gather(company_store, idx[:, 1]))
+    fused = {k: float(v) for k, v in ev._eval_step(state, batch).items()}
+    n_emb, c_emb = ev._encode_notice(state, batch.notice), ev._encode_company(state, batch.company)
+    n_scaled = n_emb.float() / tau
+    sim = n_scaled.to(torch.bfloat16).float() @ c_emb.to(torch.bfloat16).float().T
+    plain = {k: float(v) for k, v in in_batch_metrics(sim).items()}
+    plain_loss = 0.5 * (torch.nn.functional.cross_entropy(sim, torch.arange(b, device=sim.device))
+                        + torch.nn.functional.cross_entropy(sim.T, torch.arange(b, device=sim.device)))
+    stats = fl.fused_stats(n_emb, c_emb, temperature=tau)
+    gate = rank_gate(stats.rank, diagonal_ranks(sim).float(), n_scaled, c_emb, stats.diag, 0, f"eval B={b}")
+    slack = gate["rank_rows_differing"] / b + 1e-6
+    diffs = {k: abs(fused[k] - plain[k]) for k in plain}
+    row = {"metric_abs_diff_vs_in_batch_metrics": diffs, "loss_abs_diff_vs_materialized": abs(fused["loss"] - float(plain_loss)),
+           **gate, "rank_metric_tolerance": slack, "sim_tolerance": EVAL_SIM_ATOL}
+    for k in ("accuracy", "mrr", "auc", "recall@5", "recall@10"):
+        check(diffs[k] <= slack, f"eval B={b}: {k} fused {fused[k]} vs in_batch_metrics {plain[k]}")
+    for k in ("positive_similarity", "negative_similarity", "similarity_gap"):
+        check(diffs[k] <= EVAL_SIM_ATOL, f"eval B={b}: {k} fused {fused[k]} vs in_batch_metrics {plain[k]}")
+    check(row["loss_abs_diff_vs_materialized"] <= 1e-4, f"eval B={b}: loss {fused['loss']} vs {float(plain_loss)}")
+    return row
+
+
+def evaluation_phase(work: bench.Workload) -> tuple[dict, dict]:
+    """The evaluation path on the training phase's state: ``evaluate_indexed``
+    over EVAL_PAIRS held-out pairs at B=8192 (path "eval": K6, K8, K5) and at
+    B=16384 (path "eval_b16384": K7, K8, K9), each after one warm-up batch,
+    with one batch's metrics held against in_batch_metrics; then the
+    corpus eval of the held-out notices against every company. Returns the
+    record and the launch counts of each path."""
+    cfg, state = work.cfg, work.state
+    ev = Evaluator(build_model(work.schema, cfg), cfg)
+    held = held_out_pairs(work.dataset, EVAL_PAIRS, SEED + 5)
+    n_companies = len(work.dataset.company_cluster)
+    trained = np.isin(held[:, 0] * n_companies + held[:, 1], work.dataset.pairs[:, 0] * n_companies + work.dataset.pairs[:, 1])
+    out = {"held_out_pairs": EVAL_PAIRS, "held_out_share_also_in_training": float(trained.mean()),
+           "state_step": state.step}
+    launches = {}
+    for path, b, stack in (("eval", CE_BATCH, 4), ("eval_b16384", BLOCKED_BATCHES[0], 2)):
+        ev.evaluate_indexed(state, held[:b], work.notice_store, work.company_store, batch_size=b, stack=1)
+        # -- the main path: counters from 0, read right after ------------------
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = ev.evaluate_indexed(state, held, work.notice_store, work.company_store, batch_size=b, stack=stack)
+        wall_s = time.perf_counter() - t0  # ends in the metrics' fetch
+        launches[path] = read_counters()
+        print(f"{path} main path launches", json.dumps(launches[path]), flush=True)
+        for name in ("fused_lean_lse", "same_tile_diag", "fused_stats_sweep"):
+            check(launches[path][name] > 0, f"kernel {name} was not launched on the {path} path")
+        check(all(np.isfinite(v) for v in m.values()), f"{path}: non-finite metric {m}")
+        rb = random_baselines(b)
+        row = {"batch": b, "num_batches": m["num_batches"], "ms_per_batch": wall_s * 1e3 / m["num_batches"],
+               "metrics": m, "random_recall@10": rb["recall@10"], "random_accuracy": rb["accuracy"],
+               "assessment": qualitative_assessment(m, b),
+               **eval_metric_check(ev, state, cfg, torch.from_numpy(held[:b]).cuda(), work.notice_store,
+                                   work.company_store)}
+        row["device_one_batch"] = device_breakdown(
+            lambda: ev.evaluate_indexed(state, held[:b], work.notice_store, work.company_store, batch_size=b, stack=1),
+            repeats=3, top=8,
+        )
+        print(f"{path} " + json.dumps(row), flush=True)
+        check(m["recall@10"] > rb["recall@10"], f"{path}: in-batch recall@10 {m['recall@10']} <= random {rb['recall@10']}")
+        out[path] = row
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus_emb = ev.encode_corpus_device(state, work.company_store, n_companies)
+    rows = torch.from_numpy(held[:, 0]).cuda()
+    query_store = (work.notice_store[0].index_select(0, rows), work.notice_store[1].index_select(0, rows))
+    query_emb = ev.encode_corpus_device(state, query_store, len(held), side="notice")
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = corpus_retrieval_eval(query_emb, corpus_emb, held[:, 1])
+    corpus_s = time.perf_counter() - t0
+    demo = demonstrate_predictions(query_emb[:2], corpus_emb, k=3, corpus_keys=work.dataset.company_store.keys)
+    out["corpus"] = {"queries": res.num_queries, "corpus_size": res.corpus_size, "recall@10": res.recall[10],
+                     "recall@100": res.recall[100], "mrr": res.mrr, "random_recall@100": 100 / res.corpus_size,
+                     "encode_s": encode_s, "corpus_eval_s": corpus_s, "demo": demo}
+    print("corpus eval " + json.dumps(out["corpus"]), flush=True)
+    check(res.recall[100] > 100 / res.corpus_size,
+          f"corpus recall@100 {res.recall[100]} <= random {100 / res.corpus_size}")
+    return out, launches
+
+
+def extra_training_phase(work: bench.Workload) -> tuple[dict, dict]:
+    """One call of EXTRA_STEPS sampled train steps from a fresh state on the
+    bench's stores: at B=16384 (path "train_b16384": the col-blocked CE, K7
+    and K10) and at B=8192 with label smoothing 0.1 (path "train_ls0.1": the
+    statistics forward K8 + K5 and K11). Every loss finite; the counters
+    show each path's kernels. Returns the record and the launch counts."""
+    out, launches = {}, {}
+    for path, b, eps, kernels in (
+        ("train_b16384", BLOCKED_BATCHES[0], 0.0, ("fused_lean_lse", "fused_ce_bwd")),
+        ("train_ls0.1", CE_BATCH, 0.1, ("same_tile_diag", "fused_stats_sweep", "fused_ce_bwd")),
+    ):
+        cfg = work.cfg.replace(loss=dataclasses.replace(work.cfg.loss, label_smoothing=eps))
+        model = build_model(work.schema, cfg).init_weights(torch.Generator().manual_seed(SEED))
+        state, tx = create_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device="cuda")
+        steps = make_sampled_train_steps(model, cfg, tx, EXTRA_STEPS, b)
+        # -- the main path: counters from 0, read right after ----------------------
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = steps(state, SEED + 7, work.pairs, work.notice_store, work.company_store)
+        losses = m["loss"].cpu().numpy()
+        call_s = time.perf_counter() - t0
+        launches[path] = read_counters()
+        print(f"{path} main path launches", json.dumps(launches[path]), flush=True)
+        for name in ("dense_table_lookup", "dense_table_grad") + kernels:
+            check(launches[path][name] > 0, f"kernel {name} was not launched on the {path} path")
+        if eps:
+            check(launches[path]["fused_lean_lse"] == 0, f"{path}: label smoothing ran the lean forward")
+        check(bool(np.isfinite(losses).all()), f"{path}: non-finite loss {losses}")
+        out[path] = {"batch": b, "label_smoothing": eps, "steps": EXTRA_STEPS, "losses": losses.tolist(),
+                     "first_call_s": call_s, "launches": launches[path]}
+        print(f"{path} " + json.dumps(out[path]), flush=True)
+    return out, launches
 
 
 def step_grad_check() -> dict:
@@ -640,15 +994,19 @@ def step_grad_check() -> dict:
     return row
 
 
-def kernel_record(name: str, source: str, replaces: str, rows: list[dict], launches: dict, counter: str) -> dict:
-    main = rows[0]  # the main path's shape comes first
+def kernel_record(name: str, tpu_kernel: str, source: str, replaces: str, rows: list[dict], launches: dict,
+                  counter: str, path: str) -> dict:
+    """The record of one TPU kernel's port: ``launches`` counts the wrapper
+    ``counter`` on the driven ``path`` that runs this kernel at its shape;
+    ms, plain_ms, library_ms and the bound come from the first case."""
+    main = rows[0]
     rec = {
-        "name": name, "route": "cuda", "source": f"jodalrob_twotower_torch/csrc/{source}",
-        "replaces": replaces, "launches": launches["training"][counter],
-        "launches_by_path": {path: counts[counter] for path, counts in launches.items()},
+        "name": name, "tpu_kernel": tpu_kernel, "route": "cuda", "source": f"jodalrob_twotower_torch/csrc/{source}",
+        "replaces": f"jodalrob_twotower_tpu/ops/{replaces}", "launches": launches[path][counter],
+        "launches_path": path, "launches_by_path": {p: counts[counter] for p, counts in launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main.get("bound_by", "bytes"), "library_ms": main["library_ms"], "cases": rows,
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"], "main_case": main["case"], "cases": rows,
     }
     if "equal" in main:
         rec["equal"] = all(r["equal"] for r in rows)
@@ -678,26 +1036,50 @@ def main() -> int:
     serving = serving_phase()
     serving["card"] = card
     print("serving " + json.dumps(serving), flush=True)
-    training = training_phase()
+    training, work = training_phase()
     training["card"] = card
     print("training " + json.dumps(training), flush=True)
+    evaluation, eval_launches = evaluation_phase(work)
+    evaluation["card"] = card
+    print("evaluation " + json.dumps(evaluation), flush=True)
+    extra, extra_launches = extra_training_phase(work)
+    del work
+    torch.cuda.empty_cache()
     step_check = step_grad_check()
 
-    launches = {"serving": serving["launches"], "training": training["launches"]}
+    launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches}
     record = {"kernels": [
-        kernel_record("onehot_lookup", "onehot_lookup.cu", "jodalrob_twotower_tpu/ops/embedding_grad.py:358",
-                      kernels["onehot_lookup"], launches, "dense_table_lookup"),
-        kernel_record("table_grad", "table_grad.cu", "jodalrob_twotower_tpu/ops/embedding_grad.py:45",
-                      kernels["table_grad"], launches, "dense_table_grad"),
-        kernel_record("fused_ce_fwd", "fused_ce_fwd.cu", "jodalrob_twotower_tpu/ops/fused_logits.py:280",
-                      kernels["fused_ce_fwd"], launches, "fused_lean_lse"),
-        kernel_record("fused_ce_bwd", "fused_ce_bwd.cu", "jodalrob_twotower_tpu/ops/fused_logits.py:819",
-                      kernels["fused_ce_bwd"], launches, "fused_ce_bwd"),
+        kernel_record("onehot_lookup", "K1", "onehot_lookup.cu", "embedding_grad.py:358",
+                      kernels["onehot_lookup"], launches, "dense_table_lookup", "training"),
+        kernel_record("table_grad", "K2", "table_grad.cu", "embedding_grad.py:45",
+                      kernels["table_grad"], launches, "dense_table_grad", "training"),
+        kernel_record("fused_stats", "K5", "fused_stats.cu", "fused_logits.py:95",
+                      kernels["fused_stats"], launches, "fused_stats_sweep", "eval"),
+        kernel_record("fused_ce_fwd", "K6", "fused_ce_fwd.cu", "fused_logits.py:280",
+                      kernels["fused_ce_fwd"], launches, "fused_lean_lse", "training"),
+        kernel_record("fused_ce_fwd_blocked", "K7", "fused_ce_fwd.cu", "fused_logits.py:387",
+                      kernels["fused_ce_fwd_blocked"], launches, "fused_lean_lse", "train_b16384"),
+        kernel_record("same_tile_diag", "K8", "fused_stats.cu", "fused_logits.py:518",
+                      kernels["same_tile_diag"], launches, "same_tile_diag", "eval_b16384"),
+        kernel_record("fused_stats_blocked", "K9", "fused_stats.cu", "fused_logits.py:553",
+                      kernels["fused_stats_blocked"], launches, "fused_stats_sweep", "eval_b16384"),
+        kernel_record("fused_ce_bwd_blocked", "K10", "fused_ce_bwd.cu", "fused_logits.py:707",
+                      kernels["fused_ce_bwd_blocked"], launches, "fused_ce_bwd", "train_b16384"),
+        kernel_record("fused_ce_bwd", "K11", "fused_ce_bwd.cu", "fused_logits.py:819",
+                      kernels["fused_ce_bwd"], launches, "fused_ce_bwd", "training"),
     ], "training": {k: training[k] for k in ("examples_per_sec", "ms_per_step", "mfu", "device_busy_share",
                                          "device_busy_share_timed")},
+        "evaluation": {path: {"ms_per_batch": evaluation[path]["ms_per_batch"],
+                              "recall@10": evaluation[path]["metrics"]["recall@10"],
+                              "device_busy_share": evaluation[path]["device_one_batch"]["busy_share"]}
+                       for path in ("eval", "eval_b16384")},
+        "corpus": {k: evaluation["corpus"][k] for k in ("recall@10", "recall@100", "mrr", "encode_s", "corpus_eval_s")},
+        "extra_training": {path: row["losses"] for path, row in extra.items()},
+        "largest_batch": kernels["largest_batch"],
         "step_check": {k: step_check[k] for k in ("loss_abs_err", "max_grad_rel_err", "worst_share_of_tolerance")},
         "card": card}
-    record["kernels"][2]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"
+    record["kernels"][3]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"
+    record["kernels"][7]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:724"
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

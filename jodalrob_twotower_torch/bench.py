@@ -65,6 +65,7 @@ class Workload:
     company_store: tuple
     batch_size: int
     data_s: float
+    dataset: object  # the SyntheticDataset the stores and pairs come from
 
     def call(self, sample_seed: int) -> dict:
         """One call of N_INNER steps; returns its metrics (on the card)."""
@@ -90,7 +91,7 @@ def build_workload(*, device=None, seed: int = 0, n_inner: int = N_INNER, batch_
     model = build_model(schema, cfg).init_weights(torch.Generator().manual_seed(seed))
     state, tx = create_train_state(model, cfg, seed, TOTAL_STEPS, device=dev)
     steps = make_sampled_train_steps(model, cfg, tx, n_inner, batch_size)
-    return Workload(cfg, schema, state, steps, pairs, notice_store, company_store, batch_size, data_s)
+    return Workload(cfg, schema, state, steps, pairs, notice_store, company_store, batch_size, data_s, ds)
 
 
 def card_line() -> str:

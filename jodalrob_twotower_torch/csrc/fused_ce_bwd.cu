@@ -60,13 +60,7 @@ constexpr int kOutSub = kD / 8;   // 8-column tiles of the [16, D] output
 constexpr int kLd = kD + 8;       // shared row stride (bf16): 272 bytes
 
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int tid) {
-  constexpr int kPerRow = kD / 8;
-#pragma unroll
-  for (int i = 0; i < kBN * kPerRow / kThreads; ++i) {
-    const int q = tid + i * kThreads;
-    const int r = q / kPerRow, p = q % kPerRow;
-    cp_async_16(dst + r * kLd + p * 8, src + static_cast<int64_t>(r) * kD + p * 8);
-  }
+  load_tile_async<kD, kBN, kLd, kThreads>(dst, src, tid);
 }
 
 // One sweep: out[r, :] = sum_c A[r, c] * cols_m[c, :] for the rows r of
@@ -105,14 +99,7 @@ ce_bwd_sweeps(Sweep dn, Sweep dc, int dn_blocks, float inv2b, float diag_coef,
   const int ra = block * kBM + warp * 16 + g;  // this lane's rows: ra and ra + 8
 
   uint32_t a[kKSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    const __nv_bfloat16* p = rows_m + static_cast<int64_t>(ra) * kD + ks * 16 + 2 * t;
-    a[ks][0] = load_u32(p);
-    a[ks][1] = load_u32(p + 8 * kD);
-    a[ks][2] = load_u32(p + 8);
-    a[ks][3] = load_u32(p + 8 * kD + 8);
-  }
+  load_row_fragments<kD>(a, rows_m, ra, t);
   const float lr[2] = {lse_r[ra], lse_r[ra + 8]};
 
   float acc[kOutSub][4];
@@ -138,16 +125,7 @@ ce_bwd_sweeps(Sweep dn, Sweep dc, int dn_blocks, float inv2b, float diag_coef,
     const __nv_bfloat16* ct = tile[j & 1];
 
     float s[kNSub][4];
-#pragma unroll
-    for (int ns = 0; ns < kNSub; ++ns) s[ns][0] = s[ns][1] = s[ns][2] = s[ns][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-#pragma unroll
-      for (int ns = 0; ns < kNSub; ++ns) {
-        const __nv_bfloat16* bp = ct + (ns * 8 + g) * kLd + ks * 16 + 2 * t;
-        mma_bf16_16816(s[ns], a[ks], load_u32(bp), load_u32(bp + 8));
-      }
-    }
+    tile_scores<kD, kNSub, kLd>(s, a, ct, g, t);
 
     // A in place of S, then packed to bf16 as the next product's A fragments
     uint32_t pa[kBN / 16][4];

@@ -59,13 +59,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // One [kBN, kD] tile of a row-major [*, kD] bf16 matrix into shared memory.
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int tid) {
-  constexpr int kPerRow = kD / 8;  // 16-byte pieces per row
-#pragma unroll
-  for (int i = 0; i < kBN * kPerRow / kThreads; ++i) {
-    const int q = tid + i * kThreads;
-    const int r = q / kPerRow, p = q % kPerRow;
-    cp_async_16(dst + r * kLd + p * 8, src + static_cast<int64_t>(r) * kD + p * 8);
-  }
+  load_tile_async<kD, kBN, kLd, kThreads>(dst, src, tid);
 }
 
 template <bool kNoMax>
@@ -82,14 +76,7 @@ lean_lse_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __rest
   const int ra = blockIdx.x * kBM + warp * 16 + g;  // this lane's rows: ra and ra + 8
 
   uint32_t a[kKSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    const __nv_bfloat16* p = n + static_cast<int64_t>(ra) * kD + ks * 16 + 2 * t;
-    a[ks][0] = load_u32(p);
-    a[ks][1] = load_u32(p + 8 * kD);
-    a[ks][2] = load_u32(p + 8);
-    a[ks][3] = load_u32(p + 8 * kD + 8);
-  }
+  load_row_fragments<kD>(a, n, ra, t);
 
   // this lane's share of its two rows: running max (shifted form) and sum of exp
   float rm[2] = {kNegInf, kNegInf};
@@ -108,16 +95,7 @@ lean_lse_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __rest
     const __nv_bfloat16* ct = tile[j & 1];
 
     float s[kNSub][4];
-#pragma unroll
-    for (int ns = 0; ns < kNSub; ++ns) s[ns][0] = s[ns][1] = s[ns][2] = s[ns][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-#pragma unroll
-      for (int ns = 0; ns < kNSub; ++ns) {
-        const __nv_bfloat16* bp = ct + (ns * 8 + g) * kLd + ks * 16 + 2 * t;
-        mma_bf16_16816(s[ns], a[ks], load_u32(bp), load_u32(bp + 8));
-      }
-    }
+    tile_scores<kD, kNSub, kLd>(s, a, ct, g, t);
 
     // cv[ns][e]: this lane's two rows' contribution to column ns*8 + 2t + e
     float cv[kNSub][2];

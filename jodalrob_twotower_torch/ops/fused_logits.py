@@ -1,37 +1,52 @@
-"""Fused in-batch-negative CE loss (port of the lean loss path of
-``jodalrob_twotower_tpu/ops/fused_logits.py``).
+"""Fused in-batch-negative logits: the CE loss and the in-batch statistics
+without the [B, B] matrix (port of ``jodalrob_twotower_tpu/ops/fused_logits.py``).
 
-The bidirectional CE over S = (N/tau) C^T needs, per row i and column j, only
-``row_lse_i``, ``col_lse_j`` and the diagonal S_ii:
+Per row i and column j of S = (N/tau) C^T the loss and the metrics need
 
-  L = 1/2 mean_i(row_lse_i - S_ii) + 1/2 mean_j(col_lse_j - S_jj)
+  row_lse_i = logsumexp_j S_ij    col_lse_j = logsumexp_i S_ij
+  row_sum_i = sum_j S_ij          col_sum_j = sum_i S_ij
+  diag_i    = S_ii                rank_i    = #{j != i : S_ij > S_ii}
 
-and its gradient contracts dL/dS = (1/2B)[P_row + P_col - 2 delta] against C
-and N. Two hand-written CUDA kernels compute both without writing S:
+The loss without label smoothing needs only the lse values and the diagonal;
+its gradient contracts dL/dS = (1/2B)[P_row + P_col - 2(1-eps) delta -
+2 eps/B] against C and N. Four hand-written CUDA kernels compute these
+without writing S, each from N/tau and C in bf16 with f32 accumulation, as
+the TPU kernels do:
 
-* :func:`fused_lean_lse` -> ``csrc/fused_ce_fwd.cu``, replacing the TPU
-  kernels ``fused_logits.py:241 _fwd_lean_kernel`` and ``:280
-  _fwd_lean_nomax_kernel`` (through ``_fused_lean_call``);
-* :func:`fused_ce_bwd` -> ``csrc/fused_ce_bwd.cu``, replacing ``:819
-  _bwd_kernel`` (through ``_fused_bwd_call``).
+* :func:`fused_lean_lse` -> ``csrc/fused_ce_fwd.cu``: the lean forward,
+  replacing ``fused_logits.py:241 _fwd_lean_kernel`` and ``:280
+  _fwd_lean_nomax_kernel`` (B <= 8192) and ``:387 _fwd_lean_blocked_kernel``
+  (8192 < B <= 65536);
+* :func:`fused_ce_bwd` -> ``csrc/fused_ce_bwd.cu``: the backward, replacing
+  ``:819 _bwd_kernel`` (B <= 8192) and ``:707/:724 _bwd_dn/dc_blocked_kernel``
+  (beyond);
+* :func:`same_tile_diag` -> ``csrc/fused_stats.cu``: S_ii from the same tile
+  product the statistics sweep runs, replacing ``:518 _diag_mxu_kernel``;
+* :func:`fused_stats_sweep` -> ``csrc/fused_stats.cu``: every statistic
+  above, replacing ``:95 _fwd_kernel`` (B <= 8192) and ``:553
+  _fwd_stats_blocked_kernel`` (beyond).
 
-Both take N/tau and C in bf16 with f32 accumulation, as the TPU kernels do.
-Each has a plain PyTorch version beside it (``*_plain``), taken only for CPU
-tensors; a CUDA tensor launches the kernel or raises.
-:func:`fused_bidirectional_ce` wraps them in one ``torch.autograd.Function``.
+The TPU needed separate blocked kernels past B = 8192 because all of C had
+to fit its 16 MB VMEM; these kernels stream C through shared memory at every
+B, so one kernel serves both ranges. Each has a plain PyTorch version beside
+it (``*_plain``), taken only for CPU tensors; a CUDA tensor launches the
+kernel or raises. :func:`fused_bidirectional_ce` wraps the loss in one
+``torch.autograd.Function``; :func:`fused_stats` and
+:func:`fused_in_batch_metrics` serve the evaluation step.
 
-Dispatch (:func:`ce_route`) follows the reference's envelopes: B % 128 == 0,
-B <= 8192, D % 128 == 0 and no label smoothing take the kernels. The blocked
-kernels for 8192 < B <= 65536 and the stats kernel that label smoothing
-needs are not ported yet: on CUDA those cases raise ``NotImplementedError``
-naming the missing kernel, on the CPU they take the plain versions. Shapes
-outside both envelopes take the materialized float32 path, as
-``_ce_primal``/``_ce_bwd`` do in the reference.
+Dispatch follows the reference's envelopes: B % 128 == 0 and B <= 8192, or
+B % 1024 == 0 and 8192 < B <= 65536, with D % 128 == 0, take the kernels
+(:func:`ce_route`: the lean forward without label smoothing, the statistics
+forward with it; the backward either way). The CUDA kernels are built for
+D = 128 and raise ``NotImplementedError`` for another D in the envelope.
+Shapes outside the envelopes take the materialized float32 path, as
+``_ce_primal``/``_ce_bwd``/``_stats_xla`` do in the reference.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -54,32 +69,26 @@ def _blocked_supported(b: int, d: int) -> bool:
     return _MAX_B < b <= _MAX_B_BLOCKED and b % _BN_BLOCKED == 0 and d % 128 == 0
 
 
+def _in_kernel_envelope(b: int, d: int, on_cuda: bool) -> bool:
+    """Whether a batch of B columns of width D takes the kernels (the
+    reference's envelopes). Raises ``NotImplementedError`` on CUDA for a D
+    in the envelope that the kernels are not built for."""
+    if not (_supported(b, d) or _blocked_supported(b, d)):
+        return False
+    if on_cuda and d != _KERNEL_D:
+        raise NotImplementedError(f"the CUDA CE and statistics kernels are built for D={_KERNEL_D}, got D={d}")
+    return True
+
+
 def ce_route(b: int, d: int, label_smoothing: float, on_cuda: bool) -> str:
     """How the fused CE runs for a [B, D] batch: "kernel" (the lean forward
-    and the backward, as CUDA kernels on the card or their plain versions on
-    the CPU), "stats" (the full-statistics forward: the plain version on the
-    CPU), or "materialized" (float32 [B, B] logits, outside every envelope).
-    Raises ``NotImplementedError`` on CUDA where the reference would run a
-    kernel this port does not have yet."""
-    if _supported(b, d) or _blocked_supported(b, d):
-        if on_cuda:
-            if not _supported(b, d):
-                raise NotImplementedError(
-                    f"B={b} lies in the reference's col-blocked range (8192 < B <= 65536), "
-                    "whose kernels (fused_logits.py _fwd_lean_blocked_kernel, "
-                    "_bwd_dn/dc_blocked_kernel) are not ported to CUDA yet"
-                )
-            if label_smoothing:
-                raise NotImplementedError(
-                    "label_smoothing > 0 needs the fused stats kernel (fused_logits.py "
-                    "_fwd_kernel), which is not ported to CUDA yet"
-                )
-            if d != _KERNEL_D:
-                raise NotImplementedError(
-                    f"the CUDA CE kernels are built for D={_KERNEL_D}, got D={d}"
-                )
-        return "kernel" if label_smoothing == 0 else "stats"
-    return "materialized"
+    and the backward), "stats" (the statistics forward, which label smoothing
+    needs, and the backward), both as CUDA kernels on the card or their plain
+    versions on the CPU; or "materialized" (float32 [B, B] logits, outside
+    every envelope)."""
+    if not _in_kernel_envelope(b, d, on_cuda):
+        return "materialized"
+    return "kernel" if label_smoothing == 0 else "stats"
 
 
 # -- K6: the lean forward -------------------------------------------------------
@@ -128,6 +137,11 @@ def _check_operands(n: torch.Tensor, c: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: n and c must share a device, got {n.device}, {c.device}")
 
 
+def _check_offset(rows: int, b: int, row_offset: int, what: str) -> None:
+    if not 0 <= row_offset <= b - rows:
+        raise ValueError(f"{what}: row_offset {row_offset} places rows outside [0, {b})")
+
+
 def _check_kernel_operands(n: torch.Tensor, c: torch.Tensor, what: str) -> None:
     if n.device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or CPU tensors, got {n.device}")
@@ -146,10 +160,12 @@ def _check_kernel_operands(n: torch.Tensor, c: torch.Tensor, what: str) -> None:
 def fused_lean_lse(
     n_scaled: torch.Tensor, c: torch.Tensor, *, nomax: bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K6: (row_lse [rows], col_lse [B]) of S = bf16(n_scaled) bf16(c)^T
-    without writing S (see :func:`fused_lean_lse_plain`). CPU tensors take
-    the plain version; CUDA tensors launch the kernel on the current stream
-    or raise. ``launches`` counts the kernel's launches."""
+    """K6 (and K7 past B = 8192): (row_lse [rows], col_lse [B]) of
+    S = bf16(n_scaled) bf16(c)^T without writing S (see
+    :func:`fused_lean_lse_plain`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream or raise. The column
+    partials take a [2, rows/64, B] f32 workspace (512 MB at rows = B =
+    65536). ``launches`` counts the kernel's launches."""
     _check_operands(n_scaled, c, "fused_lean_lse")
     if n_scaled.device.type == "cpu":
         return fused_lean_lse_plain(n_scaled, c, nomax=nomax)
@@ -221,16 +237,15 @@ def fused_ce_bwd(
     label_smoothing: float = 0.0,
     row_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K11: see :func:`fused_ce_bwd_plain` for the function. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (a dn sweep and a
-    dc sweep, no atomics) on the current stream or raise. ``launches``
-    counts the kernel's launches."""
+    """K11 (and K10 past B = 8192): see :func:`fused_ce_bwd_plain` for the
+    function. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (a dn sweep and a dc sweep, no atomics) on the current stream or
+    raise. ``launches`` counts the kernel's launches."""
     _check_operands(n_scaled, c, "fused_ce_bwd")
     rows, b = n_scaled.shape[0], c.shape[0]
     if row_lse.shape != (rows,) or col_lse.shape != (b,):
         raise ValueError(f"fused_ce_bwd: row_lse [{rows}] and col_lse [{b}] needed")
-    if not 0 <= row_offset <= b - rows:
-        raise ValueError(f"fused_ce_bwd: row_offset {row_offset} places rows outside [0, {b})")
+    _check_offset(rows, b, row_offset, "fused_ce_bwd")
     if n_scaled.device.type == "cpu":
         return fused_ce_bwd_plain(n_scaled, c, row_lse, col_lse, label_smoothing, row_offset)
     nb = n_scaled.to(torch.bfloat16).contiguous()
@@ -258,36 +273,218 @@ def fused_ce_bwd(
 fused_ce_bwd.launches = 0
 
 
-# -- the stats forward (K5's plain version) and the materialized path -------------
+# -- K8 and K5/K9: the diagonal and the statistics sweep -------------------------
 
 
-def _stats_materialized(n_scaled: torch.Tensor, c: torch.Tensor) -> dict[str, torch.Tensor]:
-    """Per row lse, sum, diag; per column lse, sum of S = n_scaled c^T in f32."""
-    s = n_scaled @ c.T
-    return {
-        "row_lse": torch.logsumexp(s, 1), "row_sum": s.sum(1), "diag": torch.diagonal(s),
-        "col_lse": torch.logsumexp(s, 0), "col_sum": s.sum(0),
+def _stats_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_stats")
+    if not getattr(lib, "_typed", False):
+        lib.same_tile_diag.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.same_tile_diag.restype = ctypes.c_int
+        lib.fused_stats_sweep.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.fused_stats_sweep.restype = ctypes.c_int
+        lib.fused_stats_error_string.argtypes = [ctypes.c_int]
+        lib.fused_stats_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check_stats_kernel_operands(nb: torch.Tensor, cb: torch.Tensor, row_offset: int, what: str) -> None:
+    _check_kernel_operands(nb, cb, what)
+    if row_offset % _KERNEL_ROWS:
+        raise ValueError(
+            f"{what}: the kernel takes a row_offset that is a multiple of {_KERNEL_ROWS} (so the "
+            f"diagonal of a row block is one tile of the sweep), got {row_offset}"
+        )
+
+
+def same_tile_diag_plain(n_scaled: torch.Tensor, c: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
+    """diag [rows] f32: S[i, i + row_offset] of S = bf16(n_scaled) bf16(c)^T,
+    as a row sum of the bf16 operands' products."""
+    rows = n_scaled.shape[0]
+    nb = n_scaled.to(torch.bfloat16).float()
+    cb = c[row_offset : row_offset + rows].to(torch.bfloat16).float()
+    return (nb * cb).sum(1)
+
+
+def same_tile_diag(n_scaled: torch.Tensor, c: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
+    """K8: S[i, i + row_offset] (see :func:`same_tile_diag_plain`). On CUDA
+    it comes from the same tile product as the statistics sweep, so it is
+    bit for bit the value S_ii has there (``csrc/fused_stats.cu``); rows,
+    B and row_offset must be multiples of 64. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise. ``launches`` counts
+    the kernel's launches."""
+    _check_operands(n_scaled, c, "same_tile_diag")
+    rows, b = n_scaled.shape[0], c.shape[0]
+    _check_offset(rows, b, row_offset, "same_tile_diag")
+    if n_scaled.device.type == "cpu":
+        return same_tile_diag_plain(n_scaled, c, row_offset)
+    nb = n_scaled.to(torch.bfloat16).contiguous()
+    cb = c.to(torch.bfloat16).contiguous()
+    _check_stats_kernel_operands(nb, cb, row_offset, "same_tile_diag")
+    diag = torch.empty(rows, dtype=torch.float32, device=nb.device)
+    lib = _stats_lib()
+    with torch.cuda.device(nb.device):
+        err = lib.same_tile_diag(
+            nb.data_ptr(), cb.data_ptr(), diag.data_ptr(), rows, b, nb.shape[1], row_offset,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"same_tile_diag launch failed: {lib.fused_stats_error_string(err).decode()}")
+    same_tile_diag.launches += 1
+    return diag
+
+
+same_tile_diag.launches = 0
+
+
+def _stats_from_scores(
+    s: torch.Tensor, row_offset: int, diag: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(row_stats [rows, 4] = lse, sum, diag, rank; col_stats [2, B] = lse,
+    sum) of a materialized S. The diagonal sits at column row + row_offset;
+    ``diag`` (default: S's own) is what rank compares against, and its
+    column is left out by index."""
+    rows = s.shape[0]
+    idx = torch.arange(rows, device=s.device)
+    if diag is None:
+        diag = s[idx, idx + row_offset]
+    above = s > diag[:, None]
+    above[idx, idx + row_offset] = False
+    row_stats = torch.stack([torch.logsumexp(s, 1), s.sum(1), diag, above.sum(1).float()], 1)
+    return row_stats, torch.stack([torch.logsumexp(s, 0), s.sum(0)])
+
+
+def _bf16_scores(n_scaled: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    return n_scaled.to(torch.bfloat16).float() @ c.to(torch.bfloat16).float().T
+
+
+def fused_stats_sweep_plain(
+    n_scaled: torch.Tensor, c: torch.Tensor, diag: torch.Tensor, row_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(row_stats [rows, 4] = lse, sum, diag, rank; col_stats [2, B] = lse,
+    sum over n's rows) of S = bf16(n_scaled) bf16(c)^T with f32 sums, rank
+    counting the columns other than row + row_offset whose S exceeds
+    ``diag``."""
+    return _stats_from_scores(_bf16_scores(n_scaled, c), row_offset, diag.float())
+
+
+def fused_stats_sweep(
+    n_scaled: torch.Tensor, c: torch.Tensor, diag: torch.Tensor, row_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 (and K9 past B = 8192): see :func:`fused_stats_sweep_plain` for the
+    function; ``diag`` comes from :func:`same_tile_diag`. CPU tensors take
+    the plain version; CUDA tensors launch the sweep and its column merge on
+    the current stream (a [3, rows/64, B] f32 workspace: 805 MB at rows = B
+    = 65536) or raise. ``launches`` counts the kernel's launches."""
+    _check_operands(n_scaled, c, "fused_stats_sweep")
+    rows, b = n_scaled.shape[0], c.shape[0]
+    if diag.shape != (rows,):
+        raise ValueError(f"fused_stats_sweep: diag [{rows}] needed, got {tuple(diag.shape)}")
+    _check_offset(rows, b, row_offset, "fused_stats_sweep")
+    if n_scaled.device.type == "cpu":
+        return fused_stats_sweep_plain(n_scaled, c, diag, row_offset)
+    nb = n_scaled.to(torch.bfloat16).contiguous()
+    cb = c.to(torch.bfloat16).contiguous()
+    _check_stats_kernel_operands(nb, cb, row_offset, "fused_stats_sweep")
+    dg = diag.to(torch.float32).contiguous()
+    row_stats = torch.empty((rows, 4), dtype=torch.float32, device=nb.device)
+    col_stats = torch.empty((2, b), dtype=torch.float32, device=nb.device)
+    workspace = torch.empty((3, rows // _KERNEL_ROWS, b), dtype=torch.float32, device=nb.device)
+    lib = _stats_lib()
+    with torch.cuda.device(nb.device):
+        err = lib.fused_stats_sweep(
+            nb.data_ptr(), cb.data_ptr(), dg.data_ptr(), row_stats.data_ptr(), col_stats.data_ptr(),
+            workspace.data_ptr(), rows, b, nb.shape[1], row_offset, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"fused_stats_sweep launch failed: {lib.fused_stats_error_string(err).decode()}")
+    fused_stats_sweep.launches += 1
+    return row_stats, col_stats
+
+
+fused_stats_sweep.launches = 0
+
+
+class FusedStats(NamedTuple):
+    """Per-row and per-column statistics of the similarity matrix."""
+
+    row_lse: torch.Tensor
+    row_sum: torch.Tensor
+    diag: torch.Tensor
+    rank: torch.Tensor
+    col_lse: torch.Tensor
+    col_sum: torch.Tensor
+
+
+def _unpack(row_stats: torch.Tensor, col_stats: torch.Tensor) -> FusedStats:
+    return FusedStats(row_stats[:, 0], row_stats[:, 1], row_stats[:, 2], row_stats[:, 3], col_stats[0], col_stats[1])
+
+
+def fused_stats_plain(n_scaled: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """What :func:`same_tile_diag` followed by :func:`fused_stats_sweep`
+    computes for the square in-batch case, with the diagonal taken from the
+    same S the sweep's plain version makes (so rank compares like with like
+    on the CPU)."""
+    return _stats_from_scores(_bf16_scores(n_scaled, c), 0)
+
+
+def fused_stats(n: torch.Tensor, c: torch.Tensor, *, temperature: float = 1.0) -> FusedStats:
+    """Every statistic of S = (n/tau) c^T for aligned [B, D] pairs without
+    materializing S (reference ``fused_stats``, fused_logits.py:201-233).
+    Inside the kernels' envelope: on CUDA, K8 then the sweep (K5, or K9 past
+    B = 8192); on the CPU their plain version. Outside it: the materialized
+    float32 statistics."""
+    n_scaled = n.float() / temperature
+    c32 = c.float()
+    b, d = n_scaled.shape
+    if not _in_kernel_envelope(b, d, n.is_cuda):
+        return _unpack(*_stats_from_scores(n_scaled @ c32.T, 0))
+    if not n.is_cuda:
+        return _unpack(*fused_stats_plain(n_scaled, c32))
+    nb, cb = n_scaled.to(torch.bfloat16), c32.to(torch.bfloat16)
+    return _unpack(*fused_stats_sweep(nb, cb, same_tile_diag(nb, cb)))
+
+
+def fused_in_batch_metrics(
+    n: torch.Tensor, c: torch.Tensor, *, temperature: float = 1.0, recall_ks: tuple[int, ...] = (5, 10)
+) -> dict[str, torch.Tensor]:
+    """The metric surface of ``train.metrics.in_batch_metrics`` from one
+    :func:`fused_stats` pass (reference ``fused_in_batch_metrics``,
+    fused_logits.py:1000-1033). Similarities are in S = n c^T / tau units,
+    as the reference computes its metrics on the scaled matrix."""
+    stats = fused_stats(n, c, temperature=temperature)
+    b = stats.row_lse.shape[0]
+    ranks = stats.rank
+    neg_mean = (stats.row_sum - stats.diag) / max(b - 1, 1)
+    metrics = {
+        "accuracy": (ranks == 0).float().mean(),
+        "mrr": (1.0 / (ranks + 1.0)).mean(),
+        "auc": (1.0 - ranks / max(b - 1, 1)).mean(),
+        "positive_similarity": stats.diag.mean(),
+        "negative_similarity": neg_mean.mean(),
     }
+    metrics["similarity_gap"] = metrics["positive_similarity"] - metrics["negative_similarity"]
+    metrics["z_gap"] = metrics["similarity_gap"] / (metrics["negative_similarity"].abs() + 1e-8)
+    for k in recall_ks:
+        metrics[f"recall@{k}"] = (ranks < k).float().mean()
+    return metrics
 
 
-def fused_stats_plain(n_scaled: torch.Tensor, c: torch.Tensor) -> dict[str, torch.Tensor]:
-    """The statistics the reference's ``_fwd_kernel`` (K5) gives the
-    label-smoothed loss, from bf16 operands with f32 accumulation. Plain
-    PyTorch: K5 is not ported yet."""
-    return _stats_materialized(n_scaled.to(torch.bfloat16).float(), c.to(torch.bfloat16).float())
+# -- the loss ---------------------------------------------------------------------
 
 
-def _loss_from_stats(stats: dict[str, torch.Tensor], label_smoothing: float) -> torch.Tensor:
-    b = stats["row_lse"].shape[0]
+def _loss_from_stats(stats: FusedStats, label_smoothing: float) -> torch.Tensor:
+    b = stats.row_lse.shape[0]
     eps = label_smoothing
 
     def side(lse, ssum):
-        base = (1.0 - eps) * (lse - stats["diag"])
+        base = (1.0 - eps) * (lse - stats.diag)
         if eps:
             base = base + (eps / b) * (b * lse - ssum)
         return base.mean()
 
-    return 0.5 * (side(stats["row_lse"], stats["row_sum"]) + side(stats["col_lse"], stats["col_sum"]))
+    return 0.5 * (side(stats.row_lse, stats.row_sum) + side(stats.col_lse, stats.col_sum))
 
 
 def _bwd_materialized(n_scaled, c32, row_lse, col_lse, eps):
@@ -304,12 +501,12 @@ def _bwd_materialized(n_scaled, c32, row_lse, col_lse, eps):
 def _ce_primal(n, c, temperature, label_smoothing, max_abs_logit):
     """Loss and the (row_lse, col_lse) residuals (reference ``_ce_primal``,
     fused_logits.py:907-931). n/tau is formed in f32 before any bf16
-    rounding; the diagonal is the rowsum of the bf16-rounded operands, the
-    values the kernel's S is made of."""
+    rounding. Without label smoothing the lean forward runs and the diagonal
+    is the rowsum of the bf16-rounded operands, the values the kernel's S is
+    made of; with it, the statistics forward (:func:`fused_stats`)."""
     n_scaled = n.float() / temperature
     b, d = n_scaled.shape
-    route = ce_route(b, d, label_smoothing, n.is_cuda)
-    if route == "kernel":
+    if ce_route(b, d, label_smoothing, n.is_cuda) == "kernel":
         nomax = max_abs_logit is not None and max_abs_logit <= _NOMAX_MAX_ABS
         row_lse, col_lse = fused_lean_lse(n_scaled, c.float(), nomax=nomax)
         nb = n_scaled.to(torch.bfloat16).float()
@@ -317,11 +514,8 @@ def _ce_primal(n, c, temperature, label_smoothing, max_abs_logit):
         diag = (nb * cb).sum(1)
         loss = 0.5 * ((row_lse - diag).mean() + (col_lse - diag).mean())
         return loss, row_lse, col_lse
-    if route == "stats":
-        stats = fused_stats_plain(n_scaled, c.float())
-    else:
-        stats = _stats_materialized(n_scaled, c.float())
-    return _loss_from_stats(stats, label_smoothing), stats["row_lse"], stats["col_lse"]
+    stats = fused_stats(n, c, temperature=temperature)
+    return _loss_from_stats(stats, label_smoothing), stats.row_lse, stats.col_lse
 
 
 class _FusedCE(torch.autograd.Function):

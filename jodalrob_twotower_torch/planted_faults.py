@@ -1,19 +1,28 @@
-"""Shows that ``chip_smoke.py``'s step check (one B=1024 step's loss and
-gradients on the card against the same step on the CPU) fails on a wrong
-kernel: plants a fault in the output of a CUDA wrapper - the table gradient
-(K2) losing whole 128-row tiles, or the CE backward (K11) losing rows of dc -
-runs the check once sound and once per fault, and reports each fault as
-caught or not. The CPU side of the check takes the plain versions, so only
-the card's side carries the fault.
+"""Shows that ``chip_smoke.py``'s checks fail on a wrong kernel: plants a
+fault in the output of a CUDA wrapper, runs the check that guards it once
+sound and once per fault, and reports each fault as caught or not.
+
+* The step check (one B=1024 step's loss and gradients on the card against
+  the same step on the CPU) against the table gradient (K2) losing whole
+  128-row tiles, and the CE backward (K11) losing rows of dc. The CPU side
+  of the check takes the plain versions, so only the card's side carries the
+  fault.
+* The statistics check (K8 and the sweep against their plain versions at
+  B=8192, ranks under the near-tie rule) against K8 handing each row the
+  next row's diagonal, the sweep's column merge dropping the first row
+  block, and the sweep counting one more entry above the diagonal in every
+  row (as a diagonal column not left out would).
 
 Run from the repository root on a machine with a CUDA card:
-``python3 -m jodalrob_twotower_torch.planted_faults``. Exits nonzero if the
+``python3 -m jodalrob_twotower_torch.planted_faults``. Exits nonzero if a
 sound check fails or a fault goes uncaught.
 """
 
 from __future__ import annotations
 
 import sys
+
+import torch
 
 from jodalrob_twotower_torch.ops import embedding_grad, fused_logits
 
@@ -46,11 +55,64 @@ def _dc_loss(rows_lost: int):
     return fused_logits, "fused_ce_bwd", fault
 
 
+def _diag_next_row():
+    """K8 that gives row i the diagonal of row i + 1."""
+    real = fused_logits.same_tile_diag
+
+    def fault(n_scaled, c, row_offset=0):
+        out = real(n_scaled, c, row_offset)
+        return torch.roll(out, -1) if out.is_cuda else out
+
+    fault.launches = 0
+    return fused_logits, "same_tile_diag", fault
+
+
+def _merge_drops_first_block():
+    """The sweep whose column merge leaves out the partials of row block 0
+    (rows 0..63): the column statistics of the other rows only."""
+    real = fused_logits.fused_stats_sweep
+
+    def fault(n_scaled, c, diag, row_offset=0):
+        row_stats, col_stats = real(n_scaled, c, diag, row_offset)
+        if col_stats.is_cuda:
+            s = n_scaled[64:].to(torch.bfloat16).float() @ c.to(torch.bfloat16).float().T
+            col_stats = torch.stack([torch.logsumexp(s, 0), s.sum(0)])
+        return row_stats, col_stats
+
+    fault.launches = 0
+    return fused_logits, "fused_stats_sweep", fault
+
+
+def _rank_counts_diagonal():
+    """The sweep whose rank counts one more entry in every row."""
+    real = fused_logits.fused_stats_sweep
+
+    def fault(n_scaled, c, diag, row_offset=0):
+        row_stats, col_stats = real(n_scaled, c, diag, row_offset)
+        if row_stats.is_cuda:
+            row_stats[:, 3] += 1
+        return row_stats, col_stats
+
+    fault.launches = 0
+    return fused_logits, "fused_stats_sweep", fault
+
+
+def _step_check(chip_smoke):
+    chip_smoke.step_grad_check()
+
+
+def _stats_check(chip_smoke):
+    chip_smoke.stats_case(None, chip_smoke.CE_BATCH)
+
+
 FAULTS = {
-    "K2 loses every 16th tile": lambda: _tile_loss(16),
-    "K2 loses every 64th tile": lambda: _tile_loss(64),
-    "K11 loses dc rows 0..63": lambda: _dc_loss(64),
-    "K11 loses dc rows 0..7": lambda: _dc_loss(8),
+    "K2 loses every 16th tile": (lambda: _tile_loss(16), _step_check),
+    "K2 loses every 64th tile": (lambda: _tile_loss(64), _step_check),
+    "K11 loses dc rows 0..63": (lambda: _dc_loss(64), _step_check),
+    "K11 loses dc rows 0..7": (lambda: _dc_loss(8), _step_check),
+    "K8 reads the next row's diagonal": (_diag_next_row, _stats_check),
+    "K5 column merge drops row block 0": (_merge_drops_first_block, _stats_check),
+    "K5 rank counts one more entry per row": (_rank_counts_diagonal, _stats_check),
 }
 
 
@@ -59,15 +121,16 @@ def main() -> int:
 
     print(chip_smoke.bench.card_line(), flush=True)
     chip_smoke._build.build(chip_smoke.KERNEL_SOURCES)
-    chip_smoke.step_grad_check()
-    print("sound step check passed", flush=True)
+    for check in (_step_check, _stats_check):
+        check(chip_smoke)
+        print(f"sound {check.__name__.strip('_')} passed", flush=True)
     missed = []
-    for name, make in FAULTS.items():
+    for name, (make, check) in FAULTS.items():
         module, attr, fault = make()
         real = getattr(module, attr)
         setattr(module, attr, fault)
         try:
-            chip_smoke.step_grad_check()
+            check(chip_smoke)
             missed.append(name)
             print(f"planted fault NOT caught: {name}", flush=True)
         except RuntimeError as e:

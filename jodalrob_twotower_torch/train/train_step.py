@@ -1,4 +1,4 @@
-"""Train steps, the train state and the encoders (port of
+"""Train and eval steps, the train state and the encoders (port of
 ``jodalrob_twotower_tpu/train/train_step.py``, one device).
 
 A step gathers its batch, runs both towers in training form, the loss, the
@@ -6,7 +6,9 @@ backward pass and the optimizer update. The reference compiles that into one
 XLA program; here it runs eagerly, with the hand-written kernels on the card
 (the one-hot lookup and the table gradient for the embeddings, the fused CE
 forward and backward for the loss). ``n_inner`` steps per call are a Python
-loop whose losses stay on the device until the call returns.
+loop whose losses stay on the device until the call returns. An eval step
+runs the towers in inference form, the loss and the in-batch metrics (on
+the card from the statistics kernels, without the [B, B] matrix).
 
 Randomness is a pure function of (seed, step): each step's dropout masks and
 each sampled batch come from a ``torch.Generator`` seeded from the state's
@@ -33,6 +35,7 @@ from torch.func import functional_call
 from jodalrob_twotower_torch.data.types import PairBatch, TowerBatch, default_tower_gather
 from jodalrob_twotower_torch.device import resolve_device
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel
+from jodalrob_twotower_torch.ops.fused_logits import fused_in_batch_metrics
 from jodalrob_twotower_torch.train.loss import compute_loss, resolve_use_fused
 from jodalrob_twotower_torch.train.metrics import in_batch_metrics
 from jodalrob_twotower_torch.train.optimizer import Optimizer, build_optimizer
@@ -124,12 +127,13 @@ def device_store(feature_store, *, dtype=None, device=None) -> tuple[torch.Tenso
 
 
 def _forward_loss(model, cfg, weights: Mapping[str, torch.Tensor], batch: PairBatch, generator, *, train: bool):
-    """(loss, similarity or None) of one batch; the towers run on ``weights``
-    (the model's state_dict keys) through ``functional_call``."""
+    """(loss, similarity or None, notice embeddings, company embeddings) of
+    one batch; the towers run on ``weights`` (the model's state_dict keys)
+    through ``functional_call``."""
     n_emb, c_emb = functional_call(
         model, dict(weights), (batch,), {"train": train, "generator": generator}, strict=True
     )
-    return compute_loss(
+    loss, sim = compute_loss(
         cfg.loss.loss_type,
         n_emb,
         c_emb,
@@ -141,6 +145,7 @@ def _forward_loss(model, cfg, weights: Mapping[str, torch.Tensor], batch: PairBa
         # |logits| <= 1/temperature for the fused forward
         normalized_inputs=True,
     )
+    return loss, sim, n_emb, c_emb
 
 
 def loss_and_grads(model, cfg, state: TrainState, batch: PairBatch):
@@ -151,7 +156,7 @@ def loss_and_grads(model, cfg, state: TrainState, batch: PairBatch):
     if cfg.model.dropout_rate > 0:
         generator = step_generator(state.device, state.seed, state.step, DROPOUT_STREAM)
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-    loss, sim = _forward_loss(model, cfg, {**params, **state.batch_stats}, batch, generator, train=True)
+    loss, sim, _, _ = _forward_loss(model, cfg, {**params, **state.batch_stats}, batch, generator, train=True)
     grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), sim, dict(zip(params, grads))
 
@@ -259,6 +264,63 @@ def make_sampled_train_steps(
     pair set; the host sends one integer seed per call."""
     inner = make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics)
     return sampled_scan_fn(inner, n_inner, batch_size)
+
+
+def make_eval_step(model: TwoTowerModel, cfg):
+    """``eval_step(state, batch: PairBatch) -> metrics``: the forward in
+    inference form (no dropout, running BatchNorm statistics), the loss and
+    the in-batch metrics, as 0-dim tensors on the state's device (reference
+    ``make_eval_step``, train_step.py:421-469). On the materialized loss path
+    the metrics come from the similarity matrix; on the fused path (the
+    default on CUDA) from :func:`fused_in_batch_metrics`, which never forms
+    it (the statistics kernels)."""
+
+    def eval_step(state, batch: PairBatch) -> dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            loss, sim, n_emb, c_emb = _forward_loss(model, cfg, state.state_dict, batch, None, train=False)
+            metrics = {"loss": loss}
+            if sim is not None:
+                metrics.update(in_batch_metrics(sim))
+            elif cfg.loss.loss_type == "cross_entropy":
+                metrics.update(fused_in_batch_metrics(n_emb, c_emb, temperature=cfg.loss.temperature))
+        return metrics
+
+    return eval_step
+
+
+def make_indexed_eval_steps(model: TwoTowerModel, cfg):
+    """Eval over device-resident stores: ``steps(state, idx_stack [n, B, 2],
+    notice_store, company_store)`` gathers each batch on the device and
+    returns the per-batch metrics stacked [n] (reference
+    ``make_indexed_eval_steps``, train_step.py:472-519; a Python loop where
+    the reference scans). Only the indices cross to the device."""
+    eval_core = make_eval_step(model, cfg)
+
+    def steps(state, idx_stack: torch.Tensor, notice_store, company_store) -> dict[str, torch.Tensor]:
+        out = []
+        for pair_idx in idx_stack:
+            batch = PairBatch(
+                notice=default_tower_gather(notice_store, pair_idx[:, 0]),
+                company=default_tower_gather(company_store, pair_idx[:, 1]),
+            )
+            out.append(eval_core(state, batch))
+        return _stack(out)
+
+    return steps
+
+
+def make_device_encode_fn(model: TwoTowerModel, side: str, chunk: int):
+    """Chunked single-side encoder over a device-resident (dense, cat_ids)
+    store: ``encode(state, store, start)`` embeds rows [start, start +
+    chunk) in inference form (reference ``make_device_encode_fn``,
+    train_step.py:522-561)."""
+    encode = make_encode_fn(model, side)
+
+    def encode_chunk(state, store, start: int) -> torch.Tensor:
+        dense, cat = store
+        return encode(state, TowerBatch(dense[start : start + chunk], cat[start : start + chunk]))
+
+    return encode_chunk
 
 
 def make_encode_fn(model: TwoTowerModel, side: str):

@@ -140,12 +140,14 @@ def test_label_smoothing_takes_the_stats_path_on_cpu(pair):
     def jax_loss(nn_, cc):
         return jfl.fused_bidirectional_ce(nn_, cc, 0.5, 0.1, True, 2.0)
 
-    want_loss, (want_dn, _) = jax.value_and_grad(jax_loss, argnums=(0, 1))(jnp.asarray(n), jnp.asarray(c))
+    want_loss, (want_dn, want_dc) = jax.value_and_grad(jax_loss, argnums=(0, 1))(jnp.asarray(n), jnp.asarray(c))
     n_t = torch.from_numpy(n).requires_grad_(True)
-    loss = tfl.fused_bidirectional_ce(n_t, torch.from_numpy(c), 0.5, 0.1, 2.0)
+    c_t = torch.from_numpy(c).requires_grad_(True)
+    loss = tfl.fused_bidirectional_ce(n_t, c_t, 0.5, 0.1, 2.0)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=0, atol=1e-5)
     assert _rel(n_t.grad.numpy(), want_dn) < 1e-4
+    assert _rel(c_t.grad.numpy(), want_dc) < 1e-4
 
 
 @pytest.mark.parametrize(
@@ -164,14 +166,32 @@ def test_route_on_cpu(b, d, eps, route):
 
 
 @pytest.mark.parametrize(
-    "b,d,eps,match",
+    "b,d,eps,expected",
     [
-        (16384, 128, 0.0, "col-blocked"),
-        (8192, 128, 0.1, "stats kernel"),
-        (256, 256, 0.0, "D=128"),
+        (16384, 128, 0.0, "kernel"),
+        (8192, 128, 0.1, "stats"),
+        (256, 256, 0.0, NotImplementedError),
     ],
+    # stable ids: the first two cases expected NotImplementedError before their kernels existed
+    ids=["16384-128-0.0-col-blocked", "8192-128-0.1-stats kernel", "256-256-0.0-D=128"],
 )
-def test_route_on_cuda_raises_for_unported_kernels(b, d, eps, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tfl.ce_route(b, d, eps, on_cuda=True)
+def test_route_on_cuda_raises_for_unported_kernels(b, d, eps, expected):
+    """On CUDA the col-blocked range and label smoothing now route to the
+    kernels; only a D the kernels are not built for still raises."""
+    if expected is NotImplementedError:
+        with pytest.raises(NotImplementedError, match="D=128"):
+            tfl.ce_route(b, d, eps, on_cuda=True)
+    else:
+        assert tfl.ce_route(b, d, eps, on_cuda=True) == expected
     assert tfl.ce_route(8192, 128, 0.0, on_cuda=True) == "kernel"
+
+
+def test_no_d128_shape_in_the_envelopes_raises_on_cuda():
+    """Every B the reference's kernels take (B % 128 == 0 up to 8192, B %
+    1024 == 0 up to 65536), with and without label smoothing."""
+    sizes = list(range(128, 8193, 128)) + list(range(9216, 65537, 1024))
+    for b in sizes:
+        assert tfl.ce_route(b, 128, 0.0, on_cuda=True) == "kernel"
+        assert tfl.ce_route(b, 128, 0.1, on_cuda=True) == "stats"
+    assert tfl.ce_route(8320, 128, 0.0, on_cuda=True) == "materialized"
+    assert tfl.ce_route(65536 + 1024, 128, 0.1, on_cuda=True) == "materialized"
