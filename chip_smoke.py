@@ -5,13 +5,17 @@ NVIDIA card.
 1. Builds every hand-written kernel from the checkout's sources, one nvcc
    process per source, all at once.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at the shapes its paths give it (bit-exact for the one-hot lookup;
-   two calls bit-equal for the table gradient, the CE backward and the
-   statistics kernels; ranks under the near-tie rule), and times kernel,
-   plain version and the nearest library call beside the kernel's bound:
-   the CE kernels at B=8192 (K6, K11) and in the col-blocked range at
-   B=16384 and 32768 (K7, K10), the statistics sweep at B=8192 and 1024 (K5)
-   and 16384 and 32768 (K9) with its diagonal (K8); at B=65536 the
+   card at the shapes its paths give it (bit-exact for the one-hot lookup and
+   the row gather; two calls bit-equal for the table gradients, the CE
+   backward and the statistics kernels; ranks under the near-tie rule), and
+   times kernel, plain version and the nearest library call beside the
+   kernel's bound: the row gather (K4) at config 3's shape, on a bf16 table
+   and a ragged batch; the table gradient (K2) and its [D, R] form (K3,
+   equal to K2's output transposed); the CE kernels at B=8192 (K6, K11) and
+   in the col-blocked range at B=16384 and 32768 (K7, K10), the statistics
+   sweep at B=8192 and 1024 (K5) and 16384 and 32768 (K9) with its diagonal
+   (K8); all of K5-K11 again at D=256 and 512, and K8's diagonal against the
+   sweep's S_ii bit for bit at D=128, 256 and 512; at B=65536 the
    statistics forward against the lean forward, and the label-smoothed loss
    and its gradients finite.
 3. Serving phase: drives the serving path at full width - ``TrainConfig()``
@@ -34,7 +38,16 @@ NVIDIA card.
 6. Extra training paths: one call of the sampled train steps at B=16384 (the
    col-blocked CE, K7 and K10) and one at B=8192 with label smoothing 0.1
    (the statistics forward K8 + K5, and K11); every loss finite.
-7. One step's loss and gradients at B=1024 on the card against the same step
+7. The large-table paths, BASELINE config 3 (tables of 10,000,384 x 64 f32
+   per tower, B=8192): ``scaled_dense`` (the row-gather kernel K4 through
+   ``MeshConfig.use_pallas_lookup``, the full-table scatter and rowwise
+   Adagrad), ``scaled_sparse`` (sparse tables, one update per step) and
+   ``scaled_sparse_deferred`` (one update per 8-step window), each one
+   warm-up and three timed calls of 8 steps; the launch counters show K4
+   twice per step on the dense path and never on the sparse ones, K1 and
+   K2 never, K6 and K11 once per step; then two sparse steps against two
+   dense steps from one state.
+8. One step's loss and gradients at B=1024 on the card against the same step
    on the CPU through the plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
@@ -53,7 +66,7 @@ import numpy as np
 import torch
 
 from jodalrob_twotower_torch import bench
-from jodalrob_twotower_torch.config import LossConfig, TrainConfig
+from jodalrob_twotower_torch.config import LossConfig, MeshConfig, ModelConfig, OptimizerConfig, TrainConfig
 from jodalrob_twotower_torch.data.synthetic import make_synthetic_dataset
 from jodalrob_twotower_torch.data.types import PairBatch, default_tower_gather
 from jodalrob_twotower_torch.evaluation.evaluator import (
@@ -68,10 +81,14 @@ from jodalrob_twotower_torch.ops import _build
 from jodalrob_twotower_torch.ops import fused_logits as fl
 from jodalrob_twotower_torch.ops.embedding_grad import (
     dense_table_grad,
+    dense_table_grad_bmajor,
+    dense_table_grad_bmajor_plain,
     dense_table_grad_plain,
     dense_table_lookup,
     dense_table_lookup_plain,
 )
+from jodalrob_twotower_torch.ops import embedding_lookup as el
+from jodalrob_twotower_torch.ops.embedding_lookup import embedding_lookup_pallas, embedding_lookup_pallas_plain
 from jodalrob_twotower_torch.ops.fused_logits import (
     _bwd_constants,
     fused_ce_bwd,
@@ -83,15 +100,24 @@ from jodalrob_twotower_torch.ops.fused_logits import (
     same_tile_diag,
     same_tile_diag_plain,
 )
-from jodalrob_twotower_torch.schema import reference_shaped_schema
+from jodalrob_twotower_torch.schema import (
+    CategoricalSpec,
+    NumericSpec,
+    SideSchema,
+    TwoTowerSchema,
+    reference_shaped_schema,
+)
 from jodalrob_twotower_torch.serving.index import recall_vs_exact
 from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
 from jodalrob_twotower_torch.train.metrics import diagonal_ranks, in_batch_metrics, random_baselines
+from jodalrob_twotower_torch.train import sparse_tables
 from jodalrob_twotower_torch.train.train_step import (
     create_train_state,
+    device_store,
     loss_and_grads,
     make_encode_fn,
     make_sampled_train_steps,
+    resolve_store_dtype,
 )
 from jodalrob_twotower_torch.utils.flops import H100_PEAK_BF16_FLOPS
 
@@ -100,8 +126,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at the 700 W limit
 # Programming Guide, arithmetic throughput, compute capability 9.0), 132 SMs
 # at the 1.98 GHz boost clock (H100 SXM data sheet)
 H100_EXP_PER_S = 132 * 16 * 1.98e9
-KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd", "fused_stats"]  # csrc/<name>.cu
-LAUNCH_COUNTERS = (dense_table_lookup, dense_table_grad, fused_lean_lse, fused_ce_bwd, same_tile_diag, fused_stats_sweep)
+KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd", "fused_stats", "row_gather"]  # csrc/<name>.cu
+LAUNCH_COUNTERS = (dense_table_lookup, dense_table_grad, dense_table_grad_bmajor, embedding_lookup_pallas,
+                   fused_lean_lse, fused_ce_bwd, same_tile_diag, fused_stats_sweep)
 TIMED_RUNS = 100
 LARGE_TIMED_RUNS = 20  # B >= 16384, where the plain versions take tens of ms
 CE_BATCH, CE_DIM = 8192, 128  # the training path's loss shape
@@ -132,11 +159,41 @@ NEAR_TIE_ATOL = 1e-5
 RANK_ROW_SHARE = 1e-3
 STATS_TAU = 0.3  # the TPU selftest's temperature for the statistics checks
 BLOCKED_BATCHES = (16384, 32768)  # the col-blocked range's cases (K7-K10)
+WIDE_DIMS = (256, 512)  # embedding widths past the first 128-deep chunk (K5-K11)
+WIDE_TIMED_RUNS = 20
 LARGEST_BATCH = 65536  # the envelope's top: stats against lean forward, loss and grads finite
 EVAL_PAIRS = 32768  # held-out pairs: 4 eval batches at 8192, 2 at 16384
 EVAL_TIMED_CALLS = 10  # evaluate_indexed calls per path; ms per batch is their median
 EVAL_SIM_ATOL = 1e-4  # fused eval similarities against in_batch_metrics
 EXTRA_STEPS = 2  # steps per call of the extra training paths
+# BASELINE config 3, the large-table path (bench_suite.py:80-105): 8
+# categorical features of 1.25M ids per tower (unified tables of 10,000,384 x
+# 64 f32, 2.56 GB each), 16 numeric features, hidden (512, 256), final 128
+SCALED_VOCAB, SCALED_FEATURES, SCALED_NUMERIC, SCALED_DIM = 1_250_000, 8, 16, 64
+# its data (bench_suite.py:97-105): 200,000 notices and companies, 16,384
+# pairs, 64 clusters, ids uniform over each vocab; B=8192 sampled on the card
+SCALED_NOTICES = 200_000
+SCALED_PAIRS = 16_384
+SCALED_CLUSTERS = 64
+SCALED_BATCH = 8192
+SCALED_CALL_STEPS = 8  # steps per call; the deferred path's window
+SCALED_TIMED_CALLS = 3
+SCALED_CHECK_STEPS = 2
+# sparse against dense on the card, from one state (dropout 0), after two
+# steps: each entry's change of the tables and accumulators agrees within
+# 1e-3 of the largest change plus two float32 ulps of the entry (both paths
+# sum the same f32 cotangents of a row's duplicates, in another order, and
+# index_add_ on CUDA sums them in no fixed order, so a row may round to a
+# neighbouring float); dense params within one Adam step of either sign
+# (2 lr) per entry, and within 1e-6 on all but 1% of the entries (a
+# gradient near zero may round to either sign). The check's accumulators
+# start at 0 with eps 1e-16: at the default 0.1 a step's mean(G^2) at
+# B=8192 lies below half an ulp of 0.1, no accumulator would move, and
+# summing duplicates or not would give the same step.
+SCALED_CHANGE_RTOL = 1e-3
+SCALED_VALUE_ULPS = 2.0 ** -22
+SCALED_DENSE_SLACK_SHARE = 0.01
+SCALED_CHECK_ADAGRAD = {"adagrad_init_accumulator": 0.0, "adagrad_eps": 1e-16}
 N_COMPANIES = 1_000_000
 N_NOTICES = 20_000
 QUERY_BATCH = 1024
@@ -265,10 +322,11 @@ def bound(flops: float, nbytes: float, exps: float = 0.0) -> dict:
     return {"bound_ms": max(ops_s, bytes_s) * 1e3, "bound_by": "operations" if ops_s > bytes_s else "bytes"}
 
 
-def lean_case(flush: torch.Tensor, b: int, nomax: bool, runs: int = 0, label: str = "fused_ce_fwd") -> dict:
-    """The lean forward (K6; K7 past B=8192) at batch b against its plain
-    version; timed beside its bound and a library yardstick when ``runs``."""
-    d = CE_DIM
+def lean_case(flush: torch.Tensor, b: int, nomax: bool, runs: int = 0, label: str = "fused_ce_fwd",
+              d: int = CE_DIM) -> dict:
+    """The lean forward (K6; K7 past B=8192) at batch b and width d against
+    its plain version; timed beside its bound and a library yardstick when
+    ``runs``."""
     n, c = ce_inputs(b, d, "cuda")
     got = fused_lean_lse(n, c, nomax=nomax)
     want = fused_lean_lse_plain(n, c, nomax=nomax)
@@ -292,11 +350,11 @@ def lean_case(flush: torch.Tensor, b: int, nomax: bool, runs: int = 0, label: st
 
 
 def bwd_case(flush: torch.Tensor, b: int, eps: float = 0.0, runs: int = 0, shard: bool = False,
-             label: str = "fused_ce_bwd") -> dict:
-    """The backward (K11; K10 past B=8192) at batch b against its plain
-    version, two calls bit-equal; with ``shard`` the second half of N as a
-    row shard against all of C (the diagonal at column row + offset)."""
-    d = CE_DIM
+             label: str = "fused_ce_bwd", d: int = CE_DIM) -> dict:
+    """The backward (K11; K10 past B=8192) at batch b and width d against
+    its plain version, two calls bit-equal; with ``shard`` the second half of
+    N as a row shard against all of C (the diagonal at column row +
+    offset)."""
     n, c = ce_inputs(b, d, "cuda")
     rl, cl = fused_lean_lse_plain(n, c, nomax=True)
     args = (n, c, rl, cl, eps, 0)
@@ -315,7 +373,7 @@ def bwd_case(flush: torch.Tensor, b: int, eps: float = 0.0, runs: int = 0, shard
         nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
         # the function's work: products 6 B^2 D (S, A C, A^T N); two exponentials
         # per entry (its row- and column-softmax terms), though the kernel's dn and
-        # dc sweeps each recompute S and take both, 4 B^2 in all
+        # dc sweeps each recompute S (once per 128-wide output chunk) and take both
         row.update(bound(6 * b * b * d, 2 * b * d * 2 + 2 * b * 4 + 2 * b * d * 4, exps=2 * b * b))
         inv2b, _, _ = _bwd_constants(b, 0.0)
         eye = torch.arange(b, device="cuda")
@@ -351,13 +409,13 @@ def ce_phase(flush: torch.Tensor) -> dict:
     }
 
 
-def stats_inputs(b: int, seed: int = SEED) -> tuple[torch.Tensor, torch.Tensor]:
+def stats_inputs(b: int, seed: int = SEED, d: int = CE_DIM) -> tuple[torch.Tensor, torch.Tensor]:
     """Tower-like unit rows, N scaled by 1/STATS_TAU, each positive from
     near its row to nearly random, so the ranks spread from 0 to hundreds."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    n = unit_rows(gen, b, CE_DIM, "cuda")
+    n = unit_rows(gen, b, d, "cuda")
     noise = 0.5 + 11.5 * torch.rand(b, 1, generator=gen, device="cuda")
-    c = n + noise * unit_rows(gen, b, CE_DIM, "cuda")
+    c = n + noise * unit_rows(gen, b, d, "cuda")
     return n / STATS_TAU, c / c.norm(dim=1, keepdim=True)
 
 
@@ -383,15 +441,15 @@ def rank_gate(got: torch.Tensor, want: torch.Tensor, n_scaled, c, diag, row_offs
     return {"rank_rows_differing": n_bad, "rank_max_diff": worst, "rank_max_near_ties": ties}
 
 
-def stats_case(flush: torch.Tensor, b: int, runs: int = 0, row_offset: int = 0, rows: int = 0) -> tuple[dict, dict]:
-    """K8 and the statistics sweep (K5; K9 past B=8192) at batch b against
-    their plain versions on the same inputs (the sweep's plain version takes
-    the kernel's diagonal), each two calls bit-equal; with ``rows`` a row
-    shard of N from ``row_offset``. The kernels are reached through the
-    module, so a fault planted there (planted_faults.py) shows here.
-    Returns (the K8 row, the sweep row)."""
-    d = CE_DIM
-    n, c = stats_inputs(b)
+def stats_case(flush: torch.Tensor, b: int, runs: int = 0, row_offset: int = 0, rows: int = 0,
+               d: int = CE_DIM) -> tuple[dict, dict]:
+    """K8 and the statistics sweep (K5; K9 past B=8192) at batch b and width
+    d against their plain versions on the same inputs (the sweep's plain
+    version takes the kernel's diagonal), each two calls bit-equal; with
+    ``rows`` a row shard of N from ``row_offset``. The kernels are reached
+    through the module, so a fault planted there (planted_faults.py) shows
+    here. Returns (the K8 row, the sweep row)."""
+    n, c = stats_inputs(b, d=d)
     if rows:
         n = n[row_offset : row_offset + rows]
     m = n.shape[0]
@@ -465,6 +523,55 @@ def stats_phase(flush: torch.Tensor) -> dict:
     }
 
 
+def diag_bits_check(d: int, b: int = GRAD_CHECK_BATCH) -> dict:
+    """K8's diagonal is bit for bit the S_ii of the sweep, at width d. C = N
+    (unit rows), so S_ii is the largest entry of row i by a wide margin;
+    row i of every even 64-row block gets a twin, C row i + 64 set to row i,
+    which the sweep computes from the same operands in the same fragment
+    position (one tile later) as S_ii, hence to the same bits. Rank counts
+    S_ij > diag_i strictly, so on N a planted row's rank is 0 exactly when
+    K8's diag is not below the sweep's S_ii; on -N, which negates every
+    product and sum exactly, S_ii is the row's smallest entry and the rank
+    is B - 2 exactly when the diag is not above it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    n = unit_rows(gen, b, d, "cuda")
+    planted = torch.arange(b, device="cuda").view(-1, 64)[0::2].reshape(-1)
+    c = n.clone()
+    c[planted + 64] = n[planted]
+    bad = {}
+    for sign, want in ((1.0, 0), (-1.0, b - 2)):
+        ns = sign * n / STATS_TAU
+        rank = fl.fused_stats_sweep(ns, c, fl.same_tile_diag(ns, c))[0][planted, 3]
+        bad["N" if sign > 0 else "-N"] = int((rank != want).sum())
+    row = {"case": f"B={b} D={d} tau={STATS_TAU}, {planted.numel()} planted twins",
+           "rows_where_diag_differs_from_sweep_s_ii": bad}
+    print("kernel same_tile_diag bits " + json.dumps(row), flush=True)
+    check(sum(bad.values()) == 0, f"same_tile_diag (D={d}): the diagonal differs from the sweep's S_ii: {bad}")
+    return row
+
+
+def wide_phase(flush: torch.Tensor) -> dict:
+    """K5-K11 at D = 256 and 512 (two and four 128-deep chunks), at B=8192
+    and in the col-blocked range at 16384, to the D = 128 tolerances, the
+    lean forward nomax, the backward without label smoothing and the
+    statistics timed; and K8 against the sweep's S_ii bit for bit at every
+    width."""
+    out = {k: [] for k in ("fused_ce_fwd", "fused_ce_bwd", "fused_ce_fwd_blocked", "fused_ce_bwd_blocked",
+                           "same_tile_diag", "fused_stats", "fused_stats_blocked")}
+    for d in WIDE_DIMS:
+        for b in (CE_BATCH, BLOCKED_BATCHES[0]):
+            tag = "_blocked" if b > CE_BATCH else ""
+            out["fused_ce_fwd" + tag] += [lean_case(flush, b, True, WIDE_TIMED_RUNS, "fused_ce_fwd" + tag, d),
+                                          lean_case(flush, b, False, label="fused_ce_fwd" + tag, d=d)]
+            out["fused_ce_bwd" + tag] += [bwd_case(flush, b, runs=WIDE_TIMED_RUNS, label="fused_ce_bwd" + tag, d=d),
+                                          bwd_case(flush, b, eps=0.1, label="fused_ce_bwd" + tag, d=d)]
+            diag_row, stats_row = stats_case(flush, b, WIDE_TIMED_RUNS, d=d)
+            out["same_tile_diag"].append(diag_row)
+            out["fused_stats" + tag].append(stats_row)
+    out["diag_bits"] = [diag_bits_check(d) for d in (CE_DIM,) + WIDE_DIMS]
+    return out
+
+
 def largest_batch_check() -> dict:
     """At B=65536, where the plain versions cannot run ([B, B] f32 is 17
     GB per temporary): the statistics forward (K8 + K9) against the lean
@@ -495,15 +602,16 @@ def largest_batch_check() -> dict:
     return row
 
 
-def table_grad_phase(flush: torch.Tensor, batch: int = 8192) -> list[dict]:
-    """The table gradient at the training path's shapes: the ids of the
-    bench's synthetic data (cluster-correlated, as the step sees them) and a
-    bf16 cotangent ~ N(0, 1)."""
+def table_grad_phase(flush: torch.Tensor, batch: int = 8192) -> tuple[list[dict], list[dict]]:
+    """The table gradient (K2, and K3, its [D, R] form) at the training
+    path's shapes: the ids of the bench's synthetic data (cluster-correlated,
+    as the step sees them) and a bf16 cotangent ~ N(0, 1). Returns (K2's
+    rows, K3's rows)."""
     gen = np.random.default_rng(SEED + 2)
     schema = reference_shaped_schema()
     ds = make_synthetic_dataset(schema, n_notices=20_000, n_companies=20_000, n_pairs=batch,
                                 n_clusters=bench.N_CLUSTERS, seed=SEED)
-    rows_out = []
+    rows_out, bmajor = [], []
     for name, side, store, col in (("notice", schema.notice, ds.notice_store, 0),
                                    ("company", schema.company, ds.company_store, 1)):
         offsets, total = table_layout(side.vocab_sizes)
@@ -528,6 +636,22 @@ def table_grad_phase(flush: torch.Tensor, batch: int = 8192) -> list[dict]:
         check(equal, f"table_grad ({name}): two calls differ")
         check(err <= GRAD_ATOL, f"table_grad ({name}) vs plain: max abs err {err} > {GRAD_ATOL}")
         rows_out.append(row)
+        # K3: the same sums stored [D, R], bit for bit K2's output transposed
+        got_t, again_t = dense_table_grad_bmajor(rows, g, tf), dense_table_grad_bmajor(rows, g, tf)
+        want_t = dense_table_grad_bmajor_plain(rows, g, tf)
+        torch.cuda.synchronize()
+        err_t = float((got_t - want_t).abs().max())
+        row_t = {"case": row["case"], "equal_to_k2_transposed": torch.equal(got_t, got.t()),
+                 "two_calls_equal": torch.equal(got_t, again_t), "max_abs_err": err_t, "tolerance": GRAD_ATOL,
+                 **bound(0, nbytes)}
+        timed(row_t, lambda: dense_table_grad_bmajor(rows, g, tf), lambda: dense_table_grad_bmajor_plain(rows, g, tf),
+              lambda: torch.zeros(total, 32, device="cuda").index_add_(0, rows_flat, g_flat.float()).t().contiguous(),
+              flush)
+        print("kernel table_grad_bmajor", json.dumps(row_t), flush=True)
+        check(row_t["equal_to_k2_transposed"], f"table_grad_bmajor ({name}) != table_grad transposed")
+        check(row_t["two_calls_equal"], f"table_grad_bmajor ({name}): two calls differ")
+        check(err_t <= GRAD_ATOL, f"table_grad_bmajor ({name}) vs plain: max abs err {err_t} > {GRAD_ATOL}")
+        bmajor.append(row_t)
     # agreement only: a ragged batch whose ids reach other features' blocks,
     # their own block's padding, -1 and past the table; and a skewed batch
     # whose every id of a feature hits one row (one list of 8192 per row)
@@ -546,17 +670,67 @@ def table_grad_phase(flush: torch.Tensor, batch: int = 8192) -> list[dict]:
         check(row["two_calls_equal"], f"table_grad ({case}): two calls differ")
         check(row["max_abs_err"] <= GRAD_ATOL, f"table_grad ({case}) vs plain: max abs err {row['max_abs_err']}")
         rows_out.append(row)
-    return rows_out
+    return rows_out, bmajor
+
+
+def scaled_rows(batch: int, seed: int = SEED) -> tuple[torch.Tensor, int]:
+    """Absolute rows [batch, 8] of the scaled tables, ids uniform over each
+    1.25M vocab from numpy seed ``seed``; returns them and the table's rows."""
+    offsets, total = table_layout((SCALED_VOCAB,) * SCALED_FEATURES)
+    ids = np.random.default_rng(seed).integers(0, SCALED_VOCAB, size=(batch, SCALED_FEATURES))
+    return torch.from_numpy((ids + offsets[None, :]).astype(np.int32)).to("cuda"), total
+
+
+def row_gather_phase(flush: torch.Tensor) -> list[dict]:
+    """K4 at the scaled_dense path's shape (a [10,000,384, 64] f32 table,
+    rows [8192, 8]), on a bf16 table of that shape and on a ragged B=1000
+    batch with rows at -1 and past the table (clamped to the edge rows):
+    bit-exact against its plain version, timed beside index_select."""
+    rows, total = scaled_rows(CE_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    table = torch.randn(total, SCALED_DIM, generator=gen, device="cuda")
+    ragged = rows[:1000].clone()
+    ragged[::97, 0] = -1
+    ragged[5::101, 3] = total + 3
+    results = []
+    for case, t, r in ((f"f32 table [{total}, {SCALED_DIM}] rows [{CE_BATCH}, {SCALED_FEATURES}]", table, rows),
+                       (f"bf16 table [{total}, {SCALED_DIM}] rows [{CE_BATCH}, {SCALED_FEATURES}]",
+                        table.to(torch.bfloat16), rows),
+                       (f"ragged B=1000 rows [1000, {SCALED_FEATURES}], -1 and R+3 clamped", table, ragged)):
+        # through the module, so a fault planted there (planted_faults.py) shows here
+        got, want = el.embedding_lookup_pallas(t, r), embedding_lookup_pallas_plain(t, r)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        check(equal and got.dtype == t.dtype, f"row_gather != plain version, case {case} (max abs err {err})")
+        safe = r.reshape(-1).long().clamp(0, total - 1)
+        # ids in, each referenced row read once, the output written once
+        nbytes = r.numel() * 4 + (int(torch.unique(safe).numel()) + r.numel()) * SCALED_DIM * t.element_size()
+        row = {"case": case, "equal": equal, "max_abs_err": err, "shape": list(got.shape), "dtype": str(got.dtype),
+               **bound(0, nbytes)}
+        timed(row, lambda: embedding_lookup_pallas(t, r), lambda: embedding_lookup_pallas_plain(t, r),
+              lambda: t.index_select(0, safe), flush)
+        print("kernel row_gather", json.dumps(row), flush=True)
+        results.append(row)
+    return results
 
 
 def kernel_phase(flush: torch.Tensor) -> dict:
-    return {
+    table_grad, table_grad_bmajor = table_grad_phase(flush)
+    out = {
         **lookup_phase(flush),
-        "table_grad": table_grad_phase(flush),
+        "table_grad": table_grad,
+        "table_grad_bmajor": table_grad_bmajor,
+        "row_gather": row_gather_phase(flush),
         **ce_phase(flush),
         **stats_phase(flush),
         "largest_batch": largest_batch_check(),
     }
+    wide = wide_phase(flush)
+    out["diag_bits"] = wide.pop("diag_bits")
+    for name, rows in wide.items():  # each kernel's record leads with its D = 128 case
+        out[name] += rows
+    return out
 
 
 # -- serving phase -------------------------------------------------------------
@@ -941,6 +1115,220 @@ def extra_training_phase(work: bench.Workload) -> tuple[dict, dict]:
     return out, launches
 
 
+# -- the large-table paths (BASELINE config 3) -----------------------------------
+
+
+def scaled_schema() -> TwoTowerSchema:
+    """BASELINE config 3's towers (bench_suite.py:80-89): 16 numeric and 8
+    categorical features of 1.25M ids each, per side."""
+
+    def side(table: str) -> SideSchema:
+        return SideSchema(
+            table=table, pk=("id",),
+            numeric=tuple(NumericSpec(f"n{i}") for i in range(SCALED_NUMERIC)),
+            categorical=tuple(CategoricalSpec(f"c{i}", SCALED_VOCAB) for i in range(SCALED_FEATURES)),
+        )
+
+    return TwoTowerSchema(notice=side("notice"), company=side("company"))
+
+
+def scaled_config(path: str, *, check: bool = False) -> TrainConfig:
+    """BASELINE config 3's TrainConfig (bench_suite.py:90-96) for one path:
+    "scaled_dense" asks for the reference's Pallas gather
+    (``use_pallas_lookup``), the sparse paths for sparse tables, per step
+    or once per window. ``check``: dropout 0 and SCALED_CHECK_ADAGRAD, for
+    the sparse-against-dense check."""
+    model = ModelConfig(categorical_embedding_dim=SCALED_DIM, dense_projection_dim=128,
+                        tower_hidden_dims=(512, 256), final_embedding_dim=128)
+    optimizer = OptimizerConfig(sparse_duplicate_handling="exact")
+    if check:
+        model = dataclasses.replace(model, dropout_rate=0.0)
+        optimizer = dataclasses.replace(optimizer, **SCALED_CHECK_ADAGRAD)
+    return TrainConfig(
+        model=model, loss=LossConfig(use_fused_logits=True), optimizer=optimizer,
+        mesh=MeshConfig(use_pallas_lookup=path == "scaled_dense"),
+        sparse_tables=path != "scaled_dense", sparse_defer_updates=path == "scaled_sparse_deferred",
+    )
+
+
+SCALED_PATHS = ("scaled_dense", "scaled_sparse", "scaled_sparse_deferred")
+SCALED_KERNELS = {  # launches per step on each path
+    "scaled_dense": {"embedding_lookup_pallas": 2, "dense_table_lookup": 0, "dense_table_grad": 0,
+                     "fused_lean_lse": 1, "fused_ce_bwd": 1},
+    "scaled_sparse": {"embedding_lookup_pallas": 0, "dense_table_lookup": 0, "dense_table_grad": 0,
+                      "fused_lean_lse": 1, "fused_ce_bwd": 1},
+}
+SCALED_KERNELS["scaled_sparse_deferred"] = SCALED_KERNELS["scaled_sparse"]
+
+
+def scaled_steps(path: str, model, cfg, state_and_tx, n_steps: int):
+    """The sampled steps of one path: n_steps per call, each batch drawn on
+    the card."""
+    state, tx = state_and_tx
+    if path == "scaled_dense":
+        return make_sampled_train_steps(model, cfg, tx, n_steps, SCALED_BATCH)
+    if path == "scaled_sparse":
+        return sparse_tables.make_sampled_sparse_steps(model, cfg, tx, bench.TOTAL_STEPS, n_steps, SCALED_BATCH)
+    return sparse_tables.make_sampled_deferred_sparse_steps(model, cfg, tx, bench.TOTAL_STEPS, n_steps,
+                                                            SCALED_BATCH)
+
+
+def scaled_state(path: str, model, cfg):
+    if path == "scaled_dense":
+        return create_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device="cuda")
+    return sparse_tables.create_sparse_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device="cuda")
+
+
+def scaled_data():
+    """Config 3's stores and pairs on the card: the synthetic generator's
+    numeric features and pairs, categorical ids redrawn uniformly over each
+    1.25M vocab from numpy seed 0 (bench_suite.py:99-105)."""
+    schema = scaled_schema()
+    ds = make_synthetic_dataset(schema, n_notices=SCALED_NOTICES, n_companies=SCALED_NOTICES,
+                                n_pairs=SCALED_PAIRS, n_clusters=SCALED_CLUSTERS, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    for store in (ds.notice_store, ds.company_store):
+        store.cat_ids[:] = rng.integers(0, SCALED_VOCAB, store.cat_ids.shape)
+    dtype = resolve_store_dtype(scaled_config("scaled_dense"))
+    stores = [device_store(st, dtype=dtype, device="cuda") for st in (ds.notice_store, ds.company_store)]
+    return schema, stores, torch.from_numpy(ds.pairs.astype(np.int64)).to("cuda")
+
+
+def scaled_setup():
+    """Config 3's data on the card and one model (random weights from seed
+    0) that every scaled path starts from: (model, pairs, notice_store,
+    company_store)."""
+    t0 = time.perf_counter()
+    schema, (notice_store, company_store), pairs = scaled_data()
+    torch.manual_seed(SEED)  # the tables' and layers' initial draws
+    model = build_model(schema, scaled_config("scaled_dense"))
+    print(f"scaled: {sum(p.numel() for p in model.parameters())} params, tables "
+          f"{model.notice_tower.embeddings.total_rows} x {SCALED_DIM} per tower, B={SCALED_BATCH} "
+          f"(data, upload and model {time.perf_counter() - t0:.1f} s)", flush=True)
+    return model, pairs, notice_store, company_store
+
+
+def scaled_phase(setup) -> tuple[dict, dict]:
+    """The three large-table paths at config 3, each from a fresh state of
+    ``setup``'s model: one warm-up call and SCALED_TIMED_CALLS timed calls
+    of SCALED_CALL_STEPS sampled steps, the launch counters read around all
+    four, every loss finite; then a profiler breakdown of one more call for
+    the device's busy share. Then the sparse-against-dense check. Returns
+    the record and each path's launch counts."""
+    model, pairs, notice_store, company_store = setup
+    out, launches = {}, {}
+    for path in SCALED_PATHS:
+        cfg = scaled_config(path)
+        work = scaled_state(path, model, cfg)
+        steps = scaled_steps(path, model, cfg, work, SCALED_CALL_STEPS)
+        state = work[0]
+
+        def call(seed: int) -> np.ndarray:
+            nonlocal state
+            state, m = steps(state, seed, pairs, notice_store, company_store)
+            return m["loss"].cpu().numpy()
+
+        # -- the main path: counters from 0, read right after ------------------
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [call(0)]
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(SCALED_TIMED_CALLS):
+            losses.append(call(1 + i))
+        timed_s = time.perf_counter() - t0
+        launches[path] = read_counters()
+        n_steps = SCALED_CALL_STEPS * (1 + SCALED_TIMED_CALLS)
+        print(f"{path} main path launches", json.dumps(launches[path]), flush=True)
+        for name, per_step in SCALED_KERNELS[path].items():
+            check(launches[path][name] == per_step * n_steps,
+                  f"{path}: kernel {name} launched {launches[path][name]} times in {n_steps} steps, "
+                  f"expected {per_step} per step")
+        losses = np.asarray(losses)
+        check(bool(np.isfinite(losses).all()), f"{path}: non-finite loss {losses}")
+        ms_per_step = timed_s * 1e3 / (SCALED_CALL_STEPS * SCALED_TIMED_CALLS)
+        breakdown = device_breakdown(lambda: call(10_000 + state.step), repeats=1, top=10)
+        out[path] = {"batch": SCALED_BATCH, "steps_per_call": SCALED_CALL_STEPS, "timed_calls": SCALED_TIMED_CALLS,
+                     "warmup_call_s": warm_s, "ms_per_step": ms_per_step,
+                     "examples_per_sec": SCALED_BATCH * 1e3 / ms_per_step,
+                     "device_busy_share": breakdown["busy_share"],
+                     "device_busy_share_timed": breakdown["device_ms_per_call"] / (ms_per_step * SCALED_CALL_STEPS),
+                     "device_ms_per_call": breakdown["device_ms_per_call"],
+                     "wall_ms_per_call": breakdown["wall_ms_per_call"], "top_ms": breakdown["top_ms"],
+                     "device_events_per_call": breakdown["device_events_per_call"],
+                     "loss_first_call": float(losses[0].mean()), "loss_last_call": float(losses[-1].mean()),
+                     "launches": launches[path], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"{path} " + json.dumps(out[path]), flush=True)
+        del work, steps, state
+        torch.cuda.empty_cache()
+    out["sparse_vs_dense"] = sparse_vs_dense_check(setup)
+    return out, launches
+
+
+def sparse_vs_dense_check(setup) -> dict:
+    """From one state, dropout 0: SCALED_CHECK_STEPS per-step sparse steps
+    with the exact dedup against as many scaled_dense steps (K4 forward,
+    the full-table scatter and rowwise Adagrad), on the same batches drawn
+    on the card (tests/test_sparse_tables.py:142-250 at config 3, with the
+    accumulators of SCALED_CHECK_ADAGRAD). Each entry's change of the tables
+    and accumulators must agree within SCALED_CHANGE_RTOL of the largest
+    change plus SCALED_VALUE_ULPS of the entry; the dense params as
+    SCALED_DENSE_SLACK_SHARE states. Holding the changes, not the values,
+    keeps the check sharp: a step moves a table entry by about lr."""
+    weights, pairs, notice_store, company_store = setup[0].state_dict(), *setup[1:]
+    with torch.device("meta"):  # the towers under a dropout-free config, built without memory
+        model = build_model(setup[0].schema, scaled_config("scaled_dense", check=True))
+    model.load_state_dict(weights, assign=True)  # the same weights, not copied
+    runs = {}
+    for path in ("scaled_dense", "scaled_sparse"):
+        cfg = scaled_config(path, check=True)
+        work = scaled_state(path, model, cfg)
+        steps = scaled_steps(path, model, cfg, work, SCALED_CHECK_STEPS)
+        state, m = steps(work[0], SEED + 9, pairs, notice_store, company_store)
+        runs[path] = (state, m["loss"].cpu().numpy())
+        del work, steps
+    (dense, dense_loss), (sparse, sparse_loss) = runs["scaled_dense"], runs["scaled_sparse"]
+    opt = scaled_config("scaled_dense", check=True).optimizer
+    row = {"steps": SCALED_CHECK_STEPS, "loss_dense": dense_loss.tolist(), "loss_sparse": sparse_loss.tolist(),
+           "change_rtol": SCALED_CHANGE_RTOL, "value_ulps": SCALED_VALUE_ULPS, "check_adagrad": SCALED_CHECK_ADAGRAD}
+    for key, field in sparse_tables.TABLE_KEYS.items():
+        side = getattr(sparse, field)
+        start_table = weights[key].to("cuda")
+        for what, got, want, start in (
+            ("table", side.table, dense.params[key], start_table),
+            ("accumulator", side.accumulator, dense.opt_state["acc"][key],
+             torch.full_like(side.accumulator, opt.adagrad_init_accumulator)),
+        ):
+            d_got, d_want = got - start, want - start
+            scale = float(d_want.abs().max())
+            excess = (d_got - d_want).abs() - SCALED_VALUE_ULPS * want.abs()
+            err = float(excess.max())
+            row[f"{field}.{what}"] = {"max_change": scale, "max_abs_err_past_ulps": err,
+                                      "max_abs_err": float((d_got - d_want).abs().max()),
+                                      "rows_changed": int((d_want.abs().sum(1) > 0).sum())}
+            check(scale > 0 and err <= SCALED_CHANGE_RTOL * scale,
+                  f"sparse vs dense {field} {what}: change differs by {err} past the ulps, largest change {scale}")
+        del start_table
+    worst, slack, entries = 0.0, 0, 0
+    for k, v in sparse.dense_params.items():
+        diff = (v - dense.params[k]).abs()
+        worst = max(worst, float(diff.max()))
+        slack += int((diff > 1e-6).sum())
+        entries += diff.numel()
+    row.update({"dense_params_max_abs_err": worst, "dense_params_share_past_1e-6": slack / entries,
+                "lr": opt.learning_rate})
+    print("scaled sparse vs dense " + json.dumps(row), flush=True)
+    check(bool(np.allclose(dense_loss[0], sparse_loss[0], rtol=1e-6, atol=0)),
+          f"first-step losses {dense_loss} vs {sparse_loss}")
+    check(worst <= 2 * opt.learning_rate + 1e-6 and slack <= SCALED_DENSE_SLACK_SHARE * entries,
+          f"sparse vs dense params: max {worst}, {slack} of {entries} entries past 1e-6")
+    del runs, dense, sparse
+    torch.cuda.empty_cache()
+    return row
+
+
 def step_grad_check() -> dict:
     """One training-form step at B=GRAD_CHECK_BATCH, dropout 0, from the same
     state and pairs: on the card (the kernels) and on the CPU (their plain
@@ -1010,12 +1398,13 @@ def step_grad_check() -> dict:
 def kernel_record(name: str, tpu_kernel: str, source: str, replaces: str, rows: list[dict], launches: dict,
                   counter: str, path: str) -> dict:
     """The record of one TPU kernel's port: ``launches`` counts the wrapper
-    ``counter`` on the driven ``path`` that runs this kernel at its shape;
-    ms, plain_ms, library_ms and the bound come from the first case."""
+    ``counter`` on the driven ``path`` that runs this kernel at its shape (0
+    for a kernel no path runs, ``path`` None); ms, plain_ms, library_ms and
+    the bound come from the first case."""
     main = rows[0]
     rec = {
         "name": name, "tpu_kernel": tpu_kernel, "route": "cuda", "source": f"jodalrob_twotower_torch/csrc/{source}",
-        "replaces": f"jodalrob_twotower_tpu/ops/{replaces}", "launches": launches[path][counter],
+        "replaces": f"jodalrob_twotower_tpu/ops/{replaces}", "launches": launches[path][counter] if path else 0,
         "launches_path": path, "launches_by_path": {p: counts[counter] for p, counts in launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -1023,8 +1412,9 @@ def kernel_record(name: str, tpu_kernel: str, source: str, replaces: str, rows: 
     }
     if "equal" in main:
         rec["equal"] = all(r["equal"] for r in rows)
-    if "two_calls_equal" in main:
-        rec["two_calls_equal"] = all(r["two_calls_equal"] for r in rows)
+    for key in ("two_calls_equal", "equal_to_k2_transposed"):
+        if key in main:
+            rec[key] = all(r[key] for r in rows)
     return rec
 
 
@@ -1058,14 +1448,23 @@ def main() -> int:
     extra, extra_launches = extra_training_phase(work)
     del work
     torch.cuda.empty_cache()
+    scaled, scaled_launches = scaled_phase(scaled_setup())
+    scaled["card"] = card
+    print("scaled " + json.dumps(scaled), flush=True)
+    torch.cuda.empty_cache()
     step_check = step_grad_check()
 
-    launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches}
+    launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches,
+                **scaled_launches}
     record = {"kernels": [
         kernel_record("onehot_lookup", "K1", "onehot_lookup.cu", "embedding_grad.py:358",
                       kernels["onehot_lookup"], launches, "dense_table_lookup", "training"),
         kernel_record("table_grad", "K2", "table_grad.cu", "embedding_grad.py:45",
                       kernels["table_grad"], launches, "dense_table_grad", "training"),
+        kernel_record("table_grad_bmajor", "K3", "table_grad.cu", "embedding_grad.py:227",
+                      kernels["table_grad_bmajor"], launches, "dense_table_grad_bmajor", None),
+        kernel_record("row_gather", "K4", "row_gather.cu", "embedding_lookup.py:46",
+                      kernels["row_gather"], launches, "embedding_lookup_pallas", "scaled_dense"),
         kernel_record("fused_stats", "K5", "fused_stats.cu", "fused_logits.py:95",
                       kernels["fused_stats"], launches, "fused_stats_sweep", "eval"),
         kernel_record("fused_ce_fwd", "K6", "fused_ce_fwd.cu", "fused_logits.py:280",
@@ -1088,11 +1487,17 @@ def main() -> int:
                        for path in ("eval", "eval_b16384")},
         "corpus": {k: evaluation["corpus"][k] for k in ("recall@10", "recall@100", "mrr", "encode_s", "corpus_eval_s")},
         "extra_training": {path: row["losses"] for path, row in extra.items()},
+        "scaled": {path: {k: scaled[path][k] for k in ("ms_per_step", "examples_per_sec", "device_busy_share",
+                                                       "device_busy_share_timed", "loss_last_call")}
+                   for path in SCALED_PATHS},
+        "sparse_vs_dense": {k: v for k, v in scaled["sparse_vs_dense"].items() if isinstance(v, dict)},
+        "diag_bits": kernels["diag_bits"],
         "largest_batch": kernels["largest_batch"],
         "step_check": {k: step_check[k] for k in ("loss_abs_err", "max_grad_rel_err", "worst_share_of_tolerance")},
         "card": card}
-    record["kernels"][3]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"
-    record["kernels"][7]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:724"
+    by_kernel = {rec["tpu_kernel"]: rec for rec in record["kernels"]}
+    by_kernel["K6"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"
+    by_kernel["K10"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:724"
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

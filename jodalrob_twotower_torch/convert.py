@@ -20,6 +20,11 @@ torch                                  flax
 
 Every torch entry must find its leaf with the right shape, and every flax
 leaf must be used; anything else raises ``ValueError``.
+
+:func:`flax_to_sparse_state` carries the reference's ``SparseTrainState``
+(train/sparse_tables.py) into the port's: its dense params and batch
+statistics through the same map, its two tables and their accumulators as
+they are.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from jodalrob_twotower_torch.device import resolve_device
 from jodalrob_twotower_torch.models.embedding import EmbeddingCollection
 from jodalrob_twotower_torch.models.tower import BatchNorm
 
@@ -84,7 +90,7 @@ def flax_to_state_dict(
                 f"{path} has shape {value.shape}{' transposed' if transpose else ''}, "
                 f"{key} needs {want}"
             )
-        out[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))  # a writable copy
     missing = set(expected) - set(out)
     if missing:
         raise ValueError(f"no flax source known for {sorted(missing)}")
@@ -115,3 +121,37 @@ def state_dict_to_flax(
             node = node.setdefault(part, {})
         node[parts[-1]] = value
     return trees["params"], trees["batch_stats"]
+
+
+def flax_to_sparse_state(
+    model: nn.Module,
+    cfg,
+    dense_params: Mapping,
+    batch_stats: Mapping | None,
+    tables: Mapping[str, tuple[np.ndarray, np.ndarray]],
+    total_steps: int,
+    *,
+    seed: int = 0,
+    device=None,
+):
+    """The port's (SparseTrainState, dense optimizer) from the reference's
+    sparse state at step 0, as numpy arrays: ``dense_params`` and
+    ``batch_stats`` as in :func:`flax_to_state_dict` (the towers without
+    their ``embeddings``), ``tables`` {"notice_tower": (table [R, D],
+    accumulator [R, 1]), "company_tower": ...}. The converted weights are
+    loaded into ``model`` on the way. The dense optimizer starts fresh, as
+    ``create_sparse_train_state``'s does. On ``device`` (None means the
+    card)."""
+    from jodalrob_twotower_torch.train.sparse_tables import TABLE_KEYS, SparseTable, create_sparse_train_state
+
+    params = {tower: dict(p) for tower, p in dense_params.items()}
+    for tower, (table, _) in tables.items():
+        params[tower]["embeddings"] = {"table": table}
+    model.load_state_dict(flax_to_state_dict(model, params, batch_stats))
+    state, tx = create_sparse_train_state(model, cfg, seed, total_steps, device=device)
+    dev = resolve_device(device)
+    for key, field in TABLE_KEYS.items():
+        table, acc = tables[key.split(".")[0]]
+        setattr(state, field, SparseTable(torch.from_numpy(np.array(table, np.float32)).to(dev),
+                                          torch.from_numpy(np.array(acc, np.float32)).to(dev)))
+    return state, tx

@@ -15,9 +15,11 @@
 // Design. The TPU kept all of C in VMEM and carried the column sums in
 // scratch across a sequential grid of row blocks. On Hopper blocks run in
 // parallel, so:
-//   - each block owns 64 rows (4 warps x 16 rows); a warp keeps its rows'
-//     bf16 A fragments over all of D in registers and walks every 64-column
-//     tile of C, double-buffered in shared memory with cp.async;
+//   - each block owns 64 rows (4 warps x 16 rows) and walks every 64-column
+//     tile of C, each in 128-deep chunks double-buffered in shared memory
+//     with cp.async; a warp keeps its rows' bf16 A fragments of one chunk in
+//     registers (at D = 128 loaded once, above it reloaded per chunk from
+//     L1/L2), so registers and shared memory are the same at every D;
 //   - S tiles come from mma.sync m16n8k16 (bf16 in, f32 out) and live only
 //     in registers; each lane carries its rows' running sums over its
 //     columns, merged across the 4 lanes of a row at the end;
@@ -46,28 +48,27 @@ namespace {
 
 using namespace tile_mma;
 
-constexpr int kD = 128;            // embedding width the kernel is built for
 constexpr int kBM = 64;            // rows per block
 constexpr int kBN = 64;            // columns per tile of C
 constexpr int kWarps = kBM / 16;   // one warp per 16 rows
 constexpr int kThreads = kWarps * 32;
-constexpr int kKSteps = kD / 16;   // mma depth steps over D
 constexpr int kNSub = kBN / 8;     // 8-column mma tiles per column tile
-constexpr int kLd = kD + 8;        // shared row stride (bf16): 272 bytes, conflict-free fragments
 constexpr float kNegInf = -1e30f;  // the TPU kernel's -inf stand-in
 constexpr unsigned kFull = 0xffffffffu;
 
-// One [kBN, kD] tile of a row-major [*, kD] bf16 matrix into shared memory.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int tid) {
-  load_tile_async<kD, kBN, kLd, kThreads>(dst, src, tid);
+// Chunk q of the kBN-row column tile j of c [cols, d] into shared memory.
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* c, int j, int q,
+                                          int d, int tid) {
+  load_chunk_async<kBN, kThreads>(dst, c + static_cast<int64_t>(j) * kBN * d + q * kChunk, d, tid);
 }
 
-template <bool kNoMax>
+// kOneChunk: D = 128, the chunk loop compiled away
+template <bool kNoMax, bool kOneChunk>
 __global__ void __launch_bounds__(kThreads)
 lean_lse_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __restrict__ c,
                 float* __restrict__ row_lse, float* __restrict__ part_max,
-                float* __restrict__ part_sum, int cols) {
-  __shared__ __align__(16) __nv_bfloat16 tile[2][kBN * kLd];
+                float* __restrict__ part_sum, int cols, int d) {
+  __shared__ __align__(16) __nv_bfloat16 tile[2][kBN * kChunkLd];
   __shared__ float col_red[kWarps][kBN];
   __shared__ float col_max[kBN];
 
@@ -75,27 +76,38 @@ lean_lse_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __rest
   const int g = lane / 4, t = lane % 4;
   const int ra = blockIdx.x * kBM + warp * 16 + g;  // this lane's rows: ra and ra + 8
 
-  uint32_t a[kKSteps][4];
-  load_row_fragments<kD>(a, n, ra, t);
+  // at D = 128 the row stride is a constant, as the address arithmetic was before chunking
+  if (kOneChunk) d = kChunk;
+  const int n_chunks = kOneChunk ? 1 : d / kChunk;
+  uint32_t a[kChunkSteps][4];
+  load_row_fragments(a, n, ra, t, d, 0);
 
   // this lane's share of its two rows: running max (shifted form) and sum of exp
   float rm[2] = {kNegInf, kNegInf};
   float rl[2] = {0.f, 0.f};
 
+  // items: (column tile j, depth chunk q), q fastest; item i sits in tile[i & 1]
   const int n_tiles = cols / kBN;
-  load_tile(tile[0], c, tid);
+  const int n_items = n_tiles * n_chunks;
+  load_tile(tile[0], c, 0, 0, d, tid);
   cp_async_commit();
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_tile(tile[(j + 1) & 1], c + static_cast<int64_t>(j + 1) * kBN * kD, tid);
+  float s[kNSub][4];
+  for (int i = 0, j = 0, q = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) {
+      const int j1 = q + 1 < n_chunks ? j : j + 1, q1 = q + 1 < n_chunks ? q + 1 : 0;
+      load_tile(tile[(i + 1) & 1], c, j1, q1, d, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const __nv_bfloat16* ct = tile[j & 1];
-
-    float s[kNSub][4];
-    tile_scores<kD, kNSub, kLd>(s, a, ct, g, t);
+    if (n_chunks > 1) load_row_fragments(a, n, ra, t, d, q * kChunk);
+    if (q == 0) zero_scores(s);
+    chunk_scores(s, a, tile[i & 1], g, t);
+    if (q + 1 < n_chunks) {
+      ++q;
+      __syncthreads();  // the buffer is refilled next iteration
+      continue;
+    }
 
     // cv[ns][e]: this lane's two rows' contribution to column ns*8 + 2t + e
     float cv[kNSub][2];
@@ -182,6 +194,8 @@ lean_lse_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __rest
       if constexpr (!kNoMax) part_max[o] = col_max[tid];
     }
     __syncthreads();  // the tile buffer and col_red are reused next iteration
+    ++j;
+    q = 0;
   }
 
   // merge each row's state across the 4 lanes that hold its columns
@@ -231,13 +245,14 @@ __global__ void col_lse_kernel(const float* __restrict__ part_max,
 
 template <bool kNoMax>
 int launch(const void* n, const void* c, void* row_lse, void* col_lse, void* workspace, int rows,
-           int cols, cudaStream_t stream) {
+           int cols, int d, cudaStream_t stream) {
   const int n_blocks = rows / kBM;
   float* part_sum = static_cast<float*>(workspace);
   float* part_max = part_sum + static_cast<int64_t>(n_blocks) * cols;
-  lean_lse_kernel<kNoMax><<<n_blocks, kThreads, 0, stream>>>(
+  auto kernel = d == kChunk ? lean_lse_kernel<kNoMax, true> : lean_lse_kernel<kNoMax, false>;
+  kernel<<<n_blocks, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(n), static_cast<const __nv_bfloat16*>(c),
-      static_cast<float*>(row_lse), part_max, part_sum, cols);
+      static_cast<float*>(row_lse), part_max, part_sum, cols, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   col_lse_kernel<kNoMax><<<(cols + 255) / 256, 256, 0, stream>>>(
@@ -249,17 +264,18 @@ int launch(const void* n, const void* c, void* row_lse, void* col_lse, void* wor
 
 extern "C" {
 
-// n [rows, 128] bf16 (scaled by 1/tau), c [cols, 128] bf16, row_lse [rows]
-// f32, col_lse [cols] f32, workspace 2 * (rows / 64) * cols f32; rows and
-// cols multiples of 64, all pointers 16-byte aligned (the wrapper checks).
+// n [rows, d] bf16 (scaled by 1/tau), c [cols, d] bf16, row_lse [rows]
+// f32, col_lse [cols] f32, workspace 2 * (rows / 64) * cols f32; d a
+// multiple of 128, rows and cols multiples of 64, all pointers 16-byte
+// aligned (the wrapper checks).
 int fused_lean_lse(const void* n, const void* c, void* row_lse, void* col_lse, void* workspace,
                    int rows, int cols, int d, int nomax, void* stream) {
-  if (d != kD || rows % kBM || cols % kBN || rows <= 0 || cols <= 0) {
+  if (d <= 0 || d % kChunk || rows % kBM || cols % kBN || rows <= 0 || cols <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
-  return nomax ? launch<true>(n, c, row_lse, col_lse, workspace, rows, cols, s)
-               : launch<false>(n, c, row_lse, col_lse, workspace, rows, cols, s);
+  return nomax ? launch<true>(n, c, row_lse, col_lse, workspace, rows, cols, d, s)
+               : launch<false>(n, c, row_lse, col_lse, workspace, rows, cols, d, s);
 }
 
 const char* fused_lean_lse_error_string(int code) {

@@ -17,20 +17,22 @@
 // Design.
 //  - same_tile_diag: each block takes 64 rows of N and the 64x64 tile of S
 //    on their diagonal, through the same fragment loads, mma.sync shape and
-//    depth order as the sweep (tile_mma.cuh `tile_scores`). With row_offset
+//    depth order as the sweep (tile_mma.cuh: `zero_scores`, then
+//    `chunk_scores` over the 128-deep chunks of D in order). With row_offset
 //    a multiple of 64, the sweep's tile that holds S_ii is made of the same
 //    operands in the same fragment positions, so the two values are equal
-//    bit for bit and rank compares each S_ij with the very value S_ii takes
-//    in the sweep. The TPU needed the same rule (fused_logits.py:518-527): a
-//    diagonal summed in another order miscounts every S_ij within an ulp of
-//    it. The diagonal's own column is skipped by index, never by value.
+//    bit for bit at every D and rank compares each S_ij with the very value
+//    S_ii takes in the sweep. The TPU needed the same rule
+//    (fused_logits.py:518-527): a diagonal summed in another order miscounts
+//    every S_ij within an ulp of it. The diagonal's own column is skipped by
+//    index, never by value.
 //  - the sweep, as the lean forward (fused_ce_fwd.cu): one block per 64 rows
-//    walks every 64-column tile of C, double-buffered in shared memory with
-//    cp.async; S tiles live only in registers; each lane carries its two
-//    rows' online (max, sum of exp), plain sum and rank over its columns,
-//    merged across the row's 4 lanes at the end. One design serves both TPU
-//    kernels: the B <= 8192 one held all of C in VMEM and the blocked one
-//    streamed it in column blocks; here C always streams.
+//    walks every 64-column tile of C, each in 128-deep chunks double-buffered
+//    in shared memory with cp.async; S tiles live only in registers; each
+//    lane carries its two rows' online (max, sum of exp), plain sum and rank
+//    over its columns, merged across the row's 4 lanes at the end. One
+//    design serves both TPU kernels: the B <= 8192 one held all of C in VMEM
+//    and the blocked one streamed it in column blocks; here C always streams.
 //  - column statistics: each block writes, per column, (max, sum of exp
 //    under that max, plain sum) over its 64 rows to a [3, rows/64, B] f32
 //    workspace, and a second kernel merges them in block order. No atomics,
@@ -57,42 +59,44 @@ namespace {
 
 using namespace tile_mma;
 
-constexpr int kD = 128;            // embedding width the kernels are built for
 constexpr int kBM = 64;            // rows per block
 constexpr int kBN = 64;            // columns per tile of C: equal to kBM, so a
                                    // block's diagonal lies in one tile
 constexpr int kWarps = kBM / 16;   // one warp per 16 rows
 constexpr int kThreads = kWarps * 32;
-constexpr int kKSteps = kD / 16;   // mma depth steps over D
 constexpr int kNSub = kBN / 8;     // 8-column mma tiles per column tile
-constexpr int kLd = kD + 8;        // shared row stride (bf16): 272 bytes, conflict-free fragments
 constexpr float kNegInf = -1e30f;  // the TPU kernel's -inf stand-in
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int tid) {
-  load_tile_async<kD, kBN, kLd, kThreads>(dst, src, tid);
+// Chunk q of the kBN rows of c [*, d] from row r0 into shared memory.
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* c, int64_t r0,
+                                          int q, int d, int tid) {
+  load_chunk_async<kBN, kThreads>(dst, c + r0 * d + q * kChunk, d, tid);
 }
 
 // diag[r] = S[r, r + row_offset] for the block's 64 rows.
 __global__ void __launch_bounds__(kThreads)
 same_tile_diag_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __restrict__ c,
-                      float* __restrict__ diag, int row_offset) {
-  __shared__ __align__(16) __nv_bfloat16 tile[kBN * kLd];
+                      float* __restrict__ diag, int row_offset, int d) {
+  __shared__ __align__(16) __nv_bfloat16 tile[kBN * kChunkLd];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = blockIdx.x * kBM;
   const int ra = r0 + warp * 16 + g;  // this lane's rows: ra and ra + 8
 
-  load_tile(tile, c + static_cast<int64_t>(r0 + row_offset) * kD, tid);
-  cp_async_commit();
-  uint32_t a[kKSteps][4];
-  load_row_fragments<kD>(a, n, ra, t);
-  cp_async_wait<0>();
-  __syncthreads();
-
   float s[kNSub][4];
-  tile_scores<kD, kNSub, kLd>(s, a, tile, g, t);
+  zero_scores(s);
+  uint32_t a[kChunkSteps][4];
+  for (int q = 0; q < d / kChunk; ++q) {
+    load_tile(tile, c, r0 + row_offset, q, d, tid);
+    cp_async_commit();
+    load_row_fragments(a, n, ra, t, d, q * kChunk);
+    cp_async_wait<0>();
+    __syncthreads();
+    chunk_scores(s, a, tile, g, t);
+    __syncthreads();  // the buffer is refilled next chunk
+  }
 #pragma unroll
   for (int ns = 0; ns < kNSub; ++ns) {
 #pragma unroll
@@ -104,13 +108,15 @@ same_tile_diag_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* 
   }
 }
 
-// The sweep: row statistics in full, column partials per block.
+// The sweep: row statistics in full, column partials per block. kOneChunk:
+// D = 128, the chunk loop compiled away.
+template <bool kOneChunk>
 __global__ void __launch_bounds__(kThreads)
 stats_sweep_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __restrict__ c,
                    const float* __restrict__ diag, float* __restrict__ row_stats,
                    float* __restrict__ part_max, float* __restrict__ part_exp,
-                   float* __restrict__ part_sum, int cols, int row_offset) {
-  __shared__ __align__(16) __nv_bfloat16 tile[2][kBN * kLd];
+                   float* __restrict__ part_sum, int cols, int row_offset, int d) {
+  __shared__ __align__(16) __nv_bfloat16 tile[2][kBN * kChunkLd];
   __shared__ float red_max[kWarps][kBN];
   __shared__ float red_exp[kWarps][kBN];
   __shared__ float red_sum[kWarps][kBN];
@@ -120,8 +126,11 @@ stats_sweep_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __r
   const int g = lane / 4, t = lane % 4;
   const int ra = blockIdx.x * kBM + warp * 16 + g;  // this lane's rows: ra and ra + 8
 
-  uint32_t a[kKSteps][4];
-  load_row_fragments<kD>(a, n, ra, t);
+  // at D = 128 the row stride is a constant, as the address arithmetic was before chunking
+  if (kOneChunk) d = kChunk;
+  const int n_chunks = kOneChunk ? 1 : d / kChunk;
+  uint32_t a[kChunkSteps][4];
+  load_row_fragments(a, n, ra, t, d, 0);
   const float dg[2] = {diag[ra], diag[ra + 8]};
   const int dcol[2] = {ra + row_offset, ra + 8 + row_offset};
 
@@ -131,19 +140,28 @@ stats_sweep_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __r
   float rs[2] = {0.f, 0.f};          // sum of S
   int rk[2] = {0, 0};                // entries above the diagonal
 
+  // items: (column tile j, depth chunk q), q fastest; item i sits in tile[i & 1]
   const int n_tiles = cols / kBN;
-  load_tile(tile[0], c, tid);
+  const int n_items = n_tiles * n_chunks;
+  load_tile(tile[0], c, 0, 0, d, tid);
   cp_async_commit();
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_tile(tile[(j + 1) & 1], c + static_cast<int64_t>(j + 1) * kBN * kD, tid);
+  float s[kNSub][4];
+  for (int i = 0, j = 0, q = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) {
+      const int j1 = q + 1 < n_chunks ? j : j + 1, q1 = q + 1 < n_chunks ? q + 1 : 0;
+      load_tile(tile[(i + 1) & 1], c, static_cast<int64_t>(j1) * kBN, q1, d, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-
-    float s[kNSub][4];
-    tile_scores<kD, kNSub, kLd>(s, a, tile[j & 1], g, t);
+    if (n_chunks > 1) load_row_fragments(a, n, ra, t, d, q * kChunk);
+    if (q == 0) zero_scores(s);
+    chunk_scores(s, a, tile[i & 1], g, t);
+    if (q + 1 < n_chunks) {
+      ++q;
+      __syncthreads();  // the buffer is refilled next iteration
+      continue;
+    }
 
     // rows: max, sum, rank; columns: this lane's two rows' max and sum
     float tmax[2] = {kNegInf, kNegInf};
@@ -218,6 +236,8 @@ stats_sweep_kernel(const __nv_bfloat16* __restrict__ n, const __nv_bfloat16* __r
       part_sum[o] = (red_sum[0][tid] + red_sum[1][tid]) + (red_sum[2][tid] + red_sum[3][tid]);
     }
     __syncthreads();  // the tile buffer and the reduction arrays are reused next iteration
+    ++j;
+    q = 0;
   }
 
   // merge each row's state across the 4 lanes that hold its columns
@@ -263,7 +283,7 @@ __global__ void col_stats_kernel(const float* __restrict__ part_max,
 }
 
 bool shapes_ok(int rows, int cols, int d, int row_offset) {
-  return d == kD && rows > 0 && cols > 0 && rows % kBM == 0 && cols % kBN == 0 &&
+  return d > 0 && d % kChunk == 0 && rows > 0 && cols > 0 && rows % kBM == 0 && cols % kBN == 0 &&
          row_offset >= 0 && row_offset % kBM == 0 && row_offset <= cols - rows;
 }
 
@@ -271,15 +291,16 @@ bool shapes_ok(int rows, int cols, int d, int row_offset) {
 
 extern "C" {
 
-// n [rows, 128] bf16 (scaled by 1/tau), c [cols, 128] bf16 -> diag [rows]
-// f32, diag[i] = S[i, i + row_offset]. rows, cols and row_offset multiples of
-// 64, row_offset + rows <= cols; pointers 16-byte aligned (the wrapper checks).
+// n [rows, d] bf16 (scaled by 1/tau), c [cols, d] bf16 -> diag [rows] f32,
+// diag[i] = S[i, i + row_offset]. d a multiple of 128; rows, cols and
+// row_offset multiples of 64, row_offset + rows <= cols; pointers 16-byte
+// aligned (the wrapper checks).
 int same_tile_diag(const void* n, const void* c, void* diag, int rows, int cols, int d,
                    int row_offset, void* stream) {
   if (!shapes_ok(rows, cols, d, row_offset)) return static_cast<int>(cudaErrorInvalidValue);
   same_tile_diag_kernel<<<rows / kBM, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(n), static_cast<const __nv_bfloat16*>(c),
-      static_cast<float*>(diag), row_offset);
+      static_cast<float*>(diag), row_offset, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -295,10 +316,11 @@ int fused_stats_sweep(const void* n, const void* c, const void* diag, void* row_
   float* part_max = static_cast<float*>(workspace);
   float* part_exp = part_max + plane;
   float* part_sum = part_exp + plane;
-  stats_sweep_kernel<<<n_blocks, kThreads, 0, s>>>(
+  auto sweep = d == kChunk ? stats_sweep_kernel<true> : stats_sweep_kernel<false>;
+  sweep<<<n_blocks, kThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(n), static_cast<const __nv_bfloat16*>(c),
       static_cast<const float*>(diag), static_cast<float*>(row_stats), part_max, part_exp,
-      part_sum, cols, row_offset);
+      part_sum, cols, row_offset, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   col_stats_kernel<<<(cols + 255) / 256, 256, 0, s>>>(part_max, part_exp, part_sum,

@@ -1,9 +1,12 @@
 // Dense table gradient of the unified embedding table for Hopper (sm_90a).
 //
-// Replaces the TPU kernel jodalrob_twotower_tpu/ops/embedding_grad.py:45
+// Replaces the TPU kernels jodalrob_twotower_tpu/ops/embedding_grad.py:45
 // `_grad_kernel` (both orientations; called through `_dense_table_grad`,
-// `dense_table_grad` and `dense_table_grad_t`). It computes what that kernel
-// computes, dense over all R rows of the table:
+// `dense_table_grad` and `dense_table_grad_t`): entry point `table_grad`,
+// [R, D] out; and :227 `_grad_kernel_bmajor` (called through
+// `dense_table_grad_bmajor`): entry point `table_grad_bmajor`, the same sums
+// stored transposed, [D, R], as that kernel returns them. Both compute what
+// the TPU kernels compute, dense over all R rows of the table:
 //
 //   dT[v, :] = sum over b with rows[b, k] == v of f32(g[b, k, :]),
 //              k = tile_feature[v / 128], the feature that owns v's tile
@@ -24,7 +27,11 @@
 //     f32 in that order, 16 loads of 16 bytes in flight; the sum is carried in
 //     registers across chunks and written once.
 // No float atomics anywhere: the order of every sum is fixed, so two calls
-// give the same bits (resume exactness relies on it).
+// give the same bits (resume exactness relies on it), and the [D, R] form is
+// the [R, D] form transposed, bit for bit. The TPU's B-major kernel existed
+// to read g without a [K, D, B] relayout; this design reads g natively in
+// both forms, so only the store differs: for each of its dims a warp writes
+// two runs of 16 consecutive rows, whole 32-byte sectors.
 //
 // Bound: bytes. The ids (B K 4 bytes) and g (B K D 2 bytes) are read once and
 // the f32 table gradient (R D 4 bytes) written once: at the notice shape
@@ -32,7 +39,7 @@
 // 3.35 TB/s. A row hit by many ids is summed by one pair of threads, so
 // heavily skewed ids set the time of their tile.
 //
-// Interface: plain C, loaded with ctypes. The entry point launches on the
+// Interface: plain C, loaded with ctypes. Each entry point launches on the
 // given stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError().
 
@@ -48,11 +55,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 4096;   // ids staged per pass
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int D>
+template <int D, bool kTransposed>
 __global__ void __launch_bounds__(kThreads)
 table_grad_kernel(const int32_t* __restrict__ rows, const __nv_bfloat16* __restrict__ g,
                   const int32_t* __restrict__ tile_feature, float* __restrict__ out, int b,
-                  int k) {
+                  int k, int total_rows) {
   constexpr int kHalf = D / 2;        // dims per thread
   constexpr int kVecs = kHalf / 8;    // 16-byte pieces per thread and g row
   constexpr int kInFlight = 16 / kVecs;  // g rows loaded before they are added
@@ -149,21 +156,43 @@ table_grad_kernel(const int32_t* __restrict__ rows, const __nv_bfloat16* __restr
     __syncthreads();  // local and order are refilled by the next chunk
   }
 
-  float* dst = out + static_cast<int64_t>(row0 + my_row) * D + my_half * kHalf;
+  if constexpr (kTransposed) {  // out [D, total_rows]
+    float* dst = out + static_cast<int64_t>(my_half * kHalf) * total_rows + row0 + my_row;
 #pragma unroll
-  for (int p = 0; p < kHalf / 4; ++p) {
-    reinterpret_cast<float4*>(dst)[p] =
-        make_float4(acc[4 * p], acc[4 * p + 1], acc[4 * p + 2], acc[4 * p + 3]);
+    for (int e = 0; e < kHalf; ++e) dst[static_cast<int64_t>(e) * total_rows] = acc[e];
+  } else {  // out [total_rows, D]
+    float* dst = out + static_cast<int64_t>(row0 + my_row) * D + my_half * kHalf;
+#pragma unroll
+    for (int p = 0; p < kHalf / 4; ++p) {
+      reinterpret_cast<float4*>(dst)[p] =
+          make_float4(acc[4 * p], acc[4 * p + 1], acc[4 * p + 2], acc[4 * p + 3]);
+    }
   }
 }
 
-template <int D>
+template <int D, bool kTransposed>
 int launch(const void* rows, const void* g, const void* tile_feature, void* out, int b, int k,
            int total_rows, cudaStream_t stream) {
-  table_grad_kernel<D><<<total_rows / kTileRows, kThreads, 0, stream>>>(
+  table_grad_kernel<D, kTransposed><<<total_rows / kTileRows, kThreads, 0, stream>>>(
       static_cast<const int32_t*>(rows), static_cast<const __nv_bfloat16*>(g),
-      static_cast<const int32_t*>(tile_feature), static_cast<float*>(out), b, k);
+      static_cast<const int32_t*>(tile_feature), static_cast<float*>(out), b, k, total_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTransposed>
+int dispatch(const void* rows, const void* g, const void* tile_feature, void* out, int b, int k,
+             int d, int total_rows, void* stream) {
+  if (total_rows <= 0 || total_rows % kTileRows || b < 0 || k <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return launch<16, kTransposed>(rows, g, tile_feature, out, b, k, total_rows, s);
+    case 32: return launch<32, kTransposed>(rows, g, tile_feature, out, b, k, total_rows, s);
+    case 64: return launch<64, kTransposed>(rows, g, tile_feature, out, b, k, total_rows, s);
+    case 128: return launch<128, kTransposed>(rows, g, tile_feature, out, b, k, total_rows, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -175,17 +204,13 @@ extern "C" {
 // d in {16, 32, 64, 128}; g and out 16-byte aligned (the wrapper checks).
 int table_grad(const void* rows, const void* g, const void* tile_feature, void* out, int b, int k,
                int d, int total_rows, void* stream) {
-  if (total_rows <= 0 || total_rows % kTileRows || b < 0 || k <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch<16>(rows, g, tile_feature, out, b, k, total_rows, s);
-    case 32: return launch<32>(rows, g, tile_feature, out, b, k, total_rows, s);
-    case 64: return launch<64>(rows, g, tile_feature, out, b, k, total_rows, s);
-    case 128: return launch<128>(rows, g, tile_feature, out, b, k, total_rows, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(rows, g, tile_feature, out, b, k, d, total_rows, stream);
+}
+
+// The same inputs -> out [d, total_rows] f32: table_grad's result transposed.
+int table_grad_bmajor(const void* rows, const void* g, const void* tile_feature, void* out, int b,
+                      int k, int d, int total_rows, void* stream) {
+  return dispatch<true>(rows, g, tile_feature, out, b, k, d, total_rows, stream);
 }
 
 const char* table_grad_error_string(int code) {

@@ -8,6 +8,11 @@
 //   C (16x8, f32):        c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
 // so the C fragments of two neighbouring 8-column tiles are the A fragment
 // of a 16-deep product over those columns.
+//
+// The embedding width D is any multiple of kChunk = 128. Operands move in
+// 128-deep chunks: a warp holds its rows' fragments of one chunk (32
+// registers a lane), and a shared tile holds one chunk of 64 rows, so
+// registers and shared memory do not grow with D.
 
 #pragma once
 
@@ -15,6 +20,10 @@
 #include <stdint.h>
 
 namespace tile_mma {
+
+constexpr int kChunk = 128;             // depth of one operand chunk
+constexpr int kChunkSteps = kChunk / 16;  // mma depth steps per chunk
+constexpr int kChunkLd = kChunk + 8;    // shared row stride (bf16): 272 bytes, conflict-free fragments
 
 // c += a * b, bf16 operands, f32 accumulators
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
@@ -57,50 +66,57 @@ __device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// A [kRows, kD] tile of a row-major [*, kD] bf16 matrix into shared memory
-// with row stride kLd, 16 bytes per cp.async, spread over kThreads threads.
-template <int kD, int kRows, int kLd, int kThreads>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int tid) {
-  constexpr int kPerRow = kD / 8;  // 16-byte pieces per row
+// One chunk, [kRows, 128], of a row-major bf16 matrix with row stride d
+// (src points at the chunk's first element) into shared memory with row
+// stride kChunkLd, 16 bytes per cp.async, spread over kThreads threads.
+template <int kRows, int kThreads>
+__device__ __forceinline__ void load_chunk_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                 int d, int tid) {
+  constexpr int kPerRow = kChunk / 8;  // 16-byte pieces per row
 #pragma unroll
   for (int i = 0; i < kRows * kPerRow / kThreads; ++i) {
     const int q = tid + i * kThreads;
     const int r = q / kPerRow, p = q % kPerRow;
-    cp_async_16(dst + r * kLd + p * 8, src + static_cast<int64_t>(r) * kD + p * 8);
+    cp_async_16(dst + r * kChunkLd + p * 8, src + static_cast<int64_t>(r) * d + p * 8);
   }
 }
 
 // The A fragments of rows ra and ra + 8 (this lane's rows of a 16-row warp
-// tile) of a row-major [*, kD] bf16 matrix, over all of kD.
-template <int kD>
-__device__ __forceinline__ void load_row_fragments(uint32_t (&a)[kD / 16][4],
-                                                   const __nv_bfloat16* m, int ra, int t) {
+// tile) of a row-major [*, d] bf16 matrix, over depth chunk0 .. chunk0 + 127.
+__device__ __forceinline__ void load_row_fragments(uint32_t (&a)[kChunkSteps][4],
+                                                   const __nv_bfloat16* m, int ra, int t, int d,
+                                                   int chunk0) {
 #pragma unroll
-  for (int ks = 0; ks < kD / 16; ++ks) {
-    const __nv_bfloat16* p = m + static_cast<int64_t>(ra) * kD + ks * 16 + 2 * t;
+  for (int ks = 0; ks < kChunkSteps; ++ks) {
+    const __nv_bfloat16* p = m + static_cast<int64_t>(ra) * d + chunk0 + ks * 16 + 2 * t;
     a[ks][0] = load_u32(p);
-    a[ks][1] = load_u32(p + 8 * kD);
+    a[ks][1] = load_u32(p + static_cast<int64_t>(8) * d);
     a[ks][2] = load_u32(p + 8);
-    a[ks][3] = load_u32(p + 8 * kD + 8);
+    a[ks][3] = load_u32(p + static_cast<int64_t>(8) * d + 8);
   }
 }
 
-// s = the warp's 16 rows (fragments a) against the 8 * kNSub rows of a
-// shared [*, kLd] tile ct, in f32: s[ns] holds columns ns * 8 .. ns * 8 + 7
-// in the C layout above. Every S value of every kernel that includes this
-// header comes from this one sequence (zero, then depth steps 0, 1, ... in
-// order), so equal operands in equal fragment positions give equal bits.
-template <int kD, int kNSub, int kLd>
-__device__ __forceinline__ void tile_scores(float (&s)[kNSub][4], const uint32_t (&a)[kD / 16][4],
-                                            const __nv_bfloat16* ct, int g, int t) {
+template <int kNSub>
+__device__ __forceinline__ void zero_scores(float (&s)[kNSub][4]) {
 #pragma unroll
   for (int ns = 0; ns < kNSub; ++ns) s[ns][0] = s[ns][1] = s[ns][2] = s[ns][3] = 0.f;
+}
+
+// s += the warp's 16 rows (fragments a of one depth chunk) against the
+// 8 * kNSub rows of a shared chunk tile ct, in f32: s[ns] holds columns
+// ns * 8 .. ns * 8 + 7 in the C layout above. Every S value of every kernel
+// that includes this header comes from zero_scores and then one call per
+// chunk in chunk order (the depth steps 0, 1, ..., D/16 - 1 in order), so
+// equal operands in equal fragment positions give equal bits at every D.
+template <int kNSub>
+__device__ __forceinline__ void chunk_scores(float (&s)[kNSub][4],
+                                             const uint32_t (&a)[kChunkSteps][4],
+                                             const __nv_bfloat16* ct, int g, int t) {
 #pragma unroll
-  for (int ks = 0; ks < kD / 16; ++ks) {
+  for (int ks = 0; ks < kChunkSteps; ++ks) {
 #pragma unroll
     for (int ns = 0; ns < kNSub; ++ns) {
-      const __nv_bfloat16* bp = ct + (ns * 8 + g) * kLd + ks * 16 + 2 * t;
+      const __nv_bfloat16* bp = ct + (ns * 8 + g) * kChunkLd + ks * 16 + 2 * t;
       mma_bf16_16816(s[ns], a[ks], load_u32(bp), load_u32(bp + 8));
     }
   }

@@ -37,15 +37,30 @@ def absolute_rows(vocab_sizes: tuple[int, ...], cat_ids: torch.Tensor) -> torch.
     """Clamp per-feature ids into their vocab and add the unified-table
     offsets - the mapping EmbeddingCollection applies. cat_ids: int [B, K]
     -> int32 [B, K]."""
-    offsets, _ = table_layout(vocab_sizes)
-    vmax = np.asarray(vocab_sizes, np.int32) - 1
-    dev = cat_ids.device
-    return _shift(cat_ids, torch.as_tensor(vmax, device=dev), torch.as_tensor(offsets, device=dev))
+    return make_absolute_rows(vocab_sizes)(cat_ids)
 
 
 def _shift(cat_ids: torch.Tensor, vmax: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     ids = torch.minimum(torch.clamp(cat_ids.to(torch.int32), min=0), vmax[None, :])
     return ids + offsets[None, :]
+
+
+def make_absolute_rows(vocab_sizes: tuple[int, ...]):
+    """:func:`absolute_rows` for fixed vocabs, its two small constants kept
+    on each device: a fresh host-to-device copy per call would synchronise
+    the stream."""
+    offsets, _ = table_layout(vocab_sizes)
+    vmax = np.asarray(vocab_sizes, np.int32) - 1
+    consts: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def rows(cat_ids: torch.Tensor) -> torch.Tensor:
+        c = consts.get(cat_ids.device)
+        if c is None:
+            c = consts[cat_ids.device] = (torch.as_tensor(vmax, device=cat_ids.device),
+                                          torch.as_tensor(offsets, device=cat_ids.device))
+        return _shift(cat_ids, *c)
+
+    return rows
 
 
 def resolve_lookup_mode(model_cfg) -> str:
@@ -74,7 +89,11 @@ class EmbeddingCollection(nn.Module):
     from the gather, bfloat16 from the one-hot lookup kernel. The table's
     gradient is the dense table-gradient kernel wherever the one-hot lookup
     or the dense gradient is active (:meth:`_dense_grad_active`), else the
-    gather's own scatter.
+    gather's own scatter. Where neither is active, ``use_pallas`` takes the
+    row-gather kernel (ops/embedding_lookup.embedding_lookup_pallas) for the
+    gather, as the reference's ``use_pallas`` takes its Pallas gather: on
+    the card, past the 65,536-row dense envelope or with
+    ``grad_mode="scatter"``.
     """
 
     # Above this many table rows the reference's dense one-hot path stops
@@ -89,31 +108,21 @@ class EmbeddingCollection(nn.Module):
         *,
         grad_mode: str = "auto",
         lookup_mode: str = "auto",
+        use_pallas: bool = False,
     ) -> None:
         super().__init__()
         self.vocab_sizes = tuple(vocab_sizes)
         self.embed_dim = embed_dim
+        self.use_pallas = use_pallas
         self.grad_mode = grad_mode
         self.lookup_mode = lookup_mode
-        offsets, self.total_rows = table_layout(self.vocab_sizes)
-        self._offsets = offsets
+        _, self.total_rows = table_layout(self.vocab_sizes)
         self.table = nn.Parameter(torch.empty(self.total_rows, embed_dim))
         nn.init.normal_(self.table, std=1.0 / np.sqrt(embed_dim))
         tiles = tile_feature_map(self.vocab_sizes)
         self._onehot = make_onehot_lookup(self.total_rows, tiles)
         self._dense_grad = make_dense_grad_lookup(self.total_rows, tiles)
-        self._consts: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
-
-    def _rows(self, cat_ids: torch.Tensor) -> torch.Tensor:
-        # absolute_rows with its two small constants kept on each device: a
-        # fresh host-to-device copy per call would synchronise the stream
-        consts = self._consts.get(cat_ids.device)
-        if consts is None:
-            consts = self._consts[cat_ids.device] = (
-                torch.as_tensor(np.asarray(self.vocab_sizes, np.int32) - 1, device=cat_ids.device),
-                torch.as_tensor(self._offsets, device=cat_ids.device),
-            )
-        return _shift(cat_ids, *consts)
+        self._rows = make_absolute_rows(self.vocab_sizes)
 
     def forward(self, cat_ids: torch.Tensor) -> torch.Tensor:
         if cat_ids.dim() != 2 or cat_ids.shape[1] != len(self.vocab_sizes):
@@ -126,7 +135,7 @@ class EmbeddingCollection(nn.Module):
         elif self._dense_grad_active(rows):
             emb = self._dense_grad(self.table, rows)
         else:
-            emb = embedding_lookup(self.table, rows)
+            emb = embedding_lookup(self.table, rows, use_pallas=self.use_pallas)
         b, k = cat_ids.shape
         return emb.reshape(b, k * self.embed_dim)
 

@@ -82,7 +82,7 @@ class Tower(nn.Module):
     """Encode a :class:`TowerBatch` of tensors into an L2-normalized
     [B, final_dim] float32 embedding."""
 
-    def __init__(self, schema: SideSchema, config: ModelConfig) -> None:
+    def __init__(self, schema: SideSchema, config: ModelConfig, use_pallas_lookup: bool = False) -> None:
         super().__init__()
         self.schema = schema
         self.config = config
@@ -106,6 +106,7 @@ class Tower(nn.Module):
                 config.categorical_embedding_dim,
                 grad_mode=config.embedding_grad,
                 lookup_mode=resolve_lookup_mode(config),
+                use_pallas=use_pallas_lookup,
             )
         if not self.blocks and not schema.num_categorical:
             raise ValueError(f"tower {schema.table!r} has no features")
@@ -125,10 +126,16 @@ class Tower(nn.Module):
         *,
         train: bool | None = None,
         generator: torch.Generator | None = None,
+        emb_override: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """``train`` (default: the module's ``training`` flag) selects the
         training form; with ``dropout_rate > 0`` it needs ``generator``, a
-        ``torch.Generator`` on the batch's device for the dropout masks."""
+        ``torch.Generator`` on the batch's device for the dropout masks.
+        ``emb_override`` ([B, K * embed_dim]) takes the place of the
+        categorical embedding activations, and the table is not read: the
+        sparse-table step looks the rows up itself, so its autograd yields
+        compact [B, K, D] cotangents and no table gradient
+        (train/sparse_tables.py)."""
         cfg = self.config
         train = self.training if train is None else train
         if train and cfg.dropout_rate > 0 and generator is None:
@@ -145,7 +152,8 @@ class Tower(nn.Module):
             ]
             parts.append(_dense(self.dense_projection, torch.cat(projected, dim=1)))
         if self.schema.num_categorical:
-            parts.append(self.embeddings(batch.cat_ids).to(self.compute_dtype))
+            emb = self.embeddings(batch.cat_ids) if emb_override is None else emb_override
+            parts.append(emb.to(self.compute_dtype))
         x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
         for i in range(len(cfg.tower_hidden_dims) - 1):
             x = F.relu(_dense(getattr(self, f"mlp_{i}"), x))

@@ -16,14 +16,16 @@ from jodalrob_twotower_torch.schema import TwoTowerSchema
 class TwoTowerModel(nn.Module):
     """Both towers share one :class:`ModelConfig`, so their final dims match.
     Constructed in eval mode; the train step asks for the training form per
-    call (``train=True``), so the module's flag stays as the caller set it."""
+    call (``train=True``), so the module's flag stays as the caller set it.
+    ``use_pallas_lookup`` lets the towers' gathers take the row-gather
+    kernel (models/embedding.EmbeddingCollection)."""
 
-    def __init__(self, schema: TwoTowerSchema, config: ModelConfig) -> None:
+    def __init__(self, schema: TwoTowerSchema, config: ModelConfig, use_pallas_lookup: bool = False) -> None:
         super().__init__()
         self.schema = schema
         self.config = config
-        self.notice_tower = Tower(schema.notice, config)
-        self.company_tower = Tower(schema.company, config)
+        self.notice_tower = Tower(schema.notice, config, use_pallas_lookup)
+        self.company_tower = Tower(schema.company, config, use_pallas_lookup)
         self.eval()
 
     def forward(
@@ -32,13 +34,18 @@ class TwoTowerModel(nn.Module):
         *,
         train: bool | None = None,
         generator: torch.Generator | None = None,
+        emb_overrides: tuple[torch.Tensor, torch.Tensor] | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(notice_emb, company_emb), both [B, final_dim], L2-normalized.
         ``train`` and ``generator`` as in :meth:`Tower.forward`; the notice
-        tower draws its dropout masks from ``generator`` first."""
+        tower draws its dropout masks from ``generator`` first.
+        ``emb_overrides``: an optional (notice, company) pair of categorical
+        embedding activations, each tower's ``emb_override`` (the
+        sparse-table step)."""
+        n_ov, c_ov = emb_overrides if emb_overrides is not None else (None, None)
         return (
-            self.notice_tower(batch.notice, train=train, generator=generator),
-            self.company_tower(batch.company, train=train, generator=generator),
+            self.notice_tower(batch.notice, train=train, generator=generator, emb_override=n_ov),
+            self.company_tower(batch.company, train=train, generator=generator, emb_override=c_ov),
         )
 
     def encode_notice(self, batch: TowerBatch) -> torch.Tensor:

@@ -11,6 +11,10 @@ gradient (port of ``jodalrob_twotower_tpu/ops/embedding_grad.py``).
   dense ``[R, D]`` f32 table gradient, read from the cotangent in its native
   ``[B, K, D]`` layout (the TPU's ``[D, R]`` transposed output existed only
   for its lanes).
+* :func:`dense_table_grad_bmajor` wraps the same kernel with a transposed
+  store, which replaces ``embedding_grad.py:227 _grad_kernel_bmajor``: the
+  ``[D, R]`` result of ``dense_table_grad_bmajor``, K2's output transposed
+  bit for bit. As in the JAX package, no path calls it.
 * :func:`make_onehot_lookup` is a ``torch.autograd.Function`` with the
   lookup kernel forward and the gradient kernel backward;
   :func:`make_dense_grad_lookup` a plain gather forward with the gradient
@@ -148,8 +152,9 @@ def dense_table_grad_plain(
 def _grad_lib() -> ctypes.CDLL:
     lib = _build.load("table_grad")
     if not getattr(lib, "_typed", False):
-        lib.table_grad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.table_grad.restype = ctypes.c_int
+        for fn in (lib.table_grad, lib.table_grad_bmajor):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.table_grad_error_string.argtypes = [ctypes.c_int]
         lib.table_grad_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -157,6 +162,46 @@ def _grad_lib() -> ctypes.CDLL:
 
 
 GRAD_KERNEL_DIMS = (16, 32, 64, 128)  # the embed widths table_grad.cu is built for
+
+
+def _table_grad_launch(rows: torch.Tensor, g: torch.Tensor, tile_feature: torch.Tensor, *, transposed: bool):
+    """Checks the inputs; for CUDA tensors launches the kernel (the [D, R]
+    store when ``transposed``) and returns its output, for CPU tensors
+    returns None."""
+    what = "dense_table_grad_bmajor" if transposed else "dense_table_grad"
+    if rows.dim() != 2 or rows.dtype != torch.int32:
+        raise ValueError(f"rows must be [B, K] int32, got {tuple(rows.shape)} {rows.dtype}")
+    b, k = rows.shape
+    if g.dim() != 3 or g.shape[:2] != (b, k):
+        raise ValueError(f"g must be [{b}, {k}, D], got {tuple(g.shape)}")
+    if tile_feature.dim() != 1 or tile_feature.dtype != torch.int32:
+        raise ValueError(f"tile_feature must be [R/128] int32, got {tuple(tile_feature.shape)} {tile_feature.dtype}")
+    if not (rows.device == g.device == tile_feature.device):
+        raise ValueError(f"rows, g and tile_feature must share a device, got {rows.device}, {g.device}, {tile_feature.device}")
+    if g.device.type == "cpu":
+        return None
+    if g.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {g.device}")
+    d = g.shape[2]
+    if d not in GRAD_KERNEL_DIMS:
+        raise ValueError(f"the table gradient kernel takes D in {GRAD_KERNEL_DIMS}, got {d}")
+    total_rows = TILE_ROWS * tile_feature.shape[0]
+    gb = g.to(torch.bfloat16).contiguous()
+    rows = rows.contiguous()
+    tile_feature = tile_feature.contiguous()
+    out = torch.empty((d, total_rows) if transposed else (total_rows, d), dtype=torch.float32, device=g.device)
+    if gb.data_ptr() % 16:
+        raise ValueError("g must be 16-byte aligned for the kernel's vector loads")
+    lib = _grad_lib()
+    launch = lib.table_grad_bmajor if transposed else lib.table_grad
+    with torch.cuda.device(g.device):
+        err = launch(
+            rows.data_ptr(), gb.data_ptr(), tile_feature.data_ptr(), out.data_ptr(),
+            b, k, d, total_rows, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"{what} launch failed: {lib.table_grad_error_string(err).decode()}")
+    return out
 
 
 def dense_table_grad(
@@ -170,42 +215,43 @@ def dense_table_grad(
     the current stream, or raise: there is no fallback. Its sums run in a
     fixed order, so two calls give the same bits. ``launches`` counts the
     kernel's launches."""
-    if rows.dim() != 2 or rows.dtype != torch.int32:
-        raise ValueError(f"rows must be [B, K] int32, got {tuple(rows.shape)} {rows.dtype}")
-    b, k = rows.shape
-    if g.dim() != 3 or g.shape[:2] != (b, k):
-        raise ValueError(f"g must be [{b}, {k}, D], got {tuple(g.shape)}")
-    if tile_feature.dim() != 1 or tile_feature.dtype != torch.int32:
-        raise ValueError(f"tile_feature must be [R/128] int32, got {tuple(tile_feature.shape)} {tile_feature.dtype}")
-    if not (rows.device == g.device == tile_feature.device):
-        raise ValueError(f"rows, g and tile_feature must share a device, got {rows.device}, {g.device}, {tile_feature.device}")
-    if g.device.type == "cpu":
+    out = _table_grad_launch(rows, g, tile_feature, transposed=False)
+    if out is None:
         return dense_table_grad_plain(rows, g, tile_feature)
-    if g.device.type != "cuda":
-        raise ValueError(f"dense_table_grad runs on CUDA or CPU tensors, got {g.device}")
-    d = g.shape[2]
-    if d not in GRAD_KERNEL_DIMS:
-        raise ValueError(f"the table gradient kernel takes D in {GRAD_KERNEL_DIMS}, got {d}")
-    total_rows = TILE_ROWS * tile_feature.shape[0]
-    gb = g.to(torch.bfloat16).contiguous()
-    rows = rows.contiguous()
-    tile_feature = tile_feature.contiguous()
-    out = torch.empty((total_rows, d), dtype=torch.float32, device=g.device)
-    if gb.data_ptr() % 16:
-        raise ValueError("g must be 16-byte aligned for the kernel's vector loads")
-    lib = _grad_lib()
-    with torch.cuda.device(g.device):
-        err = lib.table_grad(
-            rows.data_ptr(), gb.data_ptr(), tile_feature.data_ptr(), out.data_ptr(),
-            b, k, d, total_rows, torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"table_grad launch failed: {lib.table_grad_error_string(err).decode()}")
     dense_table_grad.launches += 1
     return out
 
 
 dense_table_grad.launches = 0
+
+
+def dense_table_grad_bmajor_plain(
+    rows: torch.Tensor, g: torch.Tensor, tile_feature: torch.Tensor
+) -> torch.Tensor:
+    """:func:`dense_table_grad_plain` transposed: dT^T [D, R] f32."""
+    return dense_table_grad_plain(rows, g, tile_feature).t().contiguous()
+
+
+def dense_table_grad_bmajor(
+    rows: torch.Tensor, g: torch.Tensor, tile_feature: torch.Tensor
+) -> torch.Tensor:
+    """K3: the dense table gradient in the [D, R] layout the reference's
+    ``dense_table_grad_bmajor`` returns, from the native [B, K, D]
+    cotangent; see :func:`dense_table_grad_bmajor_plain`. The kernel is
+    :func:`dense_table_grad`'s with a transposed store, so its output is
+    that function's transposed, bit for bit.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel on
+    the current stream, or raise. ``launches`` counts the kernel's
+    launches."""
+    out = _table_grad_launch(rows, g, tile_feature, transposed=True)
+    if out is None:
+        return dense_table_grad_bmajor_plain(rows, g, tile_feature)
+    dense_table_grad_bmajor.launches += 1
+    return out
+
+
+dense_table_grad_bmajor.launches = 0
 
 
 # -- differentiable lookups --------------------------------------------------------

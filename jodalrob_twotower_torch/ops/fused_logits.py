@@ -37,10 +37,10 @@ kernel or raises. :func:`fused_bidirectional_ce` wraps the loss in one
 Dispatch follows the reference's envelopes: B % 128 == 0 and B <= 8192, or
 B % 1024 == 0 and 8192 < B <= 65536, with D % 128 == 0, take the kernels
 (:func:`ce_route`: the lean forward without label smoothing, the statistics
-forward with it; the backward either way). The CUDA kernels are built for
-D = 128 and raise ``NotImplementedError`` for another D in the envelope.
-Shapes outside the envelopes take the materialized float32 path, as
-``_ce_primal``/``_ce_bwd``/``_stats_xla`` do in the reference.
+forward with it; the backward either way). The CUDA kernels take any such
+D, in 128-deep chunks (``csrc/tile_mma.cuh``). Shapes outside the envelopes
+take the materialized float32 path, as ``_ce_primal``/``_ce_bwd``/
+``_stats_xla`` do in the reference.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ _MAX_B = 8192  # the reference's single-kernel envelope
 _MAX_B_BLOCKED = 65536  # the reference's col-blocked envelope (K7, K10)
 _BN_BLOCKED = 1024
 _NOMAX_MAX_ABS = 60.0  # |S| bound under which exp(S) cannot overflow f32
-_KERNEL_D = 128  # the embedding width the CUDA kernels are compiled for
+_KERNEL_CHUNK = 128  # the CUDA kernels' depth chunk: D must be a multiple
 _KERNEL_ROWS = 64  # the CUDA kernels' row block
 
 
@@ -69,24 +69,19 @@ def _blocked_supported(b: int, d: int) -> bool:
     return _MAX_B < b <= _MAX_B_BLOCKED and b % _BN_BLOCKED == 0 and d % 128 == 0
 
 
-def _in_kernel_envelope(b: int, d: int, on_cuda: bool) -> bool:
+def _in_kernel_envelope(b: int, d: int) -> bool:
     """Whether a batch of B columns of width D takes the kernels (the
-    reference's envelopes). Raises ``NotImplementedError`` on CUDA for a D
-    in the envelope that the kernels are not built for."""
-    if not (_supported(b, d) or _blocked_supported(b, d)):
-        return False
-    if on_cuda and d != _KERNEL_D:
-        raise NotImplementedError(f"the CUDA CE and statistics kernels are built for D={_KERNEL_D}, got D={d}")
-    return True
+    reference's envelopes)."""
+    return _supported(b, d) or _blocked_supported(b, d)
 
 
-def ce_route(b: int, d: int, label_smoothing: float, on_cuda: bool) -> str:
+def ce_route(b: int, d: int, label_smoothing: float) -> str:
     """How the fused CE runs for a [B, D] batch: "kernel" (the lean forward
     and the backward), "stats" (the statistics forward, which label smoothing
     needs, and the backward), both as CUDA kernels on the card or their plain
     versions on the CPU; or "materialized" (float32 [B, B] logits, outside
     every envelope)."""
-    if not _in_kernel_envelope(b, d, on_cuda):
+    if not _in_kernel_envelope(b, d):
         return "materialized"
     return "kernel" if label_smoothing == 0 else "stats"
 
@@ -147,10 +142,10 @@ def _check_kernel_operands(n: torch.Tensor, c: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} runs on CUDA or CPU tensors, got {n.device}")
     rows, d = n.shape
     b = c.shape[0]
-    if d != _KERNEL_D or rows % _KERNEL_ROWS or b % _KERNEL_ROWS or rows == 0 or b == 0:
+    if d % _KERNEL_CHUNK or rows % _KERNEL_ROWS or b % _KERNEL_ROWS or d == 0 or rows == 0 or b == 0:
         raise ValueError(
-            f"{what}: the kernel takes D={_KERNEL_D} and rows, B multiples of "
-            f"{_KERNEL_ROWS}, got n {tuple(n.shape)}, c {tuple(c.shape)}"
+            f"{what}: the kernel takes D a multiple of {_KERNEL_CHUNK} and rows, B multiples "
+            f"of {_KERNEL_ROWS}, got n {tuple(n.shape)}, c {tuple(c.shape)}"
         )
     for t in (n, c):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16:
@@ -438,7 +433,7 @@ def fused_stats(n: torch.Tensor, c: torch.Tensor, *, temperature: float = 1.0) -
     n_scaled = n.float() / temperature
     c32 = c.float()
     b, d = n_scaled.shape
-    if not _in_kernel_envelope(b, d, n.is_cuda):
+    if not _in_kernel_envelope(b, d):
         return _unpack(*_stats_from_scores(n_scaled @ c32.T, 0))
     if not n.is_cuda:
         return _unpack(*fused_stats_plain(n_scaled, c32))
@@ -506,7 +501,7 @@ def _ce_primal(n, c, temperature, label_smoothing, max_abs_logit):
     made of; with it, the statistics forward (:func:`fused_stats`)."""
     n_scaled = n.float() / temperature
     b, d = n_scaled.shape
-    if ce_route(b, d, label_smoothing, n.is_cuda) == "kernel":
+    if ce_route(b, d, label_smoothing) == "kernel":
         nomax = max_abs_logit is not None and max_abs_logit <= _NOMAX_MAX_ABS
         row_lse, col_lse = fused_lean_lse(n_scaled, c.float(), nomax=nomax)
         nb = n_scaled.to(torch.bfloat16).float()
@@ -535,7 +530,7 @@ class _FusedCE(torch.autograd.Function):
         n_scaled = n.float() / tau
         c32 = c.float()
         b, d = n_scaled.shape
-        if ce_route(b, d, eps, n.is_cuda) == "materialized":
+        if ce_route(b, d, eps) == "materialized":
             dn_s, dc = _bwd_materialized(n_scaled, c32, row_lse, col_lse, eps)
         else:
             dn_s, dc = fused_ce_bwd(n_scaled, c32, row_lse, col_lse, eps)

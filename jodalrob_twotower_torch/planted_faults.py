@@ -12,6 +12,11 @@ sound and once per fault, and reports each fault as caught or not.
   next row's diagonal, the sweep's column merge dropping the first row
   block, and the sweep counting one more entry above the diagonal in every
   row (as a diagonal column not left out would).
+* The row-gather check (K4 bit-exact against its plain version at the
+  config-3 shape) against K4 returning row r + 1 for every 64th row.
+* The sparse-against-dense check (two sparse steps against two dense steps
+  at config 3) against the sparse update skipping the dedup of duplicate
+  rows (as ``sparse_duplicate_handling="per_occurrence"`` would).
 
 Run from the repository root on a machine with a CUDA card:
 ``python3 -m jodalrob_twotower_torch.planted_faults``. Exits nonzero if a
@@ -24,7 +29,8 @@ import sys
 
 import torch
 
-from jodalrob_twotower_torch.ops import embedding_grad, fused_logits
+from jodalrob_twotower_torch.ops import embedding_grad, embedding_lookup, fused_logits
+from jodalrob_twotower_torch.train import sparse_tables
 
 
 def _tile_loss(every: int):
@@ -97,12 +103,55 @@ def _rank_counts_diagonal():
     return fused_logits, "fused_stats_sweep", fault
 
 
+def _gather_next_row():
+    """K4 that returns row r + 1 for every 64th output row."""
+    real = embedding_lookup.embedding_lookup_pallas
+
+    def fault(table, rows):
+        out = real(table, rows)
+        if out.is_cuda:
+            flat, r = out.view(-1, table.shape[1]), rows.reshape(-1)[::64].long()
+            flat[::64] = table.index_select(0, (r.clamp(0, table.shape[0] - 1) + 1).clamp(max=table.shape[0] - 1))
+        return out
+
+    fault.launches = 0
+    return embedding_lookup, "embedding_lookup_pallas", fault
+
+
+def _no_dedup():
+    """The sparse rowwise-Adagrad update that skips the dedup: every
+    occurrence of a duplicate row accumulates and steps on its own."""
+    real = sparse_tables.sparse_rowwise_adagrad_update
+
+    def fault(st, rows, grads, *, lr, eps, dedup=True):
+        return real(st, rows, grads, lr=lr, eps=eps, dedup=dedup and not rows.is_cuda)
+
+    return sparse_tables, "sparse_rowwise_adagrad_update", fault
+
+
 def _step_check(chip_smoke):
     chip_smoke.step_grad_check()
 
 
 def _stats_check(chip_smoke):
     chip_smoke.stats_case(None, chip_smoke.CE_BATCH)
+
+
+def _gather_check(chip_smoke):
+    chip_smoke.row_gather_phase(_flush())
+
+
+def _sparse_check(chip_smoke):
+    if not _scaled:
+        _scaled.append(chip_smoke.scaled_setup())
+    chip_smoke.sparse_vs_dense_check(_scaled[0])
+
+
+_scaled: list = []  # config 3's data and model, built once
+
+
+def _flush():
+    return torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
 
 
 FAULTS = {
@@ -113,6 +162,8 @@ FAULTS = {
     "K8 reads the next row's diagonal": (_diag_next_row, _stats_check),
     "K5 column merge drops row block 0": (_merge_drops_first_block, _stats_check),
     "K5 rank counts one more entry per row": (_rank_counts_diagonal, _stats_check),
+    "K4 returns row r+1 for every 64th row": (_gather_next_row, _gather_check),
+    "sparse update skips the dedup": (_no_dedup, _sparse_check),
 }
 
 
@@ -121,7 +172,7 @@ def main() -> int:
 
     print(chip_smoke.bench.card_line(), flush=True)
     chip_smoke._build.build(chip_smoke.KERNEL_SOURCES)
-    for check in (_step_check, _stats_check):
+    for check in (_step_check, _stats_check, _gather_check, _sparse_check):
         check(chip_smoke)
         print(f"sound {check.__name__.strip('_')} passed", flush=True)
     missed = []

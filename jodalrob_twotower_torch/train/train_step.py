@@ -126,13 +126,16 @@ def device_store(feature_store, *, dtype=None, device=None) -> tuple[torch.Tenso
     return dense.to(dev), torch.from_numpy(np.ascontiguousarray(feature_store.cat_ids)).to(dev)
 
 
-def _forward_loss(model, cfg, weights: Mapping[str, torch.Tensor], batch: PairBatch, generator, *, train: bool):
+def _forward_loss(model, cfg, weights: Mapping[str, torch.Tensor], batch: PairBatch, generator, *, train: bool,
+                  emb_overrides=None):
     """(loss, similarity or None, notice embeddings, company embeddings) of
     one batch; the towers run on ``weights`` (the model's state_dict keys)
-    through ``functional_call``."""
-    n_emb, c_emb = functional_call(
-        model, dict(weights), (batch,), {"train": train, "generator": generator}, strict=True
-    )
+    through ``functional_call``, with the categorical activations
+    ``emb_overrides`` in place of the tables' where given."""
+    kwargs = {"train": train, "generator": generator}
+    if emb_overrides is not None:
+        kwargs["emb_overrides"] = emb_overrides
+    n_emb, c_emb = functional_call(model, dict(weights), (batch,), kwargs, strict=True)
     loss, sim = compute_loss(
         cfg.loss.loss_type,
         n_emb,
@@ -210,15 +213,13 @@ def _stack(metrics: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
     return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
-def make_scanned_train_steps(
-    model: TwoTowerModel, cfg, tx: Optimizer, n_inner: int, *, with_metrics: bool = False
-):
-    """``steps(state, pair_idx_stack [n_inner, B, 2], notice_store,
-    company_store) -> (state, metrics stacked [n_inner])``: n_inner indexed
-    steps per call."""
-    inner = make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics)
+def scanned_fn(inner, n_inner: int):
+    """The ``n_inner``-step body over host-given batches (the reference's
+    ``lax.scan`` over a pair-index stack): ``steps(state, pair_idx_stack
+    [n_inner, B, 2], notice_store, company_store) -> (state, metrics
+    stacked [n_inner])``."""
 
-    def steps(state: TrainState, pair_idx_stack: torch.Tensor, notice_store, company_store):
+    def steps(state, pair_idx_stack: torch.Tensor, notice_store, company_store):
         if pair_idx_stack.shape[0] != n_inner:
             raise ValueError(f"pair_idx_stack must hold {n_inner} steps, got {pair_idx_stack.shape[0]}")
         out = []
@@ -230,13 +231,22 @@ def make_scanned_train_steps(
     return steps
 
 
+def make_scanned_train_steps(
+    model: TwoTowerModel, cfg, tx: Optimizer, n_inner: int, *, with_metrics: bool = False
+):
+    """``steps(state, pair_idx_stack [n_inner, B, 2], notice_store,
+    company_store) -> (state, metrics stacked [n_inner])``: n_inner indexed
+    steps per call."""
+    return scanned_fn(make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics), n_inner)
+
+
 def sampled_scan_fn(inner, n_inner: int, batch_size: int):
     """The ``n_inner``-step body with on-device batch sampling: each step
     draws ``batch_size`` pairs IID with replacement from a generator seeded
     from (sample_seed, global step), so draws are replayable and
     resume-exact."""
 
-    def steps(state: TrainState, sample_seed: int, pairs_dev: torch.Tensor, notice_store, company_store):
+    def steps(state, sample_seed: int, pairs_dev: torch.Tensor, notice_store, company_store):
         n_pairs = pairs_dev.shape[0]
         out = []
         for _ in range(n_inner):

@@ -132,3 +132,32 @@ def test_dense_grad_resolution_on_cpu(grad_mode, lookup_mode, dense):
         for k in range(2):
             want[offsets[k] + ids[b, k]] += 1.0
     torch.testing.assert_close(coll.table.grad, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,k,d,ragged", [(256, 4, 32, False), (100, 3, 16, False), (300, 4, 32, True)])
+def test_bmajor_plain_matches_pallas(b, k, d, ragged):
+    """K3's plain version against the reference's ``dense_table_grad_bmajor``
+    in interpret mode (tests/test_embedding_grad.py:294-320) and against
+    K2's plain version transposed, bit for bit; the CPU wrapper takes the
+    plain version without launching."""
+    rng = np.random.default_rng(b + k)
+    if ragged:
+        rows, total = _rows(rng, b, ragged=True)
+        vocabs = VOCABS
+    else:
+        vocabs = tuple(rng.integers(50, 200, size=k).tolist())
+        offsets, total = table_layout(vocabs)
+        rows = (np.stack([rng.integers(0, v, size=b) for v in vocabs], axis=1) + offsets[None, :]).astype(np.int32)
+    g = rng.normal(size=(b, len(vocabs), d)).astype(np.float32)
+    tf = tile_feature_map(vocabs)
+    want = jeg.dense_table_grad_bmajor(
+        jnp.asarray(rows), jnp.asarray(g), total_rows=total, tile_feature=tuple(tf.tolist()), interpret=True
+    )
+    args = (torch.from_numpy(rows), torch.from_numpy(g), torch.from_numpy(tf))
+    before = teg.dense_table_grad_bmajor.launches
+    got = teg.dense_table_grad_bmajor(*args)
+    assert teg.dense_table_grad_bmajor.launches == before
+    assert got.dtype == torch.float32 and got.shape == (d, total) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    assert torch.equal(got, teg.dense_table_grad_plain(*args).t())
+    assert torch.equal(got, teg.dense_table_grad_bmajor_plain(*args))

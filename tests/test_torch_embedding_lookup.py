@@ -1,8 +1,17 @@
-"""The port's one-hot lookup (kernel K1's plain version and wrapper) against
-the JAX package's Pallas kernel in interpret mode, plus the unified-table
-layout helpers. The CUDA kernel itself runs only on the card, where
-chip_smoke.py holds it bit-exact against the same plain version."""
+"""The port's one-hot lookup (kernel K1's plain version and wrapper) and row
+gather (kernel K4's plain version, wrapper and differentiable lookup)
+against the JAX package's Pallas kernels in interpret mode, plus the
+unified-table layout helpers. The CUDA kernels themselves run only on the
+card, where chip_smoke.py holds them bit-exact against the same plain
+versions. K4's backward is a scatter-add outside the kernel: within 1e-6
+of the reference's ``_lookup_bwd`` for a float32 table (sums of a few
+duplicates, another order); for a bfloat16 table, whose sums run in
+bfloat16 and round at every add, within n bf16 ulps (n 2^-8 of the largest
+entry) where n is the most occurrences of one row."""
 
+import importlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,10 +25,14 @@ from jodalrob_twotower_torch.ops.embedding_grad import (
     dense_table_lookup_plain,
     make_onehot_lookup as t_make_onehot_lookup,
 )
+from jodalrob_twotower_torch.ops import embedding_lookup as t_el
 from jodalrob_twotower_torch.ops.embedding_lookup import embedding_lookup
 from jodalrob_twotower_tpu.config import ModelConfig as JaxModelConfig
 from jodalrob_twotower_tpu.models import embedding as j_emb
 from jodalrob_twotower_tpu.ops.embedding_grad import make_onehot_lookup as j_make_onehot_lookup
+
+# the module, not the function of the same name the package re-exports
+j_el = importlib.import_module("jodalrob_twotower_tpu.ops.embedding_lookup")
 
 VOCABS = (5, 130, 1000)
 
@@ -156,3 +169,95 @@ def test_auto_gate_takes_the_gather_on_cpu():
         a, f = auto(ids), forced(ids)
     assert a.dtype == torch.float32 and f.dtype == torch.bfloat16
     assert torch.equal(a.to(torch.bfloat16), f)
+
+
+@pytest.mark.parametrize(
+    "shape,d,dtype", [((300,), 64, "float32"), ((37, 5), 16, "bfloat16"), ((8, 4, 3), 8, "float32")],
+    ids=["f32-300", "bf16-37x5", "f32-8x4x3"],
+)
+def test_k4_plain_bit_equal_to_pallas_interpret(shape, d, dtype):
+    """K4's plain version (and the CPU wrapper) gathers in the table's dtype
+    for rows of any shape, lengths that are not multiples of the TPU's 256
+    ids per program included, bit for bit as the Pallas kernel."""
+    rng = np.random.default_rng(d)
+    table = rng.normal(size=(700, d)).astype(np.float32)
+    rows = rng.integers(0, 700, size=shape).astype(np.int32)
+    jt = jnp.asarray(table, getattr(jnp, dtype))
+    want = np.asarray(j_el.embedding_lookup_pallas(jt, jnp.asarray(rows), interpret=True).astype(jnp.float32))
+    tt = torch.from_numpy(table).to(getattr(torch, dtype))
+    before = t_el.embedding_lookup_pallas.launches
+    got = t_el.embedding_lookup_pallas(tt, torch.from_numpy(rows))
+    assert t_el.embedding_lookup_pallas.launches == before
+    assert got.dtype == tt.dtype and tuple(got.shape) == (*shape, d)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert torch.equal(got, t_el.embedding_lookup_pallas_plain(tt, torch.from_numpy(rows)))
+
+
+def test_k4_clamps_rows_outside_the_table():
+    table = torch.arange(40, dtype=torch.float32).reshape(10, 4)
+    rows = torch.tensor([[-1, 0], [9, 12]], dtype=torch.int32)
+    got = t_el.embedding_lookup_pallas(table, rows)
+    assert torch.equal(got, table[torch.tensor([[0, 0], [9, 9]])])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_backward_matches_lookup_bwd(dtype):
+    """The differentiable lookup's table gradient on rows with duplicates
+    against the reference's ``_lookup_bwd`` called directly: zeros of the
+    table's shape and dtype, g cast to that dtype before the scatter-add."""
+    rng = np.random.default_rng(5)
+    table = rng.normal(size=(50, 16)).astype(np.float32)
+    rows = rng.integers(0, 20, size=(64, 3)).astype(np.int32)  # heavy duplicates
+    g = rng.normal(size=(64, 3, 16)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    want, _ = j_el._lookup_bwd(((50, 16), jdt, jnp.asarray(rows)), jnp.asarray(g))
+    want = np.asarray(want.astype(jnp.float32))
+    tt = torch.from_numpy(table).to(getattr(torch, dtype)).requires_grad_(True)
+    out = embedding_lookup(tt, torch.from_numpy(rows), use_pallas=True)
+    assert out.dtype == tt.dtype and out.shape == (64, 3, 16)
+    out.backward(torch.from_numpy(g).to(out.dtype))
+    assert tt.grad.dtype == tt.dtype
+    # each bf16 add rounds: two orders of a row's n adds differ by up to n
+    # half-ulps each way, at most n ulps (2^-8 relative) of the largest sum
+    most = int(np.bincount(rows.reshape(-1)).max())
+    atol = 1e-6 if dtype == "float32" else most * 2.0**-8 * float(np.abs(want).max())
+    np.testing.assert_allclose(tt.grad.float().numpy(), want, rtol=0, atol=atol)
+
+
+def test_collection_use_pallas_matches_jax_collection():
+    """EmbeddingCollection(use_pallas=True) on the CPU (the gather path:
+    neither the one-hot lookup nor the dense gradient applies there) against
+    the reference's collection with use_pallas=False, the same function
+    (the reference's use_pallas=True runs only in interpret mode on a CPU):
+    the forward bit for bit, the table gradient within 1e-6."""
+    rng = np.random.default_rng(6)
+    coll = t_emb.EmbeddingCollection(VOCABS, 8, use_pallas=True)
+    ids = np.stack([rng.integers(-2, v + 3, size=40) for v in VOCABS], axis=1).astype(np.int32)
+    ct = rng.normal(size=(40, len(VOCABS) * 8)).astype(np.float32)
+    j_coll = j_emb.EmbeddingCollection(vocab_sizes=VOCABS, embed_dim=8, use_pallas=False)
+    table = rng.normal(size=tuple(coll.table.shape)).astype(np.float32)
+    with torch.no_grad():
+        coll.table.copy_(torch.from_numpy(table))
+
+    def j_loss(t):
+        return jnp.sum(j_coll.apply({"params": {"table": t}}, jnp.asarray(ids)) * ct)
+
+    want_out = np.asarray(j_coll.apply({"params": {"table": jnp.asarray(table)}}, jnp.asarray(ids)))
+    want_grad = np.asarray(jax.grad(j_loss)(jnp.asarray(table)))
+    out = coll(torch.from_numpy(ids))
+    np.testing.assert_array_equal(out.detach().numpy(), want_out)
+    (out * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(coll.table.grad.numpy(), want_grad, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "table,rows,match",
+    [
+        (torch.zeros(10, 4, dtype=torch.float64), torch.zeros(3, dtype=torch.int32), "float32 or bfloat16"),
+        (torch.zeros(10, 4), torch.zeros(3), "int32 or int64"),
+        (torch.zeros(10), torch.zeros(3, dtype=torch.int32), r"\[R, D\]"),
+    ],
+)
+def test_k4_wrapper_rejects_bad_inputs(table, rows, match):
+    with pytest.raises(ValueError, match=match):
+        t_el.embedding_lookup_pallas(table, rows)

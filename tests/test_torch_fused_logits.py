@@ -117,7 +117,7 @@ def test_outside_the_envelopes_is_materialized_f32():
     """B=100 fits no kernel: both sides take the f32 [B, B] path."""
     rng = np.random.default_rng(5)
     n, c = _unit_rows(rng, 100, D), _unit_rows(rng, 100, D)
-    assert tfl.ce_route(100, D, 0.0, on_cuda=True) == "materialized"
+    assert tfl.ce_route(100, D, 0.0) == "materialized"
 
     def jax_loss(nn_, cc):
         return jfl.fused_bidirectional_ce(nn_, cc, 0.5, 0.0, True, 2.0)
@@ -162,7 +162,7 @@ def test_label_smoothing_takes_the_stats_path_on_cpu(pair):
     ],
 )
 def test_route_on_cpu(b, d, eps, route):
-    assert tfl.ce_route(b, d, eps, on_cuda=False) == route
+    assert tfl.ce_route(b, d, eps) == route
 
 
 @pytest.mark.parametrize(
@@ -170,20 +170,57 @@ def test_route_on_cpu(b, d, eps, route):
     [
         (16384, 128, 0.0, "kernel"),
         (8192, 128, 0.1, "stats"),
-        (256, 256, 0.0, NotImplementedError),
+        (256, 256, 0.0, "kernel"),
     ],
-    # stable ids: the first two cases expected NotImplementedError before their kernels existed
+    # stable ids: every case expected NotImplementedError before its kernels existed
     ids=["16384-128-0.0-col-blocked", "8192-128-0.1-stats kernel", "256-256-0.0-D=128"],
 )
 def test_route_on_cuda_raises_for_unported_kernels(b, d, eps, expected):
-    """On CUDA the col-blocked range and label smoothing now route to the
-    kernels; only a D the kernels are not built for still raises."""
-    if expected is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="D=128"):
-            tfl.ce_route(b, d, eps, on_cuda=True)
+    """The col-blocked range, label smoothing and every D % 128 == 0 route
+    to the kernels; the route depends on the shape alone, not the device."""
+    assert tfl.ce_route(b, d, eps) == expected
+    assert tfl.ce_route(8192, 128, 0.0) == "kernel"
+    for wide in (256, 384, 512, 1024):
+        assert tfl.ce_route(8192, wide, 0.1) == "stats"
+        assert tfl.ce_route(16384, wide, 0.0) == "kernel"
+
+
+@pytest.mark.parametrize("kernel", ["lean-nomax", "lean-shifted", "bwd-eps0", "bwd-eps0.1", "stats"])
+def test_d256_plain_versions_match_pallas(kernel):
+    """At D = 256, where the CUDA kernels run two 128-deep chunks: the
+    plain versions the card's kernels are held against, against the
+    reference's kernels in interpret mode, to the D = 128 tolerances."""
+    rng = np.random.default_rng(6)
+    b, d, tau = 256, 256, 0.2
+    n = _unit_rows(rng, b, d)
+    # positives from near their row to nearly random, so the ranks spread
+    c = _unit_rows(rng, b, d) * rng.uniform(0.5, 12.0, size=(b, 1)).astype(np.float32) + n
+    c = (c / np.linalg.norm(c, axis=1, keepdims=True)).astype(np.float32)
+    n_scaled = n / np.float32(tau)
+    nt, ct = torch.from_numpy(n_scaled), torch.from_numpy(c)
+    if kernel.startswith("lean"):
+        nomax = kernel == "lean-nomax"
+        want = jfl._fused_lean_call(
+            jnp.asarray(n_scaled), jnp.asarray(c), interpret=True, max_abs_logit=(1.0 / tau) if nomax else None
+        )
+        for g, w in zip(tfl.fused_lean_lse(nt, ct, nomax=nomax), want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=5e-6)
+    elif kernel.startswith("bwd"):
+        eps = 0.1 if kernel == "bwd-eps0.1" else 0.0
+        row_lse, col_lse = jfl._fused_lean_call(jnp.asarray(n_scaled), jnp.asarray(c), interpret=True)
+        want = jfl._fused_bwd_call(jnp.asarray(n_scaled), jnp.asarray(c), row_lse, col_lse, eps, interpret=True)
+        got = tfl.fused_ce_bwd(nt, ct, torch.from_numpy(np.array(row_lse)), torch.from_numpy(np.array(col_lse)), eps)
+        for g, w in zip(got, want):
+            assert g.shape == (b, d) and _rel(g.numpy(), w) < 1e-4
     else:
-        assert tfl.ce_route(b, d, eps, on_cuda=True) == expected
-    assert tfl.ce_route(8192, 128, 0.0, on_cuda=True) == "kernel"
+        want_rows, want_cols = (np.asarray(x) for x in jfl._fused_stats_call(jnp.asarray(n_scaled), jnp.asarray(c), interpret=True))
+        got_rows, got_cols = (x.numpy() for x in tfl.fused_stats_sweep(nt, ct, tfl.same_tile_diag(nt, ct)))
+        assert want_rows[:, 3].max() > 0  # ranks are not all 0
+        np.testing.assert_allclose(got_rows[:, [0, 2]], want_rows[:, [0, 2]], rtol=0, atol=5e-6)  # lse, diag
+        np.testing.assert_allclose(got_rows[:, 1], want_rows[:, 1], rtol=0, atol=1e-4)  # row sum
+        np.testing.assert_array_equal(got_rows[:, 3], want_rows[:, 3])  # rank
+        np.testing.assert_allclose(got_cols[0], want_cols[0], rtol=0, atol=5e-6)
+        np.testing.assert_allclose(got_cols[1], want_cols[1], rtol=0, atol=1e-4)
 
 
 def test_no_d128_shape_in_the_envelopes_raises_on_cuda():
@@ -191,7 +228,7 @@ def test_no_d128_shape_in_the_envelopes_raises_on_cuda():
     1024 == 0 up to 65536), with and without label smoothing."""
     sizes = list(range(128, 8193, 128)) + list(range(9216, 65537, 1024))
     for b in sizes:
-        assert tfl.ce_route(b, 128, 0.0, on_cuda=True) == "kernel"
-        assert tfl.ce_route(b, 128, 0.1, on_cuda=True) == "stats"
-    assert tfl.ce_route(8320, 128, 0.0, on_cuda=True) == "materialized"
-    assert tfl.ce_route(65536 + 1024, 128, 0.1, on_cuda=True) == "materialized"
+        assert tfl.ce_route(b, 128, 0.0) == "kernel"
+        assert tfl.ce_route(b, 128, 0.1) == "stats"
+    assert tfl.ce_route(8320, 128, 0.0) == "materialized"
+    assert tfl.ce_route(65536 + 1024, 128, 0.1) == "materialized"

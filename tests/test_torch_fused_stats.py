@@ -161,7 +161,7 @@ def test_blocked_loss_and_grads_match_jax(blocked_envelope, eps):
     statistics forward (K8 + K9) and K10."""
     n, c = _pair(1024, 17)
     tau = 0.3
-    assert tfl.ce_route(1024, D, eps, on_cuda=True) == ("kernel" if eps == 0 else "stats")
+    assert tfl.ce_route(1024, D, eps) == ("kernel" if eps == 0 else "stats")
 
     def jax_loss(nn_, cc):
         return jfl.fused_bidirectional_ce(nn_, cc, tau, eps, True, 1.0 / tau)

@@ -13,12 +13,14 @@ import torch
 from jodalrob_twotower_torch.config import MeshConfig
 from jodalrob_twotower_torch.config import TrainConfig as TorchTrainConfig
 from jodalrob_twotower_torch.convert import flax_to_state_dict
+from jodalrob_twotower_torch.data.types import PairBatch as TorchPairBatch
 from jodalrob_twotower_torch.data.types import TowerBatch as TorchTowerBatch
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.models.embedding import EmbeddingCollection
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel as TorchTwoTowerModel
 from jodalrob_twotower_torch.serving.service import FrozenState
 from jodalrob_twotower_torch.train.train_step import make_encode_fn
+from jodalrob_twotower_tpu.data.types import PairBatch as JaxPairBatch
 from jodalrob_twotower_tpu.data.types import TowerBatch as JaxTowerBatch
 from jodalrob_twotower_tpu.models.two_tower import TwoTowerModel as JaxTwoTowerModel
 
@@ -142,8 +144,7 @@ def test_build_model_single_device_only():
     assert not model.training
     with pytest.raises(NotImplementedError, match="one device"):
         build_model(t_schema, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="use_pallas_lookup"):
-        build_model(t_schema, cfg.replace(mesh=MeshConfig(use_pallas_lookup=True)))
+    assert not any(m.use_pallas for m in model.modules() if isinstance(m, EmbeddingCollection))
     # the training form follows the module's flag and needs a generator for dropout
     model.train()
     batch = TorchTowerBatch(
@@ -161,3 +162,56 @@ def test_reference_shape_has_the_reference_param_count():
 
     model = build_model(reference_shaped_schema(), TorchTrainConfig())
     assert sum(p.numel() for p in model.parameters()) == 2_186_112
+
+
+def test_use_pallas_lookup_model_matches_flax():
+    """``MeshConfig.use_pallas_lookup`` builds towers whose gathers take the
+    row-gather kernel (its plain version on the CPU); the model equals the
+    reference's, run with the plain gather (its Pallas gather runs on a CPU
+    only in interpret mode), to 1e-5 in float32 compute."""
+    j_schema, t_schema = schemas()
+    j_cfg, t_cfg = model_configs(compute_dtype="float32")
+    j_model = JaxTwoTowerModel(j_schema, j_cfg)
+    variables = flax_variables(j_model, j_schema, np.random.default_rng(8))
+    t_model = build_model(t_schema, TorchTrainConfig(model=t_cfg, mesh=MeshConfig(use_pallas_lookup=True)))
+    colls = [m for m in t_model.modules() if isinstance(m, EmbeddingCollection)]
+    assert len(colls) == 2 and all(c.use_pallas for c in colls)
+    state = FrozenState(flax_to_state_dict(t_model, variables["params"], variables["batch_stats"]))
+    rng = np.random.default_rng(13)
+    for side in ("notice", "company"):
+        dense, cat = side_inputs(j_schema.side(side), rng, 41, out_of_range=True)
+        method = {"notice": j_model.encode_notice, "company": j_model.encode_company}[side]
+        want = j_model.apply(variables, JaxTowerBatch(dense=dense, cat_ids=cat), method=method)
+        got = make_encode_fn(t_model, side)(state, TorchTowerBatch(torch.from_numpy(dense), torch.from_numpy(cat)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("compute_dtype,atol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_emb_overrides_match_flax(compute_dtype, atol):
+    """``emb_overrides`` replaces each tower's categorical activations (the
+    sparse-table step), as the reference's ``emb_overrides`` does: the same
+    override arrays give the same towers' outputs, and the tables are not
+    read."""
+    j_schema, t_schema = schemas()
+    j_cfg, t_cfg = model_configs(compute_dtype=compute_dtype)
+    j_model = JaxTwoTowerModel(j_schema, j_cfg)
+    variables = flax_variables(j_model, j_schema, np.random.default_rng(9))
+    t_model = TorchTwoTowerModel(t_schema, t_cfg)
+    t_model.load_state_dict(flax_to_state_dict(t_model, variables["params"], variables["batch_stats"]))
+    rng = np.random.default_rng(14)
+    sides = [side_inputs(j_schema.side(s), rng, 23) for s in ("notice", "company")]
+    overrides = [rng.normal(size=(23, len(j_schema.side(s).vocab_sizes) * 8)).astype(np.float32)
+                 for s in ("notice", "company")]
+    want = j_model.apply(
+        variables, JaxPairBatch(*(JaxTowerBatch(dense=d, cat_ids=c) for d, c in sides)),
+        emb_overrides=tuple(overrides),
+    )
+    with torch.no_grad():
+        for coll in (t_model.notice_tower.embeddings, t_model.company_tower.embeddings):
+            coll.table.fill_(float("nan"))  # a read of the table would show
+        got = t_model(
+            TorchPairBatch(*(TorchTowerBatch(torch.from_numpy(d), torch.from_numpy(c)) for d, c in sides)),
+            train=False, emb_overrides=tuple(torch.from_numpy(o) for o in overrides),
+        )
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=atol, rtol=0)
