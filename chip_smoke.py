@@ -14,10 +14,12 @@ NVIDIA card.
    equal to K2's output transposed); the CE kernels at B=8192 (K6, K11) and
    in the col-blocked range at B=16384 and 32768 (K7, K10), the statistics
    sweep at B=8192 and 1024 (K5) and 16384 and 32768 (K9) with its diagonal
-   (K8); all of K5-K11 again at D=256 and 512, and K8's diagonal against the
-   sweep's S_ii bit for bit at D=128, 256 and 512; at B=65536 the
-   statistics forward against the lean forward, and the label-smoothed loss
-   and its gradients finite.
+   (K8); all of K5-K11 again at D=256 and 512 (the backward also at
+   D=1024, its chunked branch past the wgmma one, for agreement only), and
+   K8's diagonal against the sweep's S_ii bit for bit at D=128, 256 and 512;
+   the backward's build must not spill (its ptxas report is printed); at
+   B=65536 the statistics forward against the lean forward, and the
+   label-smoothed loss and its gradients finite.
 3. Serving phase: drives the serving path at full width - ``TrainConfig()``
    on ``reference_shaped_schema()`` (2.19M params), random weights from a
    seeded generator, a synthetic corpus of 1,000,000 companies - through
@@ -59,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import sys
 import time
 
@@ -160,6 +163,7 @@ RANK_ROW_SHARE = 1e-3
 STATS_TAU = 0.3  # the TPU selftest's temperature for the statistics checks
 BLOCKED_BATCHES = (16384, 32768)  # the col-blocked range's cases (K7-K10)
 WIDE_DIMS = (256, 512)  # embedding widths past the first 128-deep chunk (K5-K11)
+CHUNKED_BWD_DIM = 1024  # a width past the backward's wgmma branch (D <= 512)
 WIDE_TIMED_RUNS = 20
 LARGEST_BATCH = 65536  # the envelope's top: stats against lean forward, loss and grads finite
 EVAL_PAIRS = 32768  # held-out pairs: 4 eval batches at 8192, 2 at 16384
@@ -199,6 +203,25 @@ N_NOTICES = 20_000
 QUERY_BATCH = 1024
 TOP_K = 100
 SEED = 0
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per kernel function of one library's build log (``nvcc -Xptxas -v``):
+    its registers a thread at launch, static shared memory, spill bytes,
+    and whether ptxas serialized its wgmma (warnings C7510-C7515)."""
+    out, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = {"function": m.group(1), "wgmma_serialized": any(
+                "wgmma.mma_async instructions are serialized" in w and m.group(1) in w for w in log.splitlines())}
+            out.append(fn)
+        elif fn is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            fn["spill_store_bytes"], fn["spill_load_bytes"] = int(m[1]), int(m[2])
+        elif fn is not None and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            fn["registers"], fn["static_smem_bytes"] = int(m[1]), int(smem[1]) if smem else 0
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -363,7 +386,8 @@ def bwd_case(flush: torch.Tensor, b: int, eps: float = 0.0, runs: int = 0, shard
         half = b // 2
         args = (n[half:], c, rl[half:], cl, eps, half)
         case = f"rows {half}..{b} of B={b}, row_offset={half}"
-    got, again, want = fused_ce_bwd(*args), fused_ce_bwd(*args), fused_ce_bwd_plain(*args)
+    # through the module, so a fault planted there (planted_faults.py) shows here
+    got, again, want = fl.fused_ce_bwd(*args), fl.fused_ce_bwd(*args), fused_ce_bwd_plain(*args)
     torch.cuda.synchronize()
     rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
     row = {"case": case, "two_calls_equal": all(torch.equal(x, y) for x, y in zip(got, again)),
@@ -373,7 +397,7 @@ def bwd_case(flush: torch.Tensor, b: int, eps: float = 0.0, runs: int = 0, shard
         nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
         # the function's work: products 6 B^2 D (S, A C, A^T N); two exponentials
         # per entry (its row- and column-softmax terms), though the kernel's dn and
-        # dc sweeps each recompute S (once per 128-wide output chunk) and take both
+        # dc sweeps each form S and take both (8 B^2 D and 4 B^2)
         row.update(bound(6 * b * b * d, 2 * b * d * 2 + 2 * b * 4 + 2 * b * d * 4, exps=2 * b * b))
         inv2b, _, _ = _bwd_constants(b, 0.0)
         eye = torch.arange(b, device="cuda")
@@ -385,7 +409,7 @@ def bwd_case(flush: torch.Tensor, b: int, eps: float = 0.0, runs: int = 0, shard
             a = (inv2b * x).to(torch.bfloat16)
             return a @ cb, a.T @ nb
 
-        timed(row, lambda: fused_ce_bwd(*args), lambda: fused_ce_bwd_plain(*args), library, flush, runs)
+        timed(row, lambda: fl.fused_ce_bwd(*args), lambda: fused_ce_bwd_plain(*args), library, flush, runs)
     print(f"kernel {label}", json.dumps(row), flush=True)
     check(row["two_calls_equal"], f"{label} ({case}): two calls differ")
     check(rel <= CE_BWD_RTOL, f"{label} ({case}) vs plain: max err {rel} of max |plain| > {CE_BWD_RTOL}")
@@ -568,6 +592,8 @@ def wide_phase(flush: torch.Tensor) -> dict:
             diag_row, stats_row = stats_case(flush, b, WIDE_TIMED_RUNS, d=d)
             out["same_tile_diag"].append(diag_row)
             out["fused_stats" + tag].append(stats_row)
+    # past D = 512 the backward takes its chunked mma.sync branch: agreement only
+    out["fused_ce_bwd"].append(bwd_case(flush, CE_BATCH, d=CHUNKED_BWD_DIM))
     out["diag_bits"] = [diag_bits_check(d) for d in (CE_DIM,) + WIDE_DIMS]
     return out
 
@@ -1432,6 +1458,13 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s for {KERNEL_SOURCES}", flush=True)
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log.strip()}", flush=True)
+    # the CE backward's build: registers (the consumers raise theirs to 232
+    # with setmaxnreg), shared memory and spills; none may spill
+    bwd_build = {"functions": ptxas_report(logs.get("fused_ce_bwd", "")),
+                 "dynamic_smem_bytes": {d: fl._bwd_lib().fused_ce_bwd_smem_bytes(d) for d in (128, 256, 384, 512)}}
+    print("ptxas fused_ce_bwd " + json.dumps(bwd_build), flush=True)
+    check(all(f.get("spill_store_bytes", 0) == 0 == f.get("spill_load_bytes", 0) for f in bwd_build["functions"]),
+          f"fused_ce_bwd spills: {bwd_build['functions']}")
 
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     kernels = kernel_phase(flush)
@@ -1493,11 +1526,15 @@ def main() -> int:
         "sparse_vs_dense": {k: v for k, v in scaled["sparse_vs_dense"].items() if isinstance(v, dict)},
         "diag_bits": kernels["diag_bits"],
         "largest_batch": kernels["largest_batch"],
+        "fused_ce_bwd_build": bwd_build,
         "step_check": {k: step_check[k] for k in ("loss_abs_err", "max_grad_rel_err", "worst_share_of_tolerance")},
         "card": card}
     by_kernel = {rec["tpu_kernel"]: rec for rec in record["kernels"]}
     by_kernel["K6"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"
     by_kernel["K10"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:724"
+    for key in ("K10", "K11"):  # every timed width beside the D = 128 main case
+        by_kernel[key]["timed_cases"] = [{k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                                         for r in by_kernel[key]["cases"] if "ms" in r]
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

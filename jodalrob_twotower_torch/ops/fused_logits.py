@@ -38,7 +38,9 @@ Dispatch follows the reference's envelopes: B % 128 == 0 and B <= 8192, or
 B % 1024 == 0 and 8192 < B <= 65536, with D % 128 == 0, take the kernels
 (:func:`ce_route`: the lean forward without label smoothing, the statistics
 forward with it; the backward either way). The CUDA kernels take any such
-D, in 128-deep chunks (``csrc/tile_mma.cuh``). Shapes outside the envelopes
+D: the forward and statistics kernels in 128-deep chunks with mma.sync
+(``csrc/tile_mma.cuh``), the backward with wgmma and TMA up to D = 512
+(``csrc/wgmma.cuh``) and in 128-wide output chunks past it. Shapes outside the envelopes
 take the materialized float32 path, as ``_ce_primal``/``_ce_bwd``/
 ``_stats_xla`` do in the reference.
 """
@@ -119,6 +121,8 @@ def _bwd_lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.fused_ce_bwd.restype = ctypes.c_int
+        lib.fused_ce_bwd_smem_bytes.argtypes = [ctypes.c_int]
+        lib.fused_ce_bwd_smem_bytes.restype = ctypes.c_int
         lib.fused_ce_bwd_error_string.argtypes = [ctypes.c_int]
         lib.fused_ce_bwd_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -234,8 +238,9 @@ def fused_ce_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K11 (and K10 past B = 8192): see :func:`fused_ce_bwd_plain` for the
     function. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (a dn sweep and a dc sweep, no atomics) on the current stream or
-    raise. ``launches`` counts the kernel's launches."""
+    kernel (a dn sweep and a dc sweep in one grid, no atomics; S formed once
+    per row block and column tile in each sweep up to D = 512) on the current
+    stream or raise. ``launches`` counts the kernel's launches."""
     _check_operands(n_scaled, c, "fused_ce_bwd")
     rows, b = n_scaled.shape[0], c.shape[0]
     if row_lse.shape != (rows,) or col_lse.shape != (b,):

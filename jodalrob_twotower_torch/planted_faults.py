@@ -7,6 +7,10 @@ sound and once per fault, and reports each fault as caught or not.
   128-row tiles, and the CE backward (K11) losing rows of dc. The CPU side
   of the check takes the plain versions, so only the card's side carries the
   fault.
+* The wide backward check (K11 against its plain version at B=8192, D=512)
+  against the second warpgroup's half of dn (columns 256..511) coming out
+  as 0, or as the last column tile's contribution alone (an accumulator
+  overwritten per tile instead of summed).
 * The statistics check (K8 and the sweep against their plain versions at
   B=8192, ranks under the near-tie rule) against K8 handing each row the
   next row's diagonal, the sweep's column merge dropping the first row
@@ -55,6 +59,32 @@ def _dc_loss(rows_lost: int):
         dn, dc = real(*args)
         if dc.is_cuda:
             dc[:rows_lost] = 0
+        return dn, dc
+
+    fault.launches = 0
+    return fused_logits, "fused_ce_bwd", fault
+
+
+def _dn_upper_half(last_tile_only: bool):
+    """K11 whose dn columns 256..511 (at D = 512) come out as 0, or as the
+    contribution of the last 64-column tile of C alone."""
+    real = fused_logits.fused_ce_bwd
+
+    def fault(n_scaled, c, row_lse, col_lse, label_smoothing=0.0, row_offset=0):
+        dn, dc = real(n_scaled, c, row_lse, col_lse, label_smoothing, row_offset)
+        if dn.is_cuda and dn.shape[1] == 512:
+            if last_tile_only:
+                b, rows = c.shape[0], n_scaled.shape[0]
+                inv2b, diag_coef, smooth = fused_logits._bwd_constants(b, label_smoothing)
+                ct = c[b - 64 :].to(torch.bfloat16).float()
+                s = n_scaled.to(torch.bfloat16).float() @ ct.T
+                x = torch.exp(s - row_lse[:, None]) + torch.exp(s - col_lse[None, b - 64 :])
+                col = torch.arange(b - 64, b, device=s.device)
+                x -= diag_coef * (col[None, :] == torch.arange(rows, device=s.device)[:, None] + row_offset)
+                a = (inv2b * (x - smooth)).to(torch.bfloat16).float()
+                dn[:, 256:] = a @ ct[:, 256:]
+            else:
+                dn[:, 256:] = 0
         return dn, dc
 
     fault.launches = 0
@@ -133,6 +163,10 @@ def _step_check(chip_smoke):
     chip_smoke.step_grad_check()
 
 
+def _wide_bwd_check(chip_smoke):
+    chip_smoke.bwd_case(None, chip_smoke.CE_BATCH, d=512)
+
+
 def _stats_check(chip_smoke):
     chip_smoke.stats_case(None, chip_smoke.CE_BATCH)
 
@@ -159,6 +193,8 @@ FAULTS = {
     "K2 loses every 64th tile": (lambda: _tile_loss(64), _step_check),
     "K11 loses dc rows 0..63": (lambda: _dc_loss(64), _step_check),
     "K11 loses dc rows 0..7": (lambda: _dc_loss(8), _step_check),
+    "K11 at D=512 zeroes dn columns 256..511": (lambda: _dn_upper_half(False), _wide_bwd_check),
+    "K11 at D=512 keeps only the last tile in dn columns 256..511": (lambda: _dn_upper_half(True), _wide_bwd_check),
     "K8 reads the next row's diagonal": (_diag_next_row, _stats_check),
     "K5 column merge drops row block 0": (_merge_drops_first_block, _stats_check),
     "K5 rank counts one more entry per row": (_rank_counts_diagonal, _stats_check),
@@ -172,7 +208,7 @@ def main() -> int:
 
     print(chip_smoke.bench.card_line(), flush=True)
     chip_smoke._build.build(chip_smoke.KERNEL_SOURCES)
-    for check in (_step_check, _stats_check, _gather_check, _sparse_check):
+    for check in (_step_check, _wide_bwd_check, _stats_check, _gather_check, _sparse_check):
         check(chip_smoke)
         print(f"sound {check.__name__.strip('_')} passed", flush=True)
     missed = []

@@ -73,6 +73,30 @@ def test_bwd_matches_pallas(pair, tau, eps):
     assert _rel(got_dc.numpy(), want_dc) < 1e-4
 
 
+def test_bwd_row_offset_places_the_diagonal_d512():
+    """The same at D = 512, where the card's kernel splits each row block's
+    output columns over two warpgroups: the second half of N as a row shard
+    (row_offset = B/2) against the full batch, and the shard against the
+    reference's kernel in interpret mode with the same offset."""
+    rng = np.random.default_rng(7)
+    d = 512
+    n, c = _unit_rows(rng, B, d), _unit_rows(rng, B, d)
+    n_t, c_t = torch.from_numpy(n), torch.from_numpy(c)
+    rl, cl = tfl.fused_lean_lse_plain(n_t, c_t, nomax=True)
+    dn, dc = tfl.fused_ce_bwd(n_t, c_t, rl, cl)
+    half = B // 2
+    dn_lo, dc_lo = tfl.fused_ce_bwd(n_t[:half], c_t, rl[:half], cl, row_offset=0)
+    dn_hi, dc_hi = tfl.fused_ce_bwd(n_t[half:], c_t, rl[half:], cl, row_offset=half)
+    np.testing.assert_allclose(torch.cat([dn_lo, dn_hi]).numpy(), dn.numpy(), rtol=0, atol=1e-7)
+    np.testing.assert_allclose((dc_lo + dc_hi).numpy(), dc.numpy(), rtol=0, atol=1e-6)
+    want_dn, want_dc = jfl._fused_bwd_call(
+        jnp.asarray(n[half:]), jnp.asarray(c), jnp.asarray(rl[half:].numpy()), jnp.asarray(cl.numpy()), 0.0,
+        half, interpret=True,
+    )
+    assert _rel(dn_hi.numpy(), want_dn) < 1e-4
+    assert _rel(dc_hi.numpy(), want_dc) < 1e-4
+
+
 def test_bwd_row_offset_places_the_diagonal():
     """A row shard of N against the full C: dn equals the full batch's rows
     of dn, and the shard's dc is its share of the full dc."""
@@ -185,13 +209,21 @@ def test_route_on_cuda_raises_for_unported_kernels(b, d, eps, expected):
         assert tfl.ce_route(16384, wide, 0.0) == "kernel"
 
 
-@pytest.mark.parametrize("kernel", ["lean-nomax", "lean-shifted", "bwd-eps0", "bwd-eps0.1", "stats"])
-def test_d256_plain_versions_match_pallas(kernel):
-    """At D = 256, where the CUDA kernels run two 128-deep chunks: the
-    plain versions the card's kernels are held against, against the
-    reference's kernels in interpret mode, to the D = 128 tolerances."""
+@pytest.mark.parametrize(
+    "kernel,d",
+    [("lean-nomax", 256), ("lean-shifted", 256), ("bwd-eps0", 256), ("bwd-eps0.1", 256), ("stats", 256),
+     ("bwd-eps0", 512), ("bwd-eps0.1", 512)],
+    # the D = 256 cases keep their ids; the backward's also run at D = 512
+    ids=["lean-nomax", "lean-shifted", "bwd-eps0", "bwd-eps0.1", "stats", "bwd-eps0-d512", "bwd-eps0.1-d512"],
+)
+def test_d256_plain_versions_match_pallas(kernel, d):
+    """At D = 256, where the CUDA kernels run two 128-deep chunks (and the
+    backward at D = 512 as well, where its two warpgroups split each row
+    block's output columns): the plain versions the card's kernels are held
+    against, against the reference's kernels in interpret mode, to the
+    D = 128 tolerances."""
     rng = np.random.default_rng(6)
-    b, d, tau = 256, 256, 0.2
+    b, tau = 256, 0.2
     n = _unit_rows(rng, b, d)
     # positives from near their row to nearly random, so the ranks spread
     c = _unit_rows(rng, b, d) * rng.uniform(0.5, 12.0, size=(b, 1)).astype(np.float32) + n
