@@ -11,13 +11,17 @@ NVIDIA card.
    times kernel, plain version and the nearest library call beside the
    kernel's bound: the row gather (K4) at config 3's shape, on a bf16 table
    and a ragged batch; the table gradient (K2) and its [D, R] form (K3,
-   equal to K2's output transposed); the CE kernels at B=8192 (K6, K11) and
+   equal to K2's output transposed) at the training path's two shapes, on a
+   skewed batch and at R=65,536 (K2 also at each cluster size), with a
+   ragged batch for agreement and a cluster launch the card refuses, which
+   must raise; the CE kernels at B=8192 (K6, K11) and
    in the col-blocked range at B=16384 and 32768 (K7, K10), the statistics
    sweep at B=8192 and 1024 (K5) and 16384 and 32768 (K9) with its diagonal
    (K8); all of K5-K11 again at D=256 and 512 (the backward also at
    D=1024, its chunked branch past the wgmma one, for agreement only), and
    K8's diagonal against the sweep's S_ii bit for bit at D=128, 256 and 512;
-   the backward's build must not spill (its ptxas report is printed); at
+   the backward's and the table gradient's builds must not spill (their
+   ptxas reports are printed); at
    B=65536 the statistics forward against the lean forward, and the
    label-smoothed loss and its gradients finite.
 3. Serving phase: drives the serving path at full width - ``TrainConfig()``
@@ -81,14 +85,17 @@ from jodalrob_twotower_torch.evaluation.evaluator import (
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.models.embedding import table_layout, tile_feature_map
 from jodalrob_twotower_torch.ops import _build
+from jodalrob_twotower_torch.ops import embedding_grad as eg
 from jodalrob_twotower_torch.ops import fused_logits as fl
 from jodalrob_twotower_torch.ops.embedding_grad import (
+    TILE_ROWS,
     dense_table_grad,
     dense_table_grad_bmajor,
     dense_table_grad_bmajor_plain,
     dense_table_grad_plain,
     dense_table_lookup,
     dense_table_lookup_plain,
+    table_grad_launch_shape,
 )
 from jodalrob_twotower_torch.ops import embedding_lookup as el
 from jodalrob_twotower_torch.ops.embedding_lookup import embedding_lookup_pallas, embedding_lookup_pallas_plain
@@ -141,6 +148,9 @@ GRAD_CHECK_BATCH = 1024
 LSE_ATOL = 1e-4  # lse of 8192 terms: f32 sums in another order, __expf (a few ulp)
 CE_BWD_RTOL = 1e-3  # of max |plain|: A is rounded to bf16, an entry on a boundary may round apart
 GRAD_ATOL = 1e-4  # f32 sums of <= a few hundred bf16 values of g ~ N(0, 1), another order
+GRAD_CLUSTERS = (1, 2, 4, 8)  # the table gradient's cluster sizes (CTAs per tile), each checked and timed
+REFUSED_CLUSTER = 32  # past the card's largest cluster (16): the launch must be refused, and raise
+GRAD_ENVELOPE_FEATURES = 64  # x 1,024 rows = DENSE_GRAD_MAX_ROWS, the dense table gradient's envelope edge
 # one step, card against CPU: the loss within 2e-3 (bf16 activations); each
 # gradient leaf within 1.5 times its own bf16 noise (the CPU's bf16 gradient
 # against a float32 one) plus 0.005 (relative norms)
@@ -628,74 +638,104 @@ def largest_batch_check() -> dict:
     return row
 
 
-def table_grad_phase(flush: torch.Tensor, batch: int = 8192) -> tuple[list[dict], list[dict]]:
-    """The table gradient (K2, and K3, its [D, R] form) at the training
-    path's shapes: the ids of the bench's synthetic data (cluster-correlated,
-    as the step sees them) and a bf16 cotangent ~ N(0, 1). Returns (K2's
-    rows, K3's rows)."""
+def table_grad_inputs(batch: int = CE_BATCH) -> list[tuple[str, torch.Tensor, torch.Tensor, torch.Tensor, bool]]:
+    """The table gradient's cases, (name, rows, g, tile_feature, timed): the
+    training path's two shapes (the ids of the bench's synthetic data,
+    cluster-correlated as the step sees them, a bf16 cotangent ~ N(0, 1));
+    a skewed batch whose every id of a feature hits one row (8192 values of
+    scale 0.01 on each of 32 rows); the dense envelope's edge, R = 65,536
+    (64 features of vocab 1,000, ids uniform); and a ragged B=1000 batch whose
+    ids reach other features' blocks, their own block's padding, -1 and
+    past the table (agreement only: the library call takes no such ids)."""
     gen = np.random.default_rng(SEED + 2)
     schema = reference_shaped_schema()
     ds = make_synthetic_dataset(schema, n_notices=20_000, n_companies=20_000, n_pairs=batch,
                                 n_clusters=bench.N_CLUSTERS, seed=SEED)
-    rows_out, bmajor = [], []
+
+    def case(name, vocabs, rows, scale=1.0, timed=True):
+        g = gen.normal(0.0, scale, size=(*rows.shape, 32)).astype(np.float32)
+        return (f"{name} B={rows.shape[0]} K={rows.shape[1]} R={table_layout(vocabs)[1]} D=32",
+                torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to("cuda"),
+                torch.from_numpy(g).to("cuda", torch.bfloat16),
+                torch.from_numpy(tile_feature_map(vocabs)).to("cuda"), timed)
+
+    out = []
     for name, side, store, col in (("notice", schema.notice, ds.notice_store, 0),
                                    ("company", schema.company, ds.company_store, 1)):
-        offsets, total = table_layout(side.vocab_sizes)
-        ids = store.cat_ids[ds.pairs[:, col]]
-        rows = torch.from_numpy((ids + offsets[None, :]).astype(np.int32)).to("cuda")
-        k = rows.shape[1]
-        g = torch.from_numpy(gen.normal(size=(batch, k, 32)).astype(np.float32)).to("cuda", torch.bfloat16)
-        tf = torch.from_numpy(tile_feature_map(side.vocab_sizes)).to("cuda")
-        got = dense_table_grad(rows, g, tf)
-        again = dense_table_grad(rows, g, tf)
-        want = dense_table_grad_plain(rows, g, tf)
-        torch.cuda.synchronize()
-        equal = torch.equal(got, again)
-        err = float((got - want).abs().max())
-        nbytes = rows.numel() * 4 + g.numel() * 2 + total * 32 * 4 + tf.numel() * 4
-        rows_flat, g_flat = rows.reshape(-1).long(), g.reshape(-1, 32)
-        row = {"case": f"{name} B={batch} K={k} R={total} D=32", "two_calls_equal": equal, "max_abs_err": err,
-               "tolerance": GRAD_ATOL, **bound(0, nbytes)}
-        timed(row, lambda: dense_table_grad(rows, g, tf), lambda: dense_table_grad_plain(rows, g, tf),
-              lambda: torch.zeros(total, 32, device="cuda").index_add_(0, rows_flat, g_flat.float()), flush)
-        print("kernel table_grad", json.dumps(row), flush=True)
-        check(equal, f"table_grad ({name}): two calls differ")
-        check(err <= GRAD_ATOL, f"table_grad ({name}) vs plain: max abs err {err} > {GRAD_ATOL}")
-        rows_out.append(row)
-        # K3: the same sums stored [D, R], bit for bit K2's output transposed
-        got_t, again_t = dense_table_grad_bmajor(rows, g, tf), dense_table_grad_bmajor(rows, g, tf)
+        out.append(case(name, side.vocab_sizes, store.cat_ids[ds.pairs[:, col]] + table_layout(side.vocab_sizes)[0]))
+    vocabs = schema.notice.vocab_sizes
+    offsets = table_layout(vocabs)[0]
+    out.append(case("notice skewed", vocabs, np.broadcast_to(offsets + 7, (batch, len(vocabs))), scale=0.01))
+    wide = (1000,) * GRAD_ENVELOPE_FEATURES
+    ids = gen.integers(0, 1000, size=(batch, len(wide)))
+    out.append(case("envelope", wide, ids + table_layout(wide)[0][None, :]))
+    ragged = lookup_case("ragged", vocabs, 1000, torch.float32, gen, ragged=True)["rows"].cpu().numpy()
+    out.append(case("notice ragged", vocabs, ragged, timed=False))
+    return out
+
+
+def table_grad_phase(flush: torch.Tensor | None, runs: int = TIMED_RUNS) -> tuple[list[dict], list[dict]]:
+    """The table gradient (K2, and K3, its [D, R] form) at each case of
+    :func:`table_grad_inputs`: two calls bit-equal, within GRAD_ATOL of the
+    plain version, K3 equal to K2's output transposed; with ``runs``, each
+    timed case beside its bound, the plain version and the library call, and
+    K2 at every cluster size. Also the build's ptxas report (no spill) and a
+    launch the card refuses (a cluster past its largest), which must raise.
+    Returns (K2's rows, K3's rows)."""
+    build = ptxas_report(_build.build_log("table_grad"))
+    print("ptxas table_grad " + json.dumps(build), flush=True)
+    check(bool(build) and all(f.get("spill_store_bytes", 0) == 0 == f.get("spill_load_bytes", 0) for f in build),
+          f"table_grad spills: {build}")
+    rows_out, bmajor = [], []
+    for name, rows, g, tf, is_timed in table_grad_inputs():
+        b, total = rows.shape[0], TILE_ROWS * tf.numel()
+        cluster, grid = table_grad_launch_shape(b, total)
+        # through the module, so a fault planted there (planted_faults.py) shows here
+        got, again, want = eg.dense_table_grad(rows, g, tf), eg.dense_table_grad(rows, g, tf), dense_table_grad_plain(rows, g, tf)
+        got_t, again_t = eg.dense_table_grad_bmajor(rows, g, tf), eg.dense_table_grad_bmajor(rows, g, tf)
         want_t = dense_table_grad_bmajor_plain(rows, g, tf)
         torch.cuda.synchronize()
-        err_t = float((got_t - want_t).abs().max())
-        row_t = {"case": row["case"], "equal_to_k2_transposed": torch.equal(got_t, got.t()),
-                 "two_calls_equal": torch.equal(got_t, again_t), "max_abs_err": err_t, "tolerance": GRAD_ATOL,
-                 **bound(0, nbytes)}
-        timed(row_t, lambda: dense_table_grad_bmajor(rows, g, tf), lambda: dense_table_grad_bmajor_plain(rows, g, tf),
-              lambda: torch.zeros(total, 32, device="cuda").index_add_(0, rows_flat, g_flat.float()).t().contiguous(),
-              flush)
-        print("kernel table_grad_bmajor", json.dumps(row_t), flush=True)
-        check(row_t["equal_to_k2_transposed"], f"table_grad_bmajor ({name}) != table_grad transposed")
-        check(row_t["two_calls_equal"], f"table_grad_bmajor ({name}): two calls differ")
-        check(err_t <= GRAD_ATOL, f"table_grad_bmajor ({name}) vs plain: max abs err {err_t} > {GRAD_ATOL}")
-        bmajor.append(row_t)
-    # agreement only: a ragged batch whose ids reach other features' blocks,
-    # their own block's padding, -1 and past the table; and a skewed batch
-    # whose every id of a feature hits one row (one list of 8192 per row)
-    vocabs = schema.notice.vocab_sizes
-    ragged = lookup_case("ragged", vocabs, 1000, torch.float32, gen, ragged=True)
-    skewed = np.broadcast_to(table_layout(vocabs)[0][None, :] + 7, (batch, len(vocabs)))
-    tf = torch.from_numpy(tile_feature_map(vocabs)).to("cuda")
-    for case, rows, scale in (("notice ragged B=1000", ragged["rows"], 1.0),
-                              (f"notice skewed B={batch}", torch.from_numpy(skewed.astype(np.int32)).to("cuda"), 0.01)):
-        g = torch.from_numpy(gen.normal(0.0, scale, size=(*rows.shape, 32)).astype(np.float32))
-        g = g.to("cuda", torch.bfloat16)
-        got, again, want = dense_table_grad(rows, g, tf), dense_table_grad(rows, g, tf), dense_table_grad_plain(rows, g, tf)
-        row = {"case": case, "two_calls_equal": torch.equal(got, again),
-               "max_abs_err": float((got - want).abs().max()), "tolerance": GRAD_ATOL}
+        nbytes = rows.numel() * 4 + g.numel() * 2 + total * 32 * 4 + tf.numel() * 4
+        row = {"case": name, "cluster": cluster, "grid": grid, "two_calls_equal": torch.equal(got, again),
+               "max_abs_err": float((got - want).abs().max()), "tolerance": GRAD_ATOL, **bound(0, nbytes)}
+        row_t = {"case": name, "cluster": cluster, "grid": grid, "equal_to_k2_transposed": torch.equal(got_t, got.t()),
+                 "two_calls_equal": torch.equal(got_t, again_t), "max_abs_err": float((got_t - want_t).abs().max()),
+                 "tolerance": GRAD_ATOL, **bound(0, nbytes)}
+        if runs and is_timed:
+            rows_flat, g_flat = rows.reshape(-1).long(), g.reshape(-1, 32)
+
+            def library():
+                return torch.zeros(total, 32, device="cuda").index_add_(0, rows_flat, g_flat.float())
+
+            timed(row, lambda: eg.dense_table_grad(rows, g, tf), lambda: dense_table_grad_plain(rows, g, tf), library,
+                  flush, runs)
+            timed(row_t, lambda: eg.dense_table_grad_bmajor(rows, g, tf),
+                  lambda: dense_table_grad_bmajor_plain(rows, g, tf), lambda: library().t().contiguous(), flush, runs)
+            row["by_cluster"] = {}
+            for c in GRAD_CLUSTERS:  # the same kernel at every cluster size it takes: right at each, and its time
+                launch = lambda c=c: eg._table_grad_launch(rows, g, tf, transposed=False, cluster=c)  # noqa: E731
+                first, second = launch(), launch()
+                torch.cuda.synchronize()
+                err = float((first - want).abs().max())
+                check(torch.equal(first, second) and err <= GRAD_ATOL,
+                      f"table_grad ({name}) at cluster {c}: two calls differ or max abs err {err} > {GRAD_ATOL}")
+                row["by_cluster"][c] = {"ms": median_ms(launch, flush, runs), "max_abs_err": err}
         print("kernel table_grad", json.dumps(row), flush=True)
-        check(row["two_calls_equal"], f"table_grad ({case}): two calls differ")
-        check(row["max_abs_err"] <= GRAD_ATOL, f"table_grad ({case}) vs plain: max abs err {row['max_abs_err']}")
+        print("kernel table_grad_bmajor", json.dumps(row_t), flush=True)
+        for what, r in (("table_grad", row), ("table_grad_bmajor", row_t)):
+            check(r["max_abs_err"] <= GRAD_ATOL, f"{what} ({name}) vs plain: max abs err {r['max_abs_err']} > {GRAD_ATOL}")
+            check(r["two_calls_equal"], f"{what} ({name}): two calls differ")
+        check(row_t["equal_to_k2_transposed"], f"table_grad_bmajor ({name}) != table_grad transposed")
         rows_out.append(row)
+        bmajor.append(row_t)
+    # a launch the card refuses (the last case's inputs) raises: no other launch takes its place
+    try:
+        eg._table_grad_launch(rows, g, tf, transposed=False, cluster=REFUSED_CLUSTER)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    print("table_grad refused launch " + json.dumps({"cluster": REFUSED_CLUSTER, "error": refused}), flush=True)
+    check(refused is not None, f"table_grad launched with a cluster of {REFUSED_CLUSTER} CTAs; the card should refuse it")
     return rows_out, bmajor
 
 

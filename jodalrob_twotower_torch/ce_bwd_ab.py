@@ -1,19 +1,27 @@
-"""Times the CE backward (K11, and K10 past B = 8192) of several source
-trees on one card, in turns, so two versions are compared inside one run.
+"""Times a kernel of several source trees on one card, in turns, so two
+versions are compared inside one run.
 
 Each tree is a checkout of the repository (its root holds ``chip_smoke.py``).
 For every tree named, in the order given (name a tree twice to alternate:
 ``parent change change parent``), a separate Python process started in that
-tree builds its kernels and runs its own ``chip_smoke.bwd_case`` at the
-timed shapes: B = 8192 and 16384 at D = 128, 256 and 512 (each against its
-plain version, two calls bit-equal, timed beside its bound and the library
-call). With ``--training`` the process also runs that tree's training phase
-and prints its device time per 16-step call. Every line a tree prints is
+tree builds its kernels and runs that tree's own checks and timings, so a
+parent's code times the parent:
+* ``--kernel ce_bwd`` (the default): the CE backward (K11, and K10 past
+  B = 8192) through its ``chip_smoke.bwd_case`` at B = 8192 and 16384, D =
+  128, 256 and 512 (each against its plain version, two calls bit-equal,
+  timed beside its bound and the library call);
+* ``--kernel table_grad``: the table gradient (K2, and K3) through its
+  ``chip_smoke.table_grad_phase`` (its cases as it checks and times them),
+  then its ``dense_table_grad`` and ``dense_table_grad_bmajor`` timed at a
+  skewed batch and at R = 65,536 on inputs built here, the same in every
+  tree (a parent's phase may not time those).
+With ``--training`` the process also runs that tree's training phase and
+prints its device time per 16-step call. Every line a tree prints is
 echoed prefixed with ``[tree i: path]``.
 
 Run from the repository root on a machine with a CUDA card:
-``python3 -m jodalrob_twotower_torch.ce_bwd_ab [--training] TREE [TREE ...]``.
-Exits nonzero if a tree's run fails.
+``python3 -m jodalrob_twotower_torch.ce_bwd_ab [--kernel K] [--training]
+TREE [TREE ...]``. Exits nonzero if a tree's run fails.
 """
 
 from __future__ import annotations
@@ -25,15 +33,41 @@ from pathlib import Path
 
 CASES = [(8192, 128), (8192, 256), (8192, 512), (16384, 128), (16384, 256), (16384, 512)]
 
+_CE_BWD_RUN = """
+for b, d in {cases}:
+    label = "fused_ce_bwd" if b <= cs.CE_BATCH else "fused_ce_bwd_blocked"
+    runs = cs.TIMED_RUNS if (b, d) == (cs.CE_BATCH, cs.CE_DIM) else cs.LARGE_TIMED_RUNS
+    cs.bwd_case(f, b, runs=runs, label=label, d=d)
+"""
+
+# ids built with numpy from seed 0: every id of a notice feature on one row
+# (values of scale 0.01), and 64 features of vocab 1,000 with ids uniform
+_TABLE_GRAD_RUN = """
+cs.table_grad_phase(f)
+import numpy as np
+from jodalrob_twotower_torch.models.embedding import table_layout, tile_feature_map
+from jodalrob_twotower_torch.ops import embedding_grad as eg
+gen = np.random.default_rng(0)
+notice = cs.reference_shaped_schema().notice.vocab_sizes
+wide = (1000,) * 64
+for name, vocabs, ids, scale in (
+        ("notice skewed", notice, np.broadcast_to(table_layout(notice)[0] + 7, (8192, len(notice))), 0.01),
+        ("envelope", wide, gen.integers(0, 1000, size=(8192, 64)) + table_layout(wide)[0], 1.0)):
+    rows = torch.from_numpy(ids.astype(np.int32)).cuda()
+    g = torch.from_numpy(gen.normal(0.0, scale, size=(*ids.shape, 32)).astype(np.float32)).to("cuda", torch.bfloat16)
+    tf = torch.from_numpy(tile_feature_map(vocabs)).cuda()
+    row = {{"case": f"{{name}} B=8192 K={{ids.shape[1]}} R={{table_layout(vocabs)[1]}} D=32"}}
+    for what, fn in (("table_grad", eg.dense_table_grad), ("table_grad_bmajor", eg.dense_table_grad_bmajor)):
+        row[what + "_ms"] = cs.median_ms(lambda: fn(rows, g, tf), f)
+    print("ab table_grad", json.dumps(row), flush=True)
+"""
+
 _TREE_RUN = """
 import json, sys, torch
 import chip_smoke as cs
 print(cs.bench.card_line(), flush=True)
 f = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
-for b, d in {cases}:
-    label = "fused_ce_bwd" if b <= cs.CE_BATCH else "fused_ce_bwd_blocked"
-    runs = cs.TIMED_RUNS if (b, d) == (cs.CE_BATCH, cs.CE_DIM) else cs.LARGE_TIMED_RUNS
-    cs.bwd_case(f, b, runs=runs, label=label, d=d)
+{kernel_run}
 del f
 if {training}:
     row, _ = cs.training_phase()
@@ -45,9 +79,11 @@ if {training}:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="+", help="repository roots, in the order to run them")
+    parser.add_argument("--kernel", choices=("ce_bwd", "table_grad"), default="ce_bwd", help="the kernel to time")
     parser.add_argument("--training", action="store_true", help="also run each tree's training phase")
     args = parser.parse_args(argv)
-    code = _TREE_RUN.format(cases=CASES, training=args.training)
+    kernel_run = _CE_BWD_RUN.format(cases=CASES) if args.kernel == "ce_bwd" else _TABLE_GRAD_RUN.format()
+    code = _TREE_RUN.format(kernel_run=kernel_run, training=args.training)
     failed = 0
     for i, tree in enumerate(args.trees):
         root = Path(tree).resolve()

@@ -7,7 +7,8 @@ shared library that ``ctypes`` loads. Builds happen at first use, from the
 package's own sources, into ``_build/`` beside them (listed in .gitignore).
 A library's file name carries a hash of its source and the flags, so an
 edited source is rebuilt and an unchanged one reused. ``build`` starts one
-nvcc process per missing library, all at once.
+nvcc process per missing library, all at once; each library's build log
+is kept beside it (``build_log``).
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ def build(names) -> dict[str, str]:
             if proc.returncode:
                 failed.append(f"{name} (nvcc exit {proc.returncode}):\n{logs[name]}")
             else:
+                out.with_suffix(".log").write_text(logs[name])
                 os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     finally:
         for proc, tmp, _ in procs.values():
@@ -91,6 +93,13 @@ def build(names) -> dict[str, str]:
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The build log of the library ``name`` as it stands (ptxas's report),
+    kept beside it; the library is built first if needed."""
+    build([name])
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -153,7 +153,7 @@ def _grad_lib() -> ctypes.CDLL:
     lib = _build.load("table_grad")
     if not getattr(lib, "_typed", False):
         for fn in (lib.table_grad, lib.table_grad_bmajor):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.table_grad_error_string.argtypes = [ctypes.c_int]
         lib.table_grad_error_string.restype = ctypes.c_char_p
@@ -162,12 +162,37 @@ def _grad_lib() -> ctypes.CDLL:
 
 
 GRAD_KERNEL_DIMS = (16, 32, 64, 128)  # the embed widths table_grad.cu is built for
+# Each tile's id scan is split over a cluster of C CTAs (table_grad.cu). C
+# doubles, up to the portable cluster size, while each CTA keeps at least
+# CLUSTER_IDS ids to scan and the grid stays within CLUSTER_MAX_CTAS (four
+# CTAs per SM of an H100, 132 SMs; the kernel keeps two resident on each).
+# Measured on the H100 at B = 8192 (PERF.md, section 6: K2 at each C), this picks the
+# fastest C at the company shape (4) and at R = 65,536 (1); at the notice
+# shape it picks 2, which costs 3-4% against C = 1 on the bench's ids and
+# saves a quarter where one row takes all of a feature's ids.
+MAX_CLUSTER = 8
+CLUSTER_IDS = 2048
+CLUSTER_MAX_CTAS = 4 * 132
 
 
-def _table_grad_launch(rows: torch.Tensor, g: torch.Tensor, tile_feature: torch.Tensor, *, transposed: bool):
+def table_grad_launch_shape(b: int, total_rows: int) -> tuple[int, int]:
+    """(C, grid CTAs) of the table-gradient kernel for a batch of ``b`` ids
+    per feature and a table of ``total_rows`` rows: a pure function of the
+    shape, so two calls at one shape sum in one order and give the same
+    bits."""
+    tiles = total_rows // TILE_ROWS
+    c = 1
+    while c < MAX_CLUSTER and b >= 2 * c * CLUSTER_IDS and 2 * c * tiles <= CLUSTER_MAX_CTAS:
+        c *= 2
+    return c, c * tiles
+
+
+def _table_grad_launch(rows: torch.Tensor, g: torch.Tensor, tile_feature: torch.Tensor, *, transposed: bool,
+                       cluster: int | None = None):
     """Checks the inputs; for CUDA tensors launches the kernel (the [D, R]
-    store when ``transposed``) and returns its output, for CPU tensors
-    returns None."""
+    store when ``transposed``) with ``cluster`` CTAs per tile (default: the
+    shape's, :func:`table_grad_launch_shape`) and returns its output, for
+    CPU tensors returns None."""
     what = "dense_table_grad_bmajor" if transposed else "dense_table_grad"
     if rows.dim() != 2 or rows.dtype != torch.int32:
         raise ValueError(f"rows must be [B, K] int32, got {tuple(rows.shape)} {rows.dtype}")
@@ -192,12 +217,14 @@ def _table_grad_launch(rows: torch.Tensor, g: torch.Tensor, tile_feature: torch.
     out = torch.empty((d, total_rows) if transposed else (total_rows, d), dtype=torch.float32, device=g.device)
     if gb.data_ptr() % 16:
         raise ValueError("g must be 16-byte aligned for the kernel's vector loads")
+    if cluster is None:
+        cluster, _ = table_grad_launch_shape(b, total_rows)
     lib = _grad_lib()
     launch = lib.table_grad_bmajor if transposed else lib.table_grad
     with torch.cuda.device(g.device):
         err = launch(
             rows.data_ptr(), gb.data_ptr(), tile_feature.data_ptr(), out.data_ptr(),
-            b, k, d, total_rows, torch.cuda.current_stream().cuda_stream,
+            b, k, d, total_rows, cluster, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"{what} launch failed: {lib.table_grad_error_string(err).decode()}")

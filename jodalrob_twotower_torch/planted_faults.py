@@ -2,6 +2,10 @@
 fault in the output of a CUDA wrapper, runs the check that guards it once
 sound and once per fault, and reports each fault as caught or not.
 
+* The table-gradient check (K2 and K3 against their plain versions at the
+  training path's shapes, ``chip_smoke.table_grad_phase`` untimed) against
+  K2's cluster merge leaving out the last rank's partial: the gradient of
+  the batch's last B/C rows, C the wrapper's cluster size.
 * The step check (one B=1024 step's loss and gradients on the card against
   the same step on the CPU) against the table gradient (K2) losing whole
   128-row tiles, and the CE backward (K11) losing rows of dc. The CPU side
@@ -48,6 +52,24 @@ def _tile_loss(every: int):
         return out
 
     fault.launches = 0  # the wrapper counts its launches on the module's name
+    return embedding_grad, "dense_table_grad", fault
+
+
+def _merge_drops_last_rank():
+    """K2 whose cluster merge leaves out the last rank's partial: its output
+    less the plain gradient of the batch's last B/C rows."""
+    real = embedding_grad.dense_table_grad
+
+    def fault(rows, g, tile_feature):
+        out = real(rows, g, tile_feature)
+        if out.is_cuda:
+            b = rows.shape[0]
+            c, _ = embedding_grad.table_grad_launch_shape(b, out.shape[0])
+            lo = (c - 1) * b // c
+            out -= embedding_grad.dense_table_grad_plain(rows[lo:], g[lo:], tile_feature)
+        return out
+
+    fault.launches = 0
     return embedding_grad, "dense_table_grad", fault
 
 
@@ -159,6 +181,10 @@ def _no_dedup():
     return sparse_tables, "sparse_rowwise_adagrad_update", fault
 
 
+def _grad_check(chip_smoke):
+    chip_smoke.table_grad_phase(None, runs=0)
+
+
 def _step_check(chip_smoke):
     chip_smoke.step_grad_check()
 
@@ -189,6 +215,7 @@ def _flush():
 
 
 FAULTS = {
+    "K2's merge drops the last rank's partial": (_merge_drops_last_rank, _grad_check),
     "K2 loses every 16th tile": (lambda: _tile_loss(16), _step_check),
     "K2 loses every 64th tile": (lambda: _tile_loss(64), _step_check),
     "K11 loses dc rows 0..63": (lambda: _dc_loss(64), _step_check),
@@ -208,7 +235,7 @@ def main() -> int:
 
     print(chip_smoke.bench.card_line(), flush=True)
     chip_smoke._build.build(chip_smoke.KERNEL_SOURCES)
-    for check in (_step_check, _wide_bwd_check, _stats_check, _gather_check, _sparse_check):
+    for check in (_grad_check, _step_check, _wide_bwd_check, _stats_check, _gather_check, _sparse_check):
         check(chip_smoke)
         print(f"sound {check.__name__.strip('_')} passed", flush=True)
     missed = []

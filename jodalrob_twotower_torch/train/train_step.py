@@ -323,11 +323,14 @@ def make_device_encode_fn(model: TwoTowerModel, side: str, chunk: int):
     """Chunked single-side encoder over a device-resident (dense, cat_ids)
     store: ``encode(state, store, start)`` embeds rows [start, start +
     chunk) in inference form (reference ``make_device_encode_fn``,
-    train_step.py:522-561)."""
+    train_step.py:522-561). As the reference's dynamic slice does, a start
+    past N - chunk is clamped to N - chunk (and one below 0 to 0), so a
+    chunk always has ``chunk`` rows of a store that holds as many."""
     encode = make_encode_fn(model, side)
 
     def encode_chunk(state, store, start: int) -> torch.Tensor:
         dense, cat = store
+        start = max(0, min(int(start), dense.shape[0] - chunk))
         return encode(state, TowerBatch(dense[start : start + chunk], cat[start : start + chunk]))
 
     return encode_chunk

@@ -36,11 +36,19 @@ def _rows(rng, b, *, ragged):
     return rows.astype(np.int32), total
 
 
-@pytest.mark.parametrize("b,ragged", [(256, False), (300, True), (37, True)])
-def test_plain_grad_matches_pallas(b, ragged):
+@pytest.mark.parametrize("b,ragged,skewed", [
+    pytest.param(256, False, False, id="256-False"),
+    pytest.param(300, True, False, id="300-True"),
+    pytest.param(37, True, False, id="37-True"),
+    # every id of a feature on one row, g of scale 0.01 (chip_smoke.py's skewed case)
+    pytest.param(512, False, True, id="512-skewed"),
+])
+def test_plain_grad_matches_pallas(b, ragged, skewed):
     rng = np.random.default_rng(b)
     rows, total = _rows(rng, b, ragged=ragged)
-    g = rng.normal(size=(b, len(VOCABS), D)).astype(np.float32)
+    if skewed:
+        rows = np.broadcast_to(table_layout(VOCABS)[0] + 3, rows.shape).astype(np.int32)
+    g = rng.normal(0.0, 0.01 if skewed else 1.0, size=(b, len(VOCABS), D)).astype(np.float32)
     tf = tile_feature_map(VOCABS)
     want_t = jeg.dense_table_grad_t(
         jnp.asarray(rows), jnp.asarray(g), total_rows=total, tile_feature=tuple(tf.tolist()), interpret=True
@@ -161,3 +169,29 @@ def test_bmajor_plain_matches_pallas(b, k, d, ragged):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
     assert torch.equal(got, teg.dense_table_grad_plain(*args).t())
     assert torch.equal(got, teg.dense_table_grad_bmajor_plain(*args))
+
+
+@pytest.mark.parametrize("b,total_rows", [(37, 32768), (1000, 32768), (8192, 6144), (8192, 32768), (8192, 65536),
+                                          (65536, 128), (0, 1024), (1 << 20, 1 << 20)])
+def test_cluster_choice_is_a_pure_function_of_the_shape(b, total_rows):
+    """The table gradient's cluster size C (CTAs per tile): a power of two
+    at most the portable 8, 1 for small batches, the same at the same shape,
+    and a grid of C CTAs for each 128-row tile."""
+    c, grid = teg.table_grad_launch_shape(b, total_rows)
+    assert c in (1, 2, 4, 8) and c <= teg.MAX_CLUSTER
+    assert (c, grid) == teg.table_grad_launch_shape(b, total_rows)
+    assert grid % c == 0 and grid == c * (total_rows // teg.TILE_ROWS)
+    if b < 2 * teg.CLUSTER_IDS:
+        assert c == 1
+    if c > 1:  # every CTA keeps enough ids to scan, and the grid stays within its bound
+        assert c * teg.CLUSTER_IDS <= b and grid <= teg.CLUSTER_MAX_CTAS
+
+
+def test_cluster_choice_at_the_training_shapes():
+    """C > 1 at both of the training path's shapes (B = 8192: the notice
+    table of 32,768 rows and the company table of 6,144), 1 at B = 37 and
+    at the dense envelope's edge (R = 65,536), whose 512 tiles fill the card."""
+    assert teg.table_grad_launch_shape(37, 32768) == (1, 256)
+    assert teg.table_grad_launch_shape(8192, 32768) == (2, 512)
+    assert teg.table_grad_launch_shape(8192, 6144) == (4, 192)
+    assert teg.table_grad_launch_shape(8192, 65536) == (1, 512)

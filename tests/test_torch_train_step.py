@@ -36,6 +36,7 @@ moves the wrong way 2.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,7 @@ from jodalrob_twotower_torch.convert import flax_to_state_dict, state_dict_to_fl
 from jodalrob_twotower_torch.data.types import PairBatch as TPairBatch
 from jodalrob_twotower_torch.data.types import TowerBatch as TTowerBatch
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel as TTwoTowerModel
+from jodalrob_twotower_torch.serving.service import FrozenState
 from jodalrob_twotower_torch.train import train_step as tts
 from jodalrob_twotower_tpu.config import LossConfig as JLossConfig
 from jodalrob_twotower_tpu.config import OptimizerConfig as JOptimizerConfig
@@ -305,3 +307,26 @@ def test_scanned_and_host_fed_steps_equal_indexed_steps():
     for k, v in want.state_dict.items():
         torch.testing.assert_close(state.state_dict[k], v, rtol=0, atol=0)
         torch.testing.assert_close(host.state_dict[k], v, rtol=0, atol=0)
+
+
+ENCODE_CHUNK = 64
+ENCODE_ATOL = 1e-5  # float32 towers on both sides (tests/test_torch_model.py's float32 encode tolerance)
+
+
+@pytest.mark.parametrize("start", [0, N_ROWS - ENCODE_CHUNK, N_ROWS - ENCODE_CHUNK + 1, N_ROWS - 1])
+def test_device_encode_clamps_its_start_like_the_reference(start):
+    """``make_device_encode_fn`` against the reference's (jit=False) on the
+    same converted weights and store: a start past N - chunk is clamped to
+    N - chunk by the reference's dynamic slice, so every call returns
+    ``chunk`` rows, the last ``chunk`` of the store."""
+    j_model, _, variables, t_model, _, stores = _setup(dict(compute_dtype="float32"), False)
+    t_state = FrozenState(flax_to_state_dict(t_model, variables["params"], variables["batch_stats"]))
+    j_state = SimpleNamespace(params=jax.tree.map(jnp.asarray, variables["params"]),
+                              batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]))
+    for side in ("notice", "company"):
+        want = np.asarray(jts.make_device_encode_fn(j_model, side, ENCODE_CHUNK, jit=False)(
+            j_state, tuple(jnp.asarray(x) for x in stores[side]), start))
+        got = tts.make_device_encode_fn(t_model, side, ENCODE_CHUNK)(
+            t_state, tuple(torch.from_numpy(x) for x in stores[side]), start)
+        assert got.shape == want.shape == (ENCODE_CHUNK, 16), side
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ENCODE_ATOL, err_msg=side)
