@@ -145,7 +145,13 @@ CE_BATCH, CE_DIM = 8192, 128  # the training path's loss shape
 TRAIN_TIMED_CALLS = 10
 GRAD_CHECK_BATCH = 1024
 # stated tolerances, kernel against plain version on the card
-LSE_ATOL = 1e-4  # lse of 8192 terms: f32 sums in another order, __expf (a few ulp)
+LSE_ATOL = 1e-4  # lse of 8192 terms: f32 sums in another order, ex2.approx (a few ulp)
+# the shifted forward at tau = 0.01, |S| up to 100, where the unshifted sums
+# overflow f32: S itself carries the f32 rounding of 128 products summed in
+# another order, a few ulps of |S| (7.6e-6 an ulp at 100), and lse follows
+# its largest terms, so the tolerance is LSE_ATOL plus LSE_RTOL_LARGE of |lse|
+LARGE_LOGIT_TAU = 0.01
+LSE_RTOL_LARGE = 1e-6
 CE_BWD_RTOL = 1e-3  # of max |plain|: A is rounded to bf16, an entry on a boundary may round apart
 GRAD_ATOL = 1e-4  # f32 sums of <= a few hundred bf16 values of g ~ N(0, 1), another order
 GRAD_CLUSTERS = (1, 2, 4, 8)  # the table gradient's cluster sizes (CTAs per tile), each checked and timed
@@ -173,7 +179,7 @@ RANK_ROW_SHARE = 1e-3
 STATS_TAU = 0.3  # the TPU selftest's temperature for the statistics checks
 BLOCKED_BATCHES = (16384, 32768)  # the col-blocked range's cases (K7-K10)
 WIDE_DIMS = (256, 512)  # embedding widths past the first 128-deep chunk (K5-K11)
-CHUNKED_BWD_DIM = 1024  # a width past the backward's wgmma branch (D <= 512)
+CHUNKED_CE_DIM = 1024  # a width past the CE kernels' wgmma branches (D <= 512)
 WIDE_TIMED_RUNS = 20
 LARGEST_BATCH = 65536  # the envelope's top: stats against lean forward, loss and grads finite
 EVAL_PAIRS = 32768  # held-out pairs: 4 eval batches at 8192, 2 at 16384
@@ -232,6 +238,21 @@ def ptxas_report(log: str) -> list[dict]:
             smem = re.search(r"(\d+) bytes smem", line)
             fn["registers"], fn["static_smem_bytes"] = int(m[1]), int(smem[1]) if smem else 0
     return out
+
+
+def fwd_build_report() -> dict:
+    """The lean forward's ptxas report and shared memory per width, printed;
+    fails on a spill or on serialized wgmma."""
+    build = {"functions": ptxas_report(_build.build_log("fused_ce_fwd")),
+             "dynamic_smem_bytes": {f"{d} {form}": fl._fwd_lib().fused_lean_lse_smem_bytes(d, form == "nomax")
+                                    for d in (128, 256, 384, 512) for form in ("nomax", "shifted")}}
+    print("ptxas fused_ce_fwd " + json.dumps(build), flush=True)
+    check(bool(build["functions"]), "fused_ce_fwd: no ptxas report in its build log")
+    check(all(f.get("spill_store_bytes", 0) == 0 == f.get("spill_load_bytes", 0) for f in build["functions"]),
+          f"fused_ce_fwd spills: {build['functions']}")
+    check(not any(f["wgmma_serialized"] for f in build["functions"]),
+          f"fused_ce_fwd: ptxas serialized wgmma: {build['functions']}")
+    return build
 
 
 def check(ok: bool, what: str) -> None:
@@ -356,16 +377,21 @@ def bound(flops: float, nbytes: float, exps: float = 0.0) -> dict:
 
 
 def lean_case(flush: torch.Tensor, b: int, nomax: bool, runs: int = 0, label: str = "fused_ce_fwd",
-              d: int = CE_DIM) -> dict:
-    """The lean forward (K6; K7 past B=8192) at batch b and width d against
-    its plain version; timed beside its bound and a library yardstick when
-    ``runs``."""
+              d: int = CE_DIM, tau: float = 1.0) -> dict:
+    """The lean forward (K6; K7 past B=8192) at batch b and width d, on N/tau,
+    against its plain version, two calls bit-equal; timed beside its bound
+    and a library yardstick when ``runs``."""
     n, c = ce_inputs(b, d, "cuda")
-    got = fused_lean_lse(n, c, nomax=nomax)
+    n = n / tau
+    # through the module, so a fault planted there (planted_faults.py) shows here
+    got, again = fl.fused_lean_lse(n, c, nomax=nomax), fl.fused_lean_lse(n, c, nomax=nomax)
     want = fused_lean_lse_plain(n, c, nomax=nomax)
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    row = {"case": f"B={b} D={d} {'nomax' if nomax else 'shifted'}", "max_abs_err": err, "tolerance": LSE_ATOL}
+    tol = LSE_ATOL + (LSE_RTOL_LARGE * max(float(w.abs().max()) for w in want) if tau != 1.0 else 0.0)
+    row = {"case": f"B={b} D={d} {'nomax' if nomax else 'shifted'}" + (f" tau={tau}" if tau != 1.0 else ""),
+           "two_calls_equal": all(torch.equal(x, y) for x, y in zip(got, again)), "max_abs_err": err,
+           "tolerance": tol}
     if runs:
         nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
         # products 2 B^2 D; one exponential per entry unshifted, two shifted (row and column max)
@@ -375,10 +401,11 @@ def lean_case(flush: torch.Tensor, b: int, nomax: bool, runs: int = 0, label: st
             s = (nb @ cb.T).float()
             return torch.logsumexp(s, 1), torch.logsumexp(s, 0)
 
-        timed(row, lambda: fused_lean_lse(n, c, nomax=nomax), lambda: fused_lean_lse_plain(n, c, nomax=nomax),
+        timed(row, lambda: fl.fused_lean_lse(n, c, nomax=nomax), lambda: fused_lean_lse_plain(n, c, nomax=nomax),
               library, flush, runs)
     print(f"kernel {label}", json.dumps(row), flush=True)
-    check(err <= LSE_ATOL, f"{label} ({row['case']}) vs plain: max abs err {err} > {LSE_ATOL}")
+    check(row["two_calls_equal"], f"{label} ({row['case']}): two calls differ")
+    check(err <= tol, f"{label} ({row['case']}) vs plain: max abs err {err} > {tol}")
     return row
 
 
@@ -429,15 +456,18 @@ def bwd_case(flush: torch.Tensor, b: int, eps: float = 0.0, runs: int = 0, shard
 def ce_phase(flush: torch.Tensor) -> dict:
     """K6 and K11 at the training batch (timed) and the step check's batch;
     K7 and K10, the same kernels in the col-blocked range, at B=16384 and
-    32768 (timed) with the other variant at 16384."""
+    32768 (timed) with the other variant at 16384; the shifted forward at
+    tau = 0.01 at B=8192 and 16384."""
     big = BLOCKED_BATCHES
     return {
         "fused_ce_fwd": [lean_case(flush, CE_BATCH, True, TIMED_RUNS), lean_case(flush, CE_BATCH, False, TIMED_RUNS),
-                         lean_case(flush, GRAD_CHECK_BATCH, True), lean_case(flush, GRAD_CHECK_BATCH, False)],
+                         lean_case(flush, GRAD_CHECK_BATCH, True), lean_case(flush, GRAD_CHECK_BATCH, False),
+                         lean_case(flush, CE_BATCH, False, tau=LARGE_LOGIT_TAU)],
         "fused_ce_bwd": [bwd_case(flush, CE_BATCH, runs=TIMED_RUNS), bwd_case(flush, CE_BATCH, shard=True),
                          bwd_case(flush, GRAD_CHECK_BATCH)],
         "fused_ce_fwd_blocked": [lean_case(flush, b, True, LARGE_TIMED_RUNS, "fused_ce_fwd_blocked") for b in big]
-        + [lean_case(flush, big[0], False, label="fused_ce_fwd_blocked")],
+        + [lean_case(flush, big[0], False, label="fused_ce_fwd_blocked"),
+           lean_case(flush, big[0], False, label="fused_ce_fwd_blocked", tau=LARGE_LOGIT_TAU)],
         "fused_ce_bwd_blocked": [bwd_case(flush, b, runs=LARGE_TIMED_RUNS, label="fused_ce_bwd_blocked") for b in big]
         + [bwd_case(flush, big[0], eps=0.1, label="fused_ce_bwd_blocked")],
     }
@@ -602,8 +632,9 @@ def wide_phase(flush: torch.Tensor) -> dict:
             diag_row, stats_row = stats_case(flush, b, WIDE_TIMED_RUNS, d=d)
             out["same_tile_diag"].append(diag_row)
             out["fused_stats" + tag].append(stats_row)
-    # past D = 512 the backward takes its chunked mma.sync branch: agreement only
-    out["fused_ce_bwd"].append(bwd_case(flush, CE_BATCH, d=CHUNKED_BWD_DIM))
+    # past D = 512 the forward and the backward take their mma.sync branches: agreement only
+    out["fused_ce_fwd"] += [lean_case(flush, CE_BATCH, nomax, d=CHUNKED_CE_DIM) for nomax in (True, False)]
+    out["fused_ce_bwd"].append(bwd_case(flush, CE_BATCH, d=CHUNKED_CE_DIM))
     out["diag_bits"] = [diag_bits_check(d) for d in (CE_DIM,) + WIDE_DIMS]
     return out
 
@@ -618,7 +649,7 @@ def largest_batch_check() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     n, c = unit_rows(gen, b, CE_DIM, "cuda"), unit_rows(gen, b, CE_DIM, "cuda")
     stats = fl.fused_stats(n, c, temperature=STATS_TAU)
-    row_lean, col_lean = fused_lean_lse(n / STATS_TAU, c, nomax=False)
+    row_lean, col_lean = fl.fused_lean_lse(n / STATS_TAU, c, nomax=False)
 
     def rel(a, ref):
         return float(((a - ref).abs() / ref.abs().clamp_min(1e-6)).max())
@@ -631,7 +662,8 @@ def largest_batch_check() -> dict:
     finite = bool(np.isfinite(loss)) and bool(torch.isfinite(nt.grad).all()) and bool(torch.isfinite(ct.grad).all())
     row = {"case": f"B={b} D={CE_DIM} tau={STATS_TAU}", "stats_vs_lean_lse_max_rel_err": lse_err,
            "loss_eps0.1": loss, "log_b": float(np.log(b)), "finite": finite,
-           "workspace_mb": {"fused_stats": 3 * (b // 64) * b * 4 / 2**20, "fused_lean_lse": 2 * (b // 64) * b * 4 / 2**20}}
+           "workspace_mb": {"fused_stats": 3 * (b // 64) * b * 4 / 2**20,
+                            "fused_lean_lse": fl.lean_lse_launch_shape(b, b, CE_DIM, False).workspace_floats * 4 / 2**20}}
     print("kernel largest batch " + json.dumps(row), flush=True)
     check(lse_err < 1e-5, f"B={b}: statistics lse vs lean lse max rel err {lse_err}")
     check(finite and abs(loss - np.log(b)) < 2.0, f"B={b}: label-smoothed loss {loss} or its grads")
@@ -1498,13 +1530,15 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s for {KERNEL_SOURCES}", flush=True)
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log.strip()}", flush=True)
-    # the CE backward's build: registers (the consumers raise theirs to 232
-    # with setmaxnreg), shared memory and spills; none may spill
+    # the CE builds: registers (the consumers raise theirs to 232 with
+    # setmaxnreg), shared memory and spills; none may spill, and the
+    # forward's wgmma must not be serialized
     bwd_build = {"functions": ptxas_report(logs.get("fused_ce_bwd", "")),
                  "dynamic_smem_bytes": {d: fl._bwd_lib().fused_ce_bwd_smem_bytes(d) for d in (128, 256, 384, 512)}}
     print("ptxas fused_ce_bwd " + json.dumps(bwd_build), flush=True)
     check(all(f.get("spill_store_bytes", 0) == 0 == f.get("spill_load_bytes", 0) for f in bwd_build["functions"]),
           f"fused_ce_bwd spills: {bwd_build['functions']}")
+    fwd_build = fwd_build_report()
 
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     kernels = kernel_phase(flush)
@@ -1567,12 +1601,13 @@ def main() -> int:
         "diag_bits": kernels["diag_bits"],
         "largest_batch": kernels["largest_batch"],
         "fused_ce_bwd_build": bwd_build,
+        "fused_ce_fwd_build": fwd_build,
         "step_check": {k: step_check[k] for k in ("loss_abs_err", "max_grad_rel_err", "worst_share_of_tolerance")},
         "card": card}
     by_kernel = {rec["tpu_kernel"]: rec for rec in record["kernels"]}
     by_kernel["K6"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"
     by_kernel["K10"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:724"
-    for key in ("K10", "K11"):  # every timed width beside the D = 128 main case
+    for key in ("K6", "K7", "K10", "K11"):  # every timed width beside the D = 128 main case
         by_kernel[key]["timed_cases"] = [{k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                                          for r in by_kernel[key]["cases"] if "ms" in r]
     print(json.dumps(record), flush=True)

@@ -10,6 +10,10 @@ parent's code times the parent:
   B = 8192) through its ``chip_smoke.bwd_case`` at B = 8192 and 16384, D =
   128, 256 and 512 (each against its plain version, two calls bit-equal,
   timed beside its bound and the library call);
+* ``--kernel ce_fwd``: the lean CE forward (K6, and K7 past B = 8192)
+  through its ``chip_smoke.lean_case``, unshifted and shifted, at B = 8192
+  and 16384, D = 128, 256 and 512, and at B = 32768, D = 128 (each against
+  its plain version, timed beside its bound and the library call);
 * ``--kernel table_grad``: the table gradient (K2, and K3) through its
   ``chip_smoke.table_grad_phase`` (its cases as it checks and times them),
   then its ``dense_table_grad`` and ``dense_table_grad_bmajor`` timed at a
@@ -32,12 +36,21 @@ import sys
 from pathlib import Path
 
 CASES = [(8192, 128), (8192, 256), (8192, 512), (16384, 128), (16384, 256), (16384, 512)]
+FWD_CASES = CASES + [(32768, 128)]
 
 _CE_BWD_RUN = """
 for b, d in {cases}:
     label = "fused_ce_bwd" if b <= cs.CE_BATCH else "fused_ce_bwd_blocked"
     runs = cs.TIMED_RUNS if (b, d) == (cs.CE_BATCH, cs.CE_DIM) else cs.LARGE_TIMED_RUNS
     cs.bwd_case(f, b, runs=runs, label=label, d=d)
+"""
+
+_CE_FWD_RUN = """
+for b, d in {cases}:
+    label = "fused_ce_fwd" if b <= cs.CE_BATCH else "fused_ce_fwd_blocked"
+    runs = cs.TIMED_RUNS if (b, d) == (cs.CE_BATCH, cs.CE_DIM) else cs.LARGE_TIMED_RUNS
+    for nomax in (True, False):
+        cs.lean_case(f, b, nomax, runs, label, d)
 """
 
 # ids built with numpy from seed 0: every id of a notice feature on one row
@@ -79,10 +92,12 @@ if {training}:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="+", help="repository roots, in the order to run them")
-    parser.add_argument("--kernel", choices=("ce_bwd", "table_grad"), default="ce_bwd", help="the kernel to time")
+    parser.add_argument("--kernel", choices=("ce_bwd", "ce_fwd", "table_grad"), default="ce_bwd",
+                        help="the kernel to time")
     parser.add_argument("--training", action="store_true", help="also run each tree's training phase")
     args = parser.parse_args(argv)
-    kernel_run = _CE_BWD_RUN.format(cases=CASES) if args.kernel == "ce_bwd" else _TABLE_GRAD_RUN.format()
+    kernel_run = {"ce_bwd": lambda: _CE_BWD_RUN.format(cases=CASES), "ce_fwd": lambda: _CE_FWD_RUN.format(cases=FWD_CASES),
+                  "table_grad": _TABLE_GRAD_RUN.format}[args.kernel]()
     code = _TREE_RUN.format(kernel_run=kernel_run, training=args.training)
     failed = 0
     for i, tree in enumerate(args.trees):

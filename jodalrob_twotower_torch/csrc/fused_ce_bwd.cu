@@ -505,53 +505,13 @@ ce_bwd_wgmma(const __grid_constant__ CUtensorMap map_n, const __grid_constant__ 
   }
 }
 
-// cuTensorMapEncodeTiled, looked up once at run time.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (!cached) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
-// The tensor map of a row-major [rows, d] bf16 matrix in [64, 64] boxes
-// with the 128-byte swizzle.
-cudaError_t box_map(CUtensorMap* map, const void* m, int rows, int d) {
-  EncodeTiled fn;
-  const cudaError_t err = encode_tiled(&fn);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {kBox, kBox};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(m), dims, strides, box,
-                          elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 cudaError_t launch_wgmma(const void* n, const void* c, const SweepW& dn, const SweepW& dc, int rows, int b,
                          float inv2b, float diag_coef, float smooth_term, cudaStream_t stream) {
   using P = Plan<D>;
   CUtensorMap map_n, map_c;
-  cudaError_t err = box_map(&map_n, n, rows, D);
-  if (err == cudaSuccess) err = box_map(&map_c, c, b, D);
+  cudaError_t err = wgmma::box_map(&map_n, n, rows, D);
+  if (err == cudaSuccess) err = wgmma::box_map(&map_c, c, b, D);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(ce_bwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemBytes);
   }

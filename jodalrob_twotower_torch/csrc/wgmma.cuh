@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for warpgroup kernels: shared-memory
 // matrix descriptors for the 128-byte swizzle, wgmma (warpgroup matrix
 // multiply-accumulate, bf16 in, f32 accumulators) with A from shared memory
-// or from registers, mbarriers, and TMA tile loads.
+// or from registers, mbarriers, named barriers, TMA tile loads, and on the
+// host the tensor maps those loads read.
 //
 // Layouts. A TMA load of a [rows, 64] bf16 box with CU_TENSOR_MAP_SWIZZLE_128B
 // writes 128-byte rows in 8-row atoms of 1024 bytes, the 16-byte pieces of
@@ -24,6 +25,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only: no libcuda symbol is linked)
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace wgmma {
@@ -126,6 +128,13 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrives on barrier `id` over `threads` threads without waiting: the
+// signalling half of a named barrier that other warps wait on with
+// named_barrier_sync.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // -- wgmma ---------------------------------------------------------------------
 
 // d[16] = A (shared, descriptor a) * B (shared, descriptor b), m64n32k16:
@@ -187,6 +196,47 @@ __device__ __forceinline__ void mma_ss_m64n64k16(float (&d)[32], uint64_t a, uin
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// d[64] = A (shared, descriptor a) * B (shared, descriptor b), m64n128k16:
+// the first step of a product, which reads nothing of d, so d needs no
+// value before it (no instruction writes the accumulators ahead of it).
+template <int kTransB>
+__device__ __forceinline__ void mma_ss_first_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(a), "l"(b), "r"(0), "n"(kTransB));
+}
+
+// d[64] (+)= A (shared, descriptor a) * B (shared, descriptor b), m64n128k16,
+// bf16 in, f32 out; kTransB = 1 reads B as MN-major.
+template <int kTransB>
+__device__ __forceinline__ void mma_ss_m64n128k16(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
 }
 
@@ -292,6 +342,48 @@ __device__ __forceinline__ void mma_rs_m64n256k16(float (&d)[128], const uint32_
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// -- host: tensor maps ----------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up once at run time.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (!cached) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The tensor map of a row-major [rows, d] bf16 matrix in [64, 64] boxes
+// with the 128-byte swizzle.
+inline cudaError_t box_map(CUtensorMap* map, const void* m, int rows, int d) {
+  EncodeTiled fn;
+  const cudaError_t err = encode_tiled(&fn);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(m), dims, strides, box,
+                          elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace wgmma

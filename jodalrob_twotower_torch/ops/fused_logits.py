@@ -38,9 +38,9 @@ Dispatch follows the reference's envelopes: B % 128 == 0 and B <= 8192, or
 B % 1024 == 0 and 8192 < B <= 65536, with D % 128 == 0, take the kernels
 (:func:`ce_route`: the lean forward without label smoothing, the statistics
 forward with it; the backward either way). The CUDA kernels take any such
-D: the forward and statistics kernels in 128-deep chunks with mma.sync
-(``csrc/tile_mma.cuh``), the backward with wgmma and TMA up to D = 512
-(``csrc/wgmma.cuh``) and in 128-wide output chunks past it. Shapes outside the envelopes
+D: the lean forward and the backward with wgmma and TMA up to D = 512
+(``csrc/wgmma.cuh``) and with mma.sync past it, the statistics kernels in
+128-deep chunks with mma.sync (``csrc/tile_mma.cuh``). Shapes outside the envelopes
 take the materialized float32 path, as ``_ce_primal``/``_ce_bwd``/
 ``_stats_xla`` do in the reference.
 """
@@ -103,11 +103,57 @@ def fused_lean_lse_plain(
     return torch.logsumexp(s, 1), torch.logsumexp(s, 0)
 
 
+# The lean forward's split (csrc/fused_ce_fwd.cu): up to D = 512 a CTA's W
+# consumer warpgroups hold NW columns of C each and stream 64-row tiles of N;
+# the units (a block of their W NW columns against a row tile) are split
+# evenly over one CTA per SM of an H100 SXM. NW is 128 for the unshifted form
+# up to D = 256, else 64; W is 3 for the unshifted form at D = 128 and the
+# shifted form up to D = 256, else 2.
+LEAN_SMS = 132
+LEAN_WGMMA_MAX_D = 512
+
+
+class LeanLaunch(NamedTuple):
+    ctas: int  # the grid
+    sub_cols: int  # columns of C a row partial covers (NW; all of C past D = 512)
+    block_cols: int  # columns of C a unit covers (W NW; all of C past D = 512)
+    row_parts: int  # partials a row of N merges
+    col_parts: int  # partials a column of C merges, at most
+    workspace_floats: int  # 2 (row_parts rows + col_parts B): a (sum, max) pair each
+
+
+def lean_lse_launch_shape(rows: int, b: int, d: int, nomax: bool) -> LeanLaunch:
+    """The lean forward's grid and workspace for N [rows, D] against C
+    [B, D] in the form ``nomax``: a pure function of the shape, so two calls
+    at one shape sum in one order and give the same bits. Up to D = 512 CTA
+    k takes units [k U / G, (k + 1) U / G) of the U = ceil(B / (W NW))
+    (rows / 64) units, W consumer warpgroups, G = min(132, U); a column's
+    partials come from the CTAs whose ranges meet its block. Past D = 512
+    one CTA per 64 rows, each with a partial per column."""
+    if d > LEAN_WGMMA_MAX_D:
+        blocks = rows // _KERNEL_ROWS
+        return LeanLaunch(blocks, b, b, 0, blocks, 2 * blocks * b)
+    nw = 128 if nomax and d <= 256 else 64
+    consumers = 3 if (nomax and d == 128) or (not nomax and d <= 256) else 2
+    n_x, n_y = -(-b // (consumers * nw)), rows // _KERNEL_ROWS
+    units = n_x * n_y
+    ctas = min(LEAN_SMS, units)
+
+    def cta_of_unit(u: int) -> int:
+        return ((u + 1) * ctas - 1) // units
+
+    col_parts = max(cta_of_unit((x + 1) * n_y - 1) - cta_of_unit(x * n_y) + 1 for x in range(n_x))
+    row_parts = -(-b // nw)
+    return LeanLaunch(ctas, nw, consumers * nw, row_parts, col_parts, 2 * (row_parts * rows + col_parts * b))
+
+
 def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_ce_fwd")
     if not getattr(lib, "_typed", False):
-        lib.fused_lean_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.fused_lean_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.fused_lean_lse.restype = ctypes.c_int
+        lib.fused_lean_lse_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fused_lean_lse_smem_bytes.restype = ctypes.c_int
         lib.fused_lean_lse_error_string.argtypes = [ctypes.c_int]
         lib.fused_lean_lse_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -162,9 +208,10 @@ def fused_lean_lse(
     """K6 (and K7 past B = 8192): (row_lse [rows], col_lse [B]) of
     S = bf16(n_scaled) bf16(c)^T without writing S (see
     :func:`fused_lean_lse_plain`). CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream or raise. The column
-    partials take a [2, rows/64, B] f32 workspace (512 MB at rows = B =
-    65536). ``launches`` counts the kernel's launches."""
+    tensors launch the kernel on the current stream or raise. The partials
+    take a workspace of :func:`lean_lse_launch_shape`'s size, at rows = B and
+    D = 128 unshifted (shifted): 4.4 (8.3) MiB at B = 8192, 257 (513) MiB at
+    65536. ``launches`` counts the kernel's launches."""
     _check_operands(n_scaled, c, "fused_lean_lse")
     if n_scaled.device.type == "cpu":
         return fused_lean_lse_plain(n_scaled, c, nomax=nomax)
@@ -175,12 +222,13 @@ def fused_lean_lse(
     b = cb.shape[0]
     row_lse = torch.empty(rows, dtype=torch.float32, device=nb.device)
     col_lse = torch.empty(b, dtype=torch.float32, device=nb.device)
-    workspace = torch.empty((2, rows // _KERNEL_ROWS, b), dtype=torch.float32, device=nb.device)
+    shape = lean_lse_launch_shape(rows, b, d, nomax)
+    workspace = torch.empty(shape.workspace_floats, dtype=torch.float32, device=nb.device)
     lib = _fwd_lib()
     with torch.cuda.device(nb.device):
         err = lib.fused_lean_lse(
             nb.data_ptr(), cb.data_ptr(), row_lse.data_ptr(), col_lse.data_ptr(),
-            workspace.data_ptr(), rows, b, d, int(nomax), torch.cuda.current_stream().cuda_stream,
+            workspace.data_ptr(), rows, b, d, int(nomax), shape.ctas, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"fused_lean_lse launch failed: {lib.fused_lean_lse_error_string(err).decode()}")

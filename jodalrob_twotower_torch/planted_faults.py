@@ -11,6 +11,11 @@ sound and once per fault, and reports each fault as caught or not.
   128-row tiles, and the CE backward (K11) losing rows of dc. The CPU side
   of the check takes the plain versions, so only the card's side carries the
   fault.
+* The lean forward check (K6 against its plain version at B=8192, D=128,
+  unshifted: ``chip_smoke.lean_case``) against the column merge dropping the
+  last partial of each column (the rows of the last CTA whose range meets
+  the column's block), and row_lse taken from one column block too few (the
+  last NW columns of C left out).
 * The wide backward check (K11 against its plain version at B=8192, D=512)
   against the second warpgroup's half of dn (columns 256..511) coming out
   as 0, or as the last column tile's contribution alone (an accumulator
@@ -113,6 +118,51 @@ def _dn_upper_half(last_tile_only: bool):
     return fused_logits, "fused_ce_bwd", fault
 
 
+def _lean_col_drops_last_piece():
+    """K6 whose column merge leaves out each column's last partial: col_lse
+    over the rows before the last CTA range that meets the column's block."""
+    real = fused_logits.fused_lean_lse
+
+    def fault(n_scaled, c, *, nomax):
+        row_lse, col_lse = real(n_scaled, c, nomax=nomax)
+        if col_lse.is_cuda:
+            rows, b, d = n_scaled.shape[0], c.shape[0], c.shape[1]
+            shape = fused_logits.lean_lse_launch_shape(rows, b, d, nomax)
+            block = shape.block_cols
+            n_y = rows // 64
+            units = -(-b // block) * n_y
+            starts = [k * units // shape.ctas for k in range(shape.ctas + 1)]
+            s = n_scaled.to(torch.bfloat16).float() @ c.to(torch.bfloat16).float().T
+            for x in range(-(-b // block)):
+                last_unit = x * n_y + n_y - 1
+                k_last = max(k for k in range(shape.ctas) if starts[k] <= last_unit)
+                kept = (max(starts[k_last], x * n_y) - x * n_y) * 64  # rows before the last piece
+                cols = slice(x * block, min(b, (x + 1) * block))
+                col_lse[cols] = torch.logsumexp(s[:kept, cols], 0) if kept else float("-inf")
+        return row_lse, col_lse
+
+    fault.launches = 0
+    return fused_logits, "fused_lean_lse", fault
+
+
+def _lean_row_one_block_short():
+    """K6 whose row merge leaves out the last NW-column block: row_lse over
+    the columns before it."""
+    real = fused_logits.fused_lean_lse
+
+    def fault(n_scaled, c, *, nomax):
+        row_lse, col_lse = real(n_scaled, c, nomax=nomax)
+        if row_lse.is_cuda:
+            b, d = c.shape
+            nw = fused_logits.lean_lse_launch_shape(n_scaled.shape[0], b, d, nomax).sub_cols
+            s = n_scaled.to(torch.bfloat16).float() @ c[: b - nw].to(torch.bfloat16).float().T
+            row_lse = torch.logsumexp(s, 1)
+        return row_lse, col_lse
+
+    fault.launches = 0
+    return fused_logits, "fused_lean_lse", fault
+
+
 def _diag_next_row():
     """K8 that gives row i the diagonal of row i + 1."""
     real = fused_logits.same_tile_diag
@@ -189,6 +239,10 @@ def _step_check(chip_smoke):
     chip_smoke.step_grad_check()
 
 
+def _lean_check(chip_smoke):
+    chip_smoke.lean_case(None, chip_smoke.CE_BATCH, True)
+
+
 def _wide_bwd_check(chip_smoke):
     chip_smoke.bwd_case(None, chip_smoke.CE_BATCH, d=512)
 
@@ -220,6 +274,8 @@ FAULTS = {
     "K2 loses every 64th tile": (lambda: _tile_loss(64), _step_check),
     "K11 loses dc rows 0..63": (lambda: _dc_loss(64), _step_check),
     "K11 loses dc rows 0..7": (lambda: _dc_loss(8), _step_check),
+    "K6's column merge drops each column's last partial": (_lean_col_drops_last_piece, _lean_check),
+    "K6's row_lse leaves out the last column block": (_lean_row_one_block_short, _lean_check),
     "K11 at D=512 zeroes dn columns 256..511": (lambda: _dn_upper_half(False), _wide_bwd_check),
     "K11 at D=512 keeps only the last tile in dn columns 256..511": (lambda: _dn_upper_half(True), _wide_bwd_check),
     "K8 reads the next row's diagonal": (_diag_next_row, _stats_check),
@@ -235,7 +291,7 @@ def main() -> int:
 
     print(chip_smoke.bench.card_line(), flush=True)
     chip_smoke._build.build(chip_smoke.KERNEL_SOURCES)
-    for check in (_grad_check, _step_check, _wide_bwd_check, _stats_check, _gather_check, _sparse_check):
+    for check in (_grad_check, _step_check, _lean_check, _wide_bwd_check, _stats_check, _gather_check, _sparse_check):
         check(chip_smoke)
         print(f"sound {check.__name__.strip('_')} passed", flush=True)
     missed = []

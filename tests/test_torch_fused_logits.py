@@ -264,3 +264,63 @@ def test_no_d128_shape_in_the_envelopes_raises_on_cuda():
         assert tfl.ce_route(b, 128, 0.1) == "stats"
     assert tfl.ce_route(8320, 128, 0.0) == "materialized"
     assert tfl.ce_route(65536 + 1024, 128, 0.1) == "materialized"
+
+
+def test_lean_lse_shifted_large_logits_matches_pallas(pair):
+    """The shifted form at tau = 0.01 (|S| up to 100, where the unshifted
+    sums overflow f32) against the reference's shifted kernel. Tolerance 5e-6
+    plus 1e-6 of |lse|: S itself is an f32 sum of 128 products summed in
+    another order, a few ulps of |S| (7.6e-6 an ulp at 100)."""
+    n, c = pair
+    n_scaled = n / np.float32(0.01)
+    want_r, want_c = jfl._fused_lean_call(jnp.asarray(n_scaled), jnp.asarray(c), interpret=True)
+    got_r, got_c = tfl.fused_lean_lse(torch.from_numpy(n_scaled), torch.from_numpy(c), nomax=False)
+    for got, want in ((got_r, want_r), (got_c, want_c)):
+        want = np.asarray(want)
+        assert np.isfinite(got.numpy()).all() and np.abs(want).max() > 50
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=5e-6)
+
+
+def _lean_ranges(units: int, ctas: int) -> np.ndarray:
+    """CTA k's units [k U / G, (k + 1) U / G), as the kernel splits them."""
+    return np.arange(ctas + 1, dtype=np.int64) * units // ctas
+
+
+@pytest.mark.parametrize("nomax", [True, False], ids=["nomax", "shifted"])
+@pytest.mark.parametrize("d", [128, 512])
+@pytest.mark.parametrize("b", [1024, 8192, 16384, 65536])
+def test_lean_launch_shape(b, d, nomax):
+    """The lean forward's split at every envelope shape: one CTA per SM of
+    the H100 (132) once there are that many units, each CTA a nonempty range
+    of units; the row partials' column blocks tile B; a column merges at
+    most col_parts partials (the CTAs whose ranges meet its block), and the
+    workspace holds a (sum, max) pair per partial."""
+    shape = tfl.lean_lse_launch_shape(b, b, d, nomax)
+    consumers = 3 if (nomax and d == 128) or (not nomax and d <= 256) else 2
+    nw = 128 if nomax and d <= 256 else 64
+    assert shape.sub_cols == nw and shape.row_parts * shape.sub_cols == b
+    assert shape.block_cols == consumers * nw
+    n_x, n_y = -(-b // shape.block_cols), b // 64
+    units = n_x * n_y
+    assert shape.ctas == min(tfl.LEAN_SMS, units)
+    if b >= 8192:
+        assert shape.ctas == 132
+    starts = _lean_ranges(units, shape.ctas)
+    assert (np.diff(starts) >= 1).all() and starts[-1] == units
+    block_first = np.arange(n_x) * n_y
+    # the CTAs whose ranges meet each block: from the one holding its first
+    # unit to the one holding its last
+    first = np.searchsorted(starts, block_first, side="right") - 1
+    last = np.searchsorted(starts, block_first + n_y - 1, side="right") - 1
+    assert shape.col_parts == int((last - first + 1).max())
+    assert shape.workspace_floats == 2 * (shape.row_parts * b + shape.col_parts * b)
+
+
+@pytest.mark.parametrize("nomax, mib", [(True, (4.4, 257)), (False, (8.3, 513))], ids=["nomax", "shifted"])
+def test_lean_workspace_sizes_in_the_docstring(nomax, mib):
+    """The sizes ``fused_lean_lse``'s docstring gives at D = 128: 4.4 and
+    257 MiB unshifted, 8.3 and 513 MiB shifted, at B = 8192 and 65536."""
+    got = [tfl.lean_lse_launch_shape(b, b, 128, nomax).workspace_floats * 4 / 2**20 for b in (8192, 65536)]
+    assert round(got[0], 1) == mib[0] and round(got[1]) == mib[1]
+    doc = " ".join(tfl.fused_lean_lse.__doc__.split())
+    assert "4.4 (8.3) MiB at B = 8192, 257 (513) MiB at 65536" in doc
