@@ -5,9 +5,11 @@ NVIDIA card.
 1. Builds every hand-written kernel from the checkout's sources, one nvcc
    process per source, all at once.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at the shapes its paths give it (bit-exact for the one-hot lookup and
-   the row gather; two calls bit-equal for the table gradients, the CE
-   backward and the statistics kernels; ranks under the near-tie rule), and
+   card at the shapes its paths give it (bit-exact for the one-hot lookup, in
+   its six cases, and the row gather; two calls bit-equal for the table
+   gradients, the CE backward and the statistics kernels; ranks under the
+   near-tie rule, also against a diagonal below every S_ii, which only a
+   rank that leaves the diagonal's own column out by index gets right), and
    times kernel, plain version and the nearest library call beside the
    kernel's bound: the row gather (K4) at config 3's shape, on a bf16 table
    and a ragged batch; the table gradient (K2) and its [D, R] form (K3,
@@ -20,8 +22,9 @@ NVIDIA card.
    (K8); all of K5-K11 again at D=256 and 512 (the backward also at
    D=1024, its chunked branch past the wgmma one, for agreement only), and
    K8's diagonal against the sweep's S_ii bit for bit at D=128, 256 and 512;
-   the backward's and the table gradient's builds must not spill (their
-   ptxas reports are printed); at
+   the backward's, the lean forward's, the statistics' and the lookup's
+   builds must not spill, nor the wgmma ones serialize (their ptxas reports
+   are printed); at
    B=65536 the statistics forward against the lean forward, and the
    label-smoothed loss and its gradients finite.
 3. Serving phase: drives the serving path at full width - ``TrainConfig()``
@@ -240,19 +243,31 @@ def ptxas_report(log: str) -> list[dict]:
     return out
 
 
-def fwd_build_report() -> dict:
-    """The lean forward's ptxas report and shared memory per width, printed;
-    fails on a spill or on serialized wgmma."""
-    build = {"functions": ptxas_report(_build.build_log("fused_ce_fwd")),
-             "dynamic_smem_bytes": {f"{d} {form}": fl._fwd_lib().fused_lean_lse_smem_bytes(d, form == "nomax")
-                                    for d in (128, 256, 384, 512) for form in ("nomax", "shifted")}}
-    print("ptxas fused_ce_fwd " + json.dumps(build), flush=True)
-    check(bool(build["functions"]), "fused_ce_fwd: no ptxas report in its build log")
+def build_report(name: str, dynamic_smem_bytes: dict | None = None) -> dict:
+    """One library's ptxas report (and its kernels' dynamic shared memory
+    per width, where given), printed; fails on a spill or on serialized
+    wgmma."""
+    build = {"functions": ptxas_report(_build.build_log(name))}
+    if dynamic_smem_bytes is not None:
+        build["dynamic_smem_bytes"] = dynamic_smem_bytes
+    print(f"ptxas {name} " + json.dumps(build), flush=True)
+    check(bool(build["functions"]), f"{name}: no ptxas report in its build log")
     check(all(f.get("spill_store_bytes", 0) == 0 == f.get("spill_load_bytes", 0) for f in build["functions"]),
-          f"fused_ce_fwd spills: {build['functions']}")
+          f"{name} spills: {build['functions']}")
     check(not any(f["wgmma_serialized"] for f in build["functions"]),
-          f"fused_ce_fwd: ptxas serialized wgmma: {build['functions']}")
+          f"{name}: ptxas serialized wgmma: {build['functions']}")
     return build
+
+
+def fwd_build_report() -> dict:
+    """The lean forward's ptxas report and shared memory per width."""
+    return build_report("fused_ce_fwd", {f"{d} {form}": fl._fwd_lib().fused_lean_lse_smem_bytes(d, form == "nomax")
+                                         for d in (128, 256, 384, 512) for form in ("nomax", "shifted")})
+
+
+def stats_build_report() -> dict:
+    """The statistics kernels' ptxas report and the sweep's shared memory per width."""
+    return build_report("fused_stats", {d: fl._stats_lib().fused_stats_smem_bytes(d) for d in (128, 256, 384, 512)})
 
 
 def check(ok: bool, what: str) -> None:
@@ -281,8 +296,8 @@ def median_ms(fn, flush: torch.Tensor, runs: int = TIMED_RUNS) -> float:
 # -- kernel phase --------------------------------------------------------------
 
 
-def lookup_case(name: str, vocabs: tuple[int, ...], batch: int, table_dtype, gen, *, ragged: bool):
-    """Inputs of the one-hot lookup at one of its paths' shapes."""
+def lookup_case(name: str, vocabs: tuple[int, ...], batch: int, table_dtype, gen, *, ragged: bool, d: int = 32):
+    """Inputs of the one-hot lookup at one of its paths' shapes (embed width d)."""
     offsets, total_rows = table_layout(vocabs)
     # ragged: ids also reach the block's alignment padding (in block, served)
     ids = np.stack([gen.integers(0, -(-v // 128) * 128 if ragged else v, size=batch) for v in vocabs], axis=1)
@@ -294,7 +309,7 @@ def lookup_case(name: str, vocabs: tuple[int, ...], batch: int, table_dtype, gen
         rows[other] %= total_rows
         rows[gen.random(rows.shape) < 0.05] = -1
         rows[gen.random(rows.shape) < 0.01] = total_rows + 3
-    table = torch.from_numpy(gen.normal(size=(total_rows, 32)).astype(np.float32))
+    table = torch.from_numpy(gen.normal(size=(total_rows, d)).astype(np.float32))
     return {
         "case": name,
         "table": table.to("cuda", table_dtype),
@@ -314,7 +329,11 @@ def lookup_bytes(table, rows, tile_feature) -> int:
     return rows.numel() * 4 + tile_feature.numel() * 4 + unique_rows * d * table.element_size() + b * k * d * 2
 
 
-def lookup_phase(flush: torch.Tensor) -> dict:
+def lookup_phase(flush: torch.Tensor | None, runs: int = TIMED_RUNS) -> dict:
+    """K1 bit-exact against its plain version at each of its paths' shapes,
+    timed (``runs`` launches) beside its bound and ``F.embedding``; the
+    kernel is reached through the module, so a fault planted there
+    (planted_faults.py) shows here."""
     gen = np.random.default_rng(SEED)
     schema = reference_shaped_schema()
     cases = [  # the training path's shapes first (its record reports the first), then serving's
@@ -323,23 +342,22 @@ def lookup_phase(flush: torch.Tensor) -> dict:
         lookup_case("company B=8192 K=6 R=6144", schema.company.vocab_sizes, 8192, torch.float32, gen, ragged=False),
         lookup_case("ragged B=1000 K=32 R=32768", schema.notice.vocab_sizes, 1000, torch.float32, gen, ragged=True),
         lookup_case("ragged bf16 table B=1000 K=32", schema.notice.vocab_sizes, 1000, torch.bfloat16, gen, ragged=True),
+        # D=24: three 16-byte pieces a row, so a warp's pieces are not a multiple of 32
+        lookup_case("ragged D=24 B=1000 K=32", schema.notice.vocab_sizes, 1000, torch.float32, gen, ragged=True, d=24),
     ]
     results = []
     for c in cases:
         args = (c["table"], c["rows"], c["tile_feature"])
-        got = dense_table_lookup(*args)
+        got = eg.dense_table_lookup(*args)
         want = dense_table_lookup_plain(*args)
         torch.cuda.synchronize()
         equal = torch.equal(got, want)
         err = float((got.float() - want.float()).abs().max())
-        rows_long = c["rows"].clamp(0, c["table"].shape[0] - 1).long()  # F.embedding takes no -1
-        ms = median_ms(lambda: dense_table_lookup(*args), flush)
-        plain_ms = median_ms(lambda: dense_table_lookup_plain(*args), flush)
-        library_ms = median_ms(
-            lambda: torch.nn.functional.embedding(rows_long, c["table"]).to(torch.bfloat16), flush
-        )
-        row = {"case": c["case"], "equal": equal, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms, **bound(0, lookup_bytes(*args))}
+        row = {"case": c["case"], "equal": equal, "max_abs_err": err, **bound(0, lookup_bytes(*args))}
+        if runs:
+            rows_long = c["rows"].clamp(0, c["table"].shape[0] - 1).long()  # F.embedding takes no -1
+            timed(row, lambda: eg.dense_table_lookup(*args), lambda: dense_table_lookup_plain(*args),
+                  lambda: torch.nn.functional.embedding(rows_long, c["table"]).to(torch.bfloat16), flush, runs)
         print("kernel onehot_lookup", json.dumps(row), flush=True)
         check(equal, f"onehot_lookup != plain version, case {c['case']} (max abs err {err})")
         results.append(row)
@@ -540,11 +558,19 @@ def stats_case(flush: torch.Tensor, b: int, runs: int = 0, row_offset: int = 0, 
         "col_sum_rel_err": col_sum_err / float(want_cols[1].abs().max()),
         "sum_abs_err": max(row_sum_err, col_sum_err),
     }
+    # rank against a diagonal below every S_ii: the diagonal's own column is
+    # left out by index, so a kernel that left it out by value (S_ij != diag_i)
+    # would count it in every row
+    diag_low = diag - (1e-3 + 1e-3 * diag.abs())
+    low_rank = fl.fused_stats_sweep(n, c, diag_low, row_offset)[0][:, 3]
+    want_low = fused_stats_sweep_plain(n, c, diag_low, row_offset)[0][:, 3]
     stats_row = {"case": case, "two_calls_equal": all(torch.equal(x, y) for x, y in zip(got, again)),
                  "max_abs_err": max(errs["row_lse_abs_err"], errs["col_lse_abs_err"], errs["sum_abs_err"]),
                  **errs, "tolerance_lse": STATS_LSE_ATOL, "tolerance_sum_rel": STATS_SUM_RTOL,
                  "rank_mean": float(want_rows[:, 3].mean()),
-                 **rank_gate(got_rows[:, 3], want_rows[:, 3], n, c, diag, row_offset, f"fused_stats {case}")}
+                 **rank_gate(got_rows[:, 3], want_rows[:, 3], n, c, diag, row_offset, f"fused_stats {case}"),
+                 "rank_below_diag": rank_gate(low_rank, want_low, n, c, diag_low, row_offset,
+                                              f"fused_stats {case}, diag lowered")}
     if runs:
         nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
         # K8: the diagonal tiles' operands in, the diagonal out
@@ -590,9 +616,12 @@ def stats_phase(flush: torch.Tensor) -> dict:
 def diag_bits_check(d: int, b: int = GRAD_CHECK_BATCH) -> dict:
     """K8's diagonal is bit for bit the S_ii of the sweep, at width d. C = N
     (unit rows), so S_ii is the largest entry of row i by a wide margin;
-    row i of every even 64-row block gets a twin, C row i + 64 set to row i,
-    which the sweep computes from the same operands in the same fragment
-    position (one tile later) as S_ii, hence to the same bits. Rank counts
+    row i of every even 64-row block gets a twin, C row i + 64 set to row i.
+    The sweep forms S tiles of 64 rows by one consumer warpgroup's 64
+    columns (wgmma m64n64k16; mma.sync 64-column tiles past D = 512), each
+    slice starting at a multiple of 64, so it forms the twin S[i, i + 64]
+    in the slice after S_ii's, from the same operands in the same
+    accumulator position and depth order, hence to the same bits. Rank counts
     S_ij > diag_i strictly, so on N a planted row's rank is 0 exactly when
     K8's diag is not below the sweep's S_ii; on -N, which negates every
     product and sum exactly, S_ii is the row's smallest entry and the rank
@@ -662,7 +691,7 @@ def largest_batch_check() -> dict:
     finite = bool(np.isfinite(loss)) and bool(torch.isfinite(nt.grad).all()) and bool(torch.isfinite(ct.grad).all())
     row = {"case": f"B={b} D={CE_DIM} tau={STATS_TAU}", "stats_vs_lean_lse_max_rel_err": lse_err,
            "loss_eps0.1": loss, "log_b": float(np.log(b)), "finite": finite,
-           "workspace_mb": {"fused_stats": 3 * (b // 64) * b * 4 / 2**20,
+           "workspace_mb": {"fused_stats": fl.stats_launch_shape(b, b, CE_DIM).workspace_floats * 4 / 2**20,
                             "fused_lean_lse": fl.lean_lse_launch_shape(b, b, CE_DIM, False).workspace_floats * 4 / 2**20}}
     print("kernel largest batch " + json.dumps(row), flush=True)
     check(lse_err < 1e-5, f"B={b}: statistics lse vs lean lse max rel err {lse_err}")
@@ -1539,6 +1568,8 @@ def main() -> int:
     check(all(f.get("spill_store_bytes", 0) == 0 == f.get("spill_load_bytes", 0) for f in bwd_build["functions"]),
           f"fused_ce_bwd spills: {bwd_build['functions']}")
     fwd_build = fwd_build_report()
+    stats_build = stats_build_report()
+    lookup_build = build_report("onehot_lookup")
 
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     kernels = kernel_phase(flush)
@@ -1602,12 +1633,14 @@ def main() -> int:
         "largest_batch": kernels["largest_batch"],
         "fused_ce_bwd_build": bwd_build,
         "fused_ce_fwd_build": fwd_build,
+        "fused_stats_build": stats_build,
+        "onehot_lookup_build": lookup_build,
         "step_check": {k: step_check[k] for k in ("loss_abs_err", "max_grad_rel_err", "worst_share_of_tolerance")},
         "card": card}
     by_kernel = {rec["tpu_kernel"]: rec for rec in record["kernels"]}
     by_kernel["K6"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"
     by_kernel["K10"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:724"
-    for key in ("K6", "K7", "K10", "K11"):  # every timed width beside the D = 128 main case
+    for key in ("K1", "K5", "K6", "K7", "K8", "K9", "K10", "K11"):  # every timed case beside the main case
         by_kernel[key]["timed_cases"] = [{k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                                          for r in by_kernel[key]["cases"] if "ms" in r]
     print(json.dumps(record), flush=True)

@@ -19,8 +19,17 @@ parent's code times the parent:
   then its ``dense_table_grad`` and ``dense_table_grad_bmajor`` timed at a
   skewed batch and at R = 65,536 on inputs built here, the same in every
   tree (a parent's phase may not time those).
+* ``--kernel stats``: K8 and the statistics sweep (K5, and K9 past
+  B = 8192) through its ``chip_smoke.stats_case`` at B = 8192 (D = 128,
+  256 and 512), 16384 and 32768 (D = 128), each against its plain version,
+  two calls bit-equal, timed beside its bound and the library call;
+* ``--kernel lookup``: the one-hot lookup (K1) through its
+  ``chip_smoke.lookup_phase`` (the notice, serving, company and ragged
+  cases, bit-exact and timed).
 With ``--training`` the process also runs that tree's training phase and
-prints its device time per 16-step call. Every line a tree prints is
+prints its device time per 16-step call; with ``--evaluation`` it also runs
+the evaluation phase on the trained state and prints each eval path's
+device time for one profiled batch. Every line a tree prints is
 echoed prefixed with ``[tree i: path]``.
 
 Run from the repository root on a machine with a CUDA card:
@@ -43,6 +52,18 @@ for b, d in {cases}:
     label = "fused_ce_bwd" if b <= cs.CE_BATCH else "fused_ce_bwd_blocked"
     runs = cs.TIMED_RUNS if (b, d) == (cs.CE_BATCH, cs.CE_DIM) else cs.LARGE_TIMED_RUNS
     cs.bwd_case(f, b, runs=runs, label=label, d=d)
+"""
+
+STATS_CASES = [(8192, 128), (8192, 256), (8192, 512), (16384, 128), (32768, 128)]
+
+_STATS_RUN = """
+for b, d in {cases}:
+    runs = cs.TIMED_RUNS if (b, d) == (cs.CE_BATCH, cs.CE_DIM) else cs.LARGE_TIMED_RUNS
+    cs.stats_case(f, b, runs, d=d)
+"""
+
+_LOOKUP_RUN = """
+cs.lookup_phase(f)
 """
 
 _CE_FWD_RUN = """
@@ -82,23 +103,31 @@ print(cs.bench.card_line(), flush=True)
 f = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
 {kernel_run}
 del f
-if {training}:
-    row, _ = cs.training_phase()
+if {training} or {evaluation}:
+    row, work = cs.training_phase()
     print("training device_ms_per_call", json.dumps({{k: row[k] for k in ("device_ms_per_call", "ms_per_step",
           "examples_per_sec", "device_busy_share")}}), flush=True)
+if {evaluation}:
+    ev, _ = cs.evaluation_phase(work)
+    print("evaluation device_ms_per_batch", json.dumps({{p: {{"device_ms": ev[p]["device_one_batch"]["device_ms_per_call"],
+          "ms_per_batch": ev[p]["ms_per_batch"], "top_ms": ev[p]["device_one_batch"]["top_ms"]}}
+          for p in ("eval", "eval_b16384")}}), flush=True)
 """
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="+", help="repository roots, in the order to run them")
-    parser.add_argument("--kernel", choices=("ce_bwd", "ce_fwd", "table_grad"), default="ce_bwd",
+    parser.add_argument("--kernel", choices=("ce_bwd", "ce_fwd", "table_grad", "stats", "lookup"), default="ce_bwd",
                         help="the kernel to time")
     parser.add_argument("--training", action="store_true", help="also run each tree's training phase")
+    parser.add_argument("--evaluation", action="store_true",
+                        help="also run each tree's training and evaluation phases (device ms per eval batch)")
     args = parser.parse_args(argv)
     kernel_run = {"ce_bwd": lambda: _CE_BWD_RUN.format(cases=CASES), "ce_fwd": lambda: _CE_FWD_RUN.format(cases=FWD_CASES),
-                  "table_grad": _TABLE_GRAD_RUN.format}[args.kernel]()
-    code = _TREE_RUN.format(kernel_run=kernel_run, training=args.training)
+                  "table_grad": _TABLE_GRAD_RUN.format, "stats": lambda: _STATS_RUN.format(cases=STATS_CASES),
+                  "lookup": lambda: _LOOKUP_RUN}[args.kernel]()
+    code = _TREE_RUN.format(kernel_run=kernel_run, training=args.training, evaluation=args.evaluation)
     failed = 0
     for i, tree in enumerate(args.trees):
         root = Path(tree).resolve()

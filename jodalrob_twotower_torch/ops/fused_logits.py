@@ -38,10 +38,10 @@ Dispatch follows the reference's envelopes: B % 128 == 0 and B <= 8192, or
 B % 1024 == 0 and 8192 < B <= 65536, with D % 128 == 0, take the kernels
 (:func:`ce_route`: the lean forward without label smoothing, the statistics
 forward with it; the backward either way). The CUDA kernels take any such
-D: the lean forward and the backward with wgmma and TMA up to D = 512
-(``csrc/wgmma.cuh``) and with mma.sync past it, the statistics kernels in
-128-deep chunks with mma.sync (``csrc/tile_mma.cuh``). Shapes outside the envelopes
-take the materialized float32 path, as ``_ce_primal``/``_ce_bwd``/
+D: with wgmma and TMA up to D = 512 (``csrc/wgmma.cuh``; the lean forward
+and the statistics sweep share one warpgroup sweep, ``csrc/softmax_sweep.cuh``)
+and with mma.sync in 128-deep chunks past it (``csrc/tile_mma.cuh``). Shapes
+outside the envelopes take the materialized float32 path, as ``_ce_primal``/``_ce_bwd``/
 ``_stats_xla`` do in the reference.
 """
 
@@ -94,13 +94,17 @@ def ce_route(b: int, d: int, label_smoothing: float) -> str:
 def fused_lean_lse_plain(
     n_scaled: torch.Tensor, c: torch.Tensor, *, nomax: bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(row_lse [rows], col_lse [B]) of S = n_scaled c^T, from bf16 operands
-    with f32 accumulation; ``nomax`` takes the unshifted sums of exp."""
-    s = n_scaled.to(torch.bfloat16).float() @ c.to(torch.bfloat16).float().T
+    """(row_lse [rows], col_lse [B]) f32 of S = n_scaled c^T, from bf16
+    operands; ``nomax`` takes the unshifted sums of exp. S and the sums are
+    formed in float64 and rounded to f32 once, so the result is the
+    correctly rounded value of the function: no f32 summation order, thread
+    split or reduced-precision product of the backend moves it (the kernels'
+    f32 sums lie within a few f32 ulps of it)."""
+    s = n_scaled.to(torch.bfloat16).double() @ c.to(torch.bfloat16).double().T
     if nomax:
         es = torch.exp(s)
-        return torch.log(es.sum(1)), torch.log(es.sum(0))
-    return torch.logsumexp(s, 1), torch.logsumexp(s, 0)
+        return torch.log(es.sum(1)).float(), torch.log(es.sum(0)).float()
+    return torch.logsumexp(s, 1).float(), torch.logsumexp(s, 0).float()
 
 
 # The lean forward's split (csrc/fused_ce_fwd.cu): up to D = 512 a CTA's W
@@ -324,13 +328,42 @@ fused_ce_bwd.launches = 0
 # -- K8 and K5/K9: the diagonal and the statistics sweep -------------------------
 
 
+class StatsLaunch(NamedTuple):
+    ctas: int  # the sweep's grid
+    block_cols: int  # columns of C a unit covers (W 64-column slices; all of C past D = 512)
+    row_parts: int  # partials a row of N merges (one per 64-column slice; 0 past D = 512)
+    col_parts: int  # partials a column of C merges, at most
+    workspace_floats: int
+
+
+def stats_launch_shape(rows: int, b: int, d: int) -> StatsLaunch:
+    """The statistics sweep's grid and workspace for N [rows, D] against C
+    [B, D]: a pure function of the shape, so two calls at one shape sum in
+    one order and give the same bits. Up to D = 512 it is the lean forward's
+    shifted split (csrc/softmax_sweep.cuh): W 64-column consumer
+    warpgroups (W = 3 up to D = 256, else 2), CTA k taking units [k U / G,
+    (k + 1) U / G) of the U = ceil(B / 64 W) (rows / 64) units, G =
+    min(132, U); a row merges one float4 partial (sum of exp, max, plain
+    sum, rank) per 64 columns, a column one per CTA whose range meets its
+    block. Past D = 512 one block per 64 rows, with three [rows / 64, B]
+    planes of column partials."""
+    if d > LEAN_WGMMA_MAX_D:
+        blocks = rows // _KERNEL_ROWS
+        return StatsLaunch(blocks, b, 0, blocks, 3 * blocks * b)
+    lean = lean_lse_launch_shape(rows, b, d, nomax=False)
+    return StatsLaunch(lean.ctas, lean.block_cols, lean.row_parts, lean.col_parts,
+                       4 * (lean.row_parts * rows + lean.col_parts * b))
+
+
 def _stats_lib() -> ctypes.CDLL:
     lib = _build.load("fused_stats")
     if not getattr(lib, "_typed", False):
         lib.same_tile_diag.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.same_tile_diag.restype = ctypes.c_int
-        lib.fused_stats_sweep.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.fused_stats_sweep.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.fused_stats_sweep.restype = ctypes.c_int
+        lib.fused_stats_smem_bytes.argtypes = [ctypes.c_int]
+        lib.fused_stats_smem_bytes.restype = ctypes.c_int
         lib.fused_stats_error_string.argtypes = [ctypes.c_int]
         lib.fused_stats_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -422,9 +455,10 @@ def fused_stats_sweep(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 (and K9 past B = 8192): see :func:`fused_stats_sweep_plain` for the
     function; ``diag`` comes from :func:`same_tile_diag`. CPU tensors take
-    the plain version; CUDA tensors launch the sweep and its column merge on
-    the current stream (a [3, rows/64, B] f32 workspace: 805 MB at rows = B
-    = 65536) or raise. ``launches`` counts the kernel's launches."""
+    the plain version; CUDA tensors launch the sweep and its merge on the
+    current stream or raise. The partials take a workspace of
+    :func:`stats_launch_shape`'s size: at rows = B and D = 128, 16.6 MiB at
+    B = 8192, 1026 MiB at 65536. ``launches`` counts the kernel's launches."""
     _check_operands(n_scaled, c, "fused_stats_sweep")
     rows, b = n_scaled.shape[0], c.shape[0]
     if diag.shape != (rows,):
@@ -438,12 +472,14 @@ def fused_stats_sweep(
     dg = diag.to(torch.float32).contiguous()
     row_stats = torch.empty((rows, 4), dtype=torch.float32, device=nb.device)
     col_stats = torch.empty((2, b), dtype=torch.float32, device=nb.device)
-    workspace = torch.empty((3, rows // _KERNEL_ROWS, b), dtype=torch.float32, device=nb.device)
+    shape = stats_launch_shape(rows, b, nb.shape[1])
+    workspace = torch.empty(shape.workspace_floats, dtype=torch.float32, device=nb.device)
     lib = _stats_lib()
     with torch.cuda.device(nb.device):
         err = lib.fused_stats_sweep(
             nb.data_ptr(), cb.data_ptr(), dg.data_ptr(), row_stats.data_ptr(), col_stats.data_ptr(),
-            workspace.data_ptr(), rows, b, nb.shape[1], row_offset, torch.cuda.current_stream().cuda_stream,
+            workspace.data_ptr(), rows, b, nb.shape[1], row_offset, shape.ctas,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"fused_stats_sweep launch failed: {lib.fused_stats_error_string(err).decode()}")

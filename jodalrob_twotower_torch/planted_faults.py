@@ -25,6 +25,14 @@ sound and once per fault, and reports each fault as caught or not.
   next row's diagonal, the sweep's column merge dropping the first row
   block, and the sweep counting one more entry above the diagonal in every
   row (as a diagonal column not left out would).
+* The same statistics check against the sweep's CTA ranges ending one
+  unit short (the last unit of every range in no statistic), rank leaving
+  out the diagonal by value instead of by index (the check's second call
+  gives a diagonal below every S_ii), and the column merge taking each
+  column's per-CTA partials in an order that changes between calls (two
+  calls must be bit-equal).
+* The lookup check (K1 bit-exact against its plain version in its six
+  cases) against the ownership test reading the next tile's feature.
 * The row-gather check (K4 bit-exact against its plain version at the
   config-3 shape) against K4 returning row r + 1 for every 64th row.
 * The sparse-against-dense check (two sparse steps against two dense steps
@@ -205,6 +213,105 @@ def _rank_counts_diagonal():
     return fused_logits, "fused_stats_sweep", fault
 
 
+def _plain_scores(n_scaled, c):
+    return n_scaled.to(torch.bfloat16).float() @ c.to(torch.bfloat16).float().T
+
+
+def _sweep_skips_last_unit():
+    """The sweep whose CTA ranges end one unit short: the last unit (a
+    64-row tile against a block of W 64-column slices) of every CTA's range
+    is in neither the row nor the column statistics."""
+    real = fused_logits.fused_stats_sweep
+
+    def fault(n_scaled, c, diag, row_offset=0):
+        row_stats, col_stats = real(n_scaled, c, diag, row_offset)
+        if row_stats.is_cuda:
+            rows, (b, d) = n_scaled.shape[0], c.shape
+            shape = fused_logits.stats_launch_shape(rows, b, d)
+            n_y = rows // 64
+            units = -(-b // shape.block_cols) * n_y
+            s = _plain_scores(n_scaled, c)
+            kept = torch.ones_like(s, dtype=torch.bool)
+            for k in range(shape.ctas):
+                u = (k + 1) * units // shape.ctas - 1
+                x, y = divmod(u, n_y)
+                kept[y * 64 : (y + 1) * 64, x * shape.block_cols : (x + 1) * shape.block_cols] = False
+            idx = torch.arange(rows, device=s.device)
+            above = (s > diag[:, None]) & kept
+            above[idx, idx + row_offset] = False
+            lse_s = torch.where(kept, s, float("-inf"))
+            sum_s = torch.where(kept, s, 0.0)
+            row_stats = torch.stack([torch.logsumexp(lse_s, 1), sum_s.sum(1), diag, above.sum(1).float()], 1)
+            col_stats = torch.stack([torch.logsumexp(lse_s, 0), sum_s.sum(0)])
+        return row_stats, col_stats
+
+    fault.launches = 0
+    return fused_logits, "fused_stats_sweep", fault
+
+
+def _rank_skips_diagonal_by_value():
+    """The sweep whose rank leaves out the entries equal to the row's
+    diagonal instead of the diagonal's own column: S_ii counts wherever it
+    exceeds the diagonal it was given."""
+    real = fused_logits.fused_stats_sweep
+
+    def fault(n_scaled, c, diag, row_offset=0):
+        row_stats, col_stats = real(n_scaled, c, diag, row_offset)
+        if row_stats.is_cuda:
+            s_ii = fused_logits.same_tile_diag_plain(n_scaled, c, row_offset)
+            row_stats[:, 3] += (s_ii > diag).float()
+        return row_stats, col_stats
+
+    fault.launches = 0
+    return fused_logits, "fused_stats_sweep", fault
+
+
+def _col_merge_out_of_order():
+    """The sweep whose column merge takes each column's per-CTA partials in
+    an order that changes from call to call (as atomics would): the column
+    lse of the pieces merged in a random order."""
+    real = fused_logits.fused_stats_sweep
+
+    def fault(n_scaled, c, diag, row_offset=0):
+        row_stats, col_stats = real(n_scaled, c, diag, row_offset)
+        if col_stats.is_cuda:
+            rows, (b, d) = n_scaled.shape[0], c.shape
+            shape = fused_logits.stats_launch_shape(rows, b, d)
+            n_y, block = rows // 64, shape.block_cols
+            units = -(-b // block) * n_y
+            starts = [k * units // shape.ctas for k in range(shape.ctas + 1)]
+            s = _plain_scores(n_scaled, c)
+            for x in range(-(-b // block)):
+                cols = slice(x * block, min(b, (x + 1) * block))
+                pieces = [(max(starts[k], x * n_y) - x * n_y, min(starts[k + 1], (x + 1) * n_y) - x * n_y)
+                          for k in range(shape.ctas) if starts[k] < (x + 1) * n_y and starts[k + 1] > x * n_y]
+                lse = [torch.logsumexp(s[lo * 64 : hi * 64, cols], 0) for lo, hi in pieces]
+                merged = None
+                for p in torch.randperm(len(lse)).tolist():
+                    merged = lse[p] if merged is None else torch.logaddexp(merged, lse[p])
+                col_stats[0, cols] = merged
+        return row_stats, col_stats
+
+    fault.launches = 0
+    return fused_logits, "fused_stats_sweep", fault
+
+
+def _lookup_next_tile():
+    """K1 whose ownership test reads the tile after the row's: a row serves
+    when tile_feature[row // 128 + 1] is its feature."""
+    real = embedding_grad.dense_table_lookup
+
+    def fault(table, rows, tile_feature):
+        out = real(table, rows, tile_feature)
+        if out.is_cuda:
+            shifted = torch.cat([tile_feature[1:], tile_feature[-1:]])
+            out = embedding_grad.dense_table_lookup_plain(table, rows, shifted)
+        return out
+
+    fault.launches = 0
+    return embedding_grad, "dense_table_lookup", fault
+
+
 def _gather_next_row():
     """K4 that returns row r + 1 for every 64th output row."""
     real = embedding_lookup.embedding_lookup_pallas
@@ -251,6 +358,10 @@ def _stats_check(chip_smoke):
     chip_smoke.stats_case(None, chip_smoke.CE_BATCH)
 
 
+def _lookup_check(chip_smoke):
+    chip_smoke.lookup_phase(None, runs=0)
+
+
 def _gather_check(chip_smoke):
     chip_smoke.row_gather_phase(_flush())
 
@@ -281,6 +392,10 @@ FAULTS = {
     "K8 reads the next row's diagonal": (_diag_next_row, _stats_check),
     "K5 column merge drops row block 0": (_merge_drops_first_block, _stats_check),
     "K5 rank counts one more entry per row": (_rank_counts_diagonal, _stats_check),
+    "K5 sweep's CTA ranges end one unit short": (_sweep_skips_last_unit, _stats_check),
+    "K5 rank leaves out the diagonal by value, not by index": (_rank_skips_diagonal_by_value, _stats_check),
+    "K5 column merge out of CTA order": (_col_merge_out_of_order, _stats_check),
+    "K1 ownership test reads the next tile": (_lookup_next_tile, _lookup_check),
     "K4 returns row r+1 for every 64th row": (_gather_next_row, _gather_check),
     "sparse update skips the dedup": (_no_dedup, _sparse_check),
 }
@@ -291,7 +406,8 @@ def main() -> int:
 
     print(chip_smoke.bench.card_line(), flush=True)
     chip_smoke._build.build(chip_smoke.KERNEL_SOURCES)
-    for check in (_grad_check, _step_check, _lean_check, _wide_bwd_check, _stats_check, _gather_check, _sparse_check):
+    for check in (_grad_check, _step_check, _lean_check, _wide_bwd_check, _stats_check, _lookup_check, _gather_check,
+                  _sparse_check):
         check(chip_smoke)
         print(f"sound {check.__name__.strip('_')} passed", flush=True)
     missed = []

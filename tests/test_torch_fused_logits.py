@@ -51,8 +51,12 @@ def test_lean_lse_matches_pallas(pair, tau, nomax):
     )
     got_r, got_c = tfl.fused_lean_lse(torch.from_numpy(n_scaled), torch.from_numpy(c), nomax=nomax)
     assert got_r.dtype == torch.float32 and got_r.shape == (B,) and got_c.shape == (B,)
-    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), rtol=0, atol=5e-6)
-    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=0, atol=5e-6)
+    # on a mismatch, say which side left the exact value (float64 from the same bf16 operands)
+    s64 = torch.from_numpy(n_scaled).to(torch.bfloat16).double() @ torch.from_numpy(c).to(torch.bfloat16).double().T
+    for got, want, exact in ((got_r, want_r, torch.logsumexp(s64, 1)), (got_c, want_c, torch.logsumexp(s64, 0))):
+        side = (f"port max |err| vs float64 {float((got.double() - exact).abs().max()):.3g}, reference "
+                f"{float(np.abs(np.asarray(want, np.float64) - exact.numpy()).max()):.3g}")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=5e-6, err_msg=side)
 
 
 @pytest.mark.parametrize("eps", [0.0, 0.1])

@@ -207,3 +207,68 @@ def test_kernel_wrappers_check_their_operands():
         tfl.fused_stats_sweep(nt, ct, torch.zeros(255))
     with pytest.raises(ValueError, match="n .rows, D. and c"):
         tfl.fused_stats_sweep(nt, ct[:, :64], torch.zeros(256))
+
+
+def _unit_ranges(units: int, ctas: int) -> np.ndarray:
+    """CTA k's units [k U / G, (k + 1) U / G), as the sweep splits them."""
+    return np.arange(ctas + 1, dtype=np.int64) * units // ctas
+
+
+@pytest.mark.parametrize("d", [128, 256, 512, 1024])
+@pytest.mark.parametrize("b", [1024, 8192, 16384, 65536])
+def test_stats_launch_shape(b, d):
+    """The statistics sweep's split at every envelope shape (rows = B): up to
+    D = 512 every unit (a 64-row tile against a block of W 64-column slices)
+    lies in exactly one CTA's range; a column's partials are the CTAs whose
+    ranges meet its block, in CTA order (piece p of block x from CTA
+    first(x) + p), at most col_parts of them; a row merges one partial per 64
+    columns; the workspace holds a float4 per partial. Past D = 512 one
+    block per 64 rows with three [rows / 64, B] planes. The shape is a pure
+    function of (rows, B, D)."""
+    shape = tfl.stats_launch_shape(b, b, d)
+    assert shape == tfl.stats_launch_shape(b, b, d)
+    if d > 512:
+        assert shape == tfl.StatsLaunch(b // 64, b, 0, b // 64, 3 * (b // 64) * b)
+        return
+    consumers = 3 if d <= 256 else 2
+    assert shape.block_cols == 64 * consumers and shape.row_parts == b // 64
+    n_x, n_y = -(-b // shape.block_cols), b // 64
+    units = n_x * n_y
+    assert shape.ctas == min(132, units)
+    starts = _unit_ranges(units, shape.ctas)
+    covered = np.zeros(units, dtype=np.int64)
+    for k in range(shape.ctas):
+        assert starts[k + 1] > starts[k]
+        covered[starts[k] : starts[k + 1]] += 1
+    assert (covered == 1).all()
+    owner = np.repeat(np.arange(shape.ctas), np.diff(starts))  # the CTA of each unit
+    parts = 0
+    for x in range(n_x):
+        ctas = owner[x * n_y : (x + 1) * n_y]
+        meeting = np.unique(ctas)
+        # in unit order the block's CTAs come in CTA order, each once, with no gap
+        assert (np.diff(ctas) >= 0).all() and (meeting == np.arange(meeting[0], meeting[-1] + 1)).all()
+        parts = max(parts, meeting.size)
+    assert shape.col_parts == parts
+    assert shape.workspace_floats == 4 * (shape.row_parts * b + shape.col_parts * b)
+
+
+def test_stats_workspace_sizes_in_the_docstring():
+    """The sizes ``fused_stats_sweep``'s docstring gives at D = 128: 16.6 MiB
+    at B = 8192 and 1026 MiB at 65536 (the mma.sync sweep's [3, B/64, B]
+    planes were 12 and 768 MiB)."""
+    got = [tfl.stats_launch_shape(b, b, 128).workspace_floats * 4 / 2**20 for b in (8192, 65536)]
+    assert round(got[0], 1) == 16.6 and round(got[1]) == 1026
+    assert "16.6 MiB at B = 8192, 1026 MiB at 65536" in " ".join(tfl.fused_stats_sweep.__doc__.split())
+
+
+@pytest.mark.parametrize("rows", [1024, 256, 64])
+def test_stats_launch_shape_of_a_row_shard(rows):
+    """A row shard of N against all of C (the kernel takes its row_offset
+    apart from the split): the split covers its rows / 64 tiles in every
+    block, and a row still merges one partial per 64 columns of C."""
+    b = 1024
+    shape = tfl.stats_launch_shape(rows, b, 128)
+    n_x, n_y = -(-b // shape.block_cols), rows // 64
+    assert shape.ctas == min(132, n_x * n_y) and shape.row_parts == b // 64
+    assert shape.workspace_floats == 4 * (shape.row_parts * rows + shape.col_parts * b)
