@@ -21,9 +21,8 @@
 //    tile entry is loaded twice; 16 pairs and not 32 give the copies twice
 //    the warps (on the H100 at the notice shape 0.0143 ms against 0.0158,
 //    at the company shape 0.0077 against 0.0082);
-//  - the tile map (R/128 int32) is staged in shared memory by each block
-//    while its ids load, when it fits (kSmemTiles entries); past that it is
-//    read through the read-only path;
+//  - the tile map (R/128 int32: 1 KB at the notice shape) is read through
+//    the read-only (L1) path, one load per id;
 //  - a lane writes whole 16-byte pieces of bf16 output (8 values: two
 //    float4 loads of an f32 table, one uint4 of a bf16 table), the warp's
 //    16 pairs being one contiguous run of output, so every store is
@@ -58,7 +57,6 @@ namespace {
 constexpr int kTileRows = 128;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSmemTiles = 4096;  // tile map entries staged in shared memory (16 KB), at most
 constexpr int kPairs = 16;        // (b, k) pairs a warp copies: lanes 0..15 load their ids
 constexpr int kBatch = 4;         // pieces a lane loads before it stores any
 constexpr unsigned kFull = 0xffffffffu;
@@ -81,28 +79,18 @@ __device__ __forceinline__ uint4 load_piece(const T* table, int64_t src) {
   }
 }
 
-// T is float or __nv_bfloat16; kStaged: the tile map in shared memory.
-// pieces = d / 8 (16-byte bf16 pieces a row), log2_pieces its log2 when a
-// power of two, else -1.
-template <typename T, bool kStaged>
+// T is float or __nv_bfloat16; pieces = d / 8 (16-byte bf16 pieces a row),
+// log2_pieces its log2 when a power of two, else -1.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 onehot_lookup_kernel(const T* __restrict__ table, const int32_t* __restrict__ rows,
                      const int32_t* __restrict__ tile_feature, __nv_bfloat16* __restrict__ out,
                      int n_pairs, int k, int d, int total_rows, int pieces, int log2_pieces) {
-  __shared__ int32_t tiles[kStaged ? kSmemTiles : 1];
   const int lane = threadIdx.x % 32;
   const int base = (blockIdx.x * kWarps + threadIdx.x / 32) * kPairs;  // the warp's first pair
   const int pair = base + lane;
   const int row = lane < kPairs && pair < n_pairs ? __ldg(rows + pair) : -1;
-  if constexpr (kStaged) {
-    for (int i = threadIdx.x; i < total_rows / kTileRows; i += kThreads) tiles[i] = __ldg(tile_feature + i);
-    __syncthreads();
-  }
-  bool in_block = row >= 0 && row < total_rows;
-  if (in_block) {
-    const int owner = kStaged ? tiles[row / kTileRows] : __ldg(tile_feature + row / kTileRows);
-    in_block = owner == pair % k;
-  }
+  const bool in_block = row >= 0 && row < total_rows && __ldg(tile_feature + row / kTileRows) == pair % k;
   const int my_row = in_block ? row : -1;  // the row lane `pair - base` copies, -1: zeros
 
   // the warp's output: kPairs pairs of d bf16, contiguous; piece q of it is
@@ -144,12 +132,9 @@ int launch(const void* table, const void* rows, const void* tile_feature, void* 
   const int n = static_cast<int>(n_pairs);
   const int blocks = (n + kWarps * kPairs - 1) / (kWarps * kPairs);
   auto s = static_cast<cudaStream_t>(stream);
-  auto kernel = total_rows / kTileRows <= kSmemTiles ? onehot_lookup_kernel<T, true>
-                                                     : onehot_lookup_kernel<T, false>;
-  kernel<<<blocks, kThreads, 0, s>>>(static_cast<const T*>(table), static_cast<const int32_t*>(rows),
-                                     static_cast<const int32_t*>(tile_feature),
-                                     static_cast<__nv_bfloat16*>(out), n, k, d, total_rows, pieces,
-                                     log2_pieces);
+  onehot_lookup_kernel<T><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(table), static_cast<const int32_t*>(rows), static_cast<const int32_t*>(tile_feature),
+      static_cast<__nv_bfloat16*>(out), n, k, d, total_rows, pieces, log2_pieces);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,10 +27,10 @@ sound and once per fault, and reports each fault as caught or not.
   row (as a diagonal column not left out would).
 * The same statistics check against the sweep's CTA ranges ending one
   unit short (the last unit of every range in no statistic), rank leaving
-  out the diagonal by value instead of by index (the check's second call
-  gives a diagonal below every S_ii), and the column merge taking each
-  column's per-CTA partials in an order that changes between calls (two
-  calls must be bit-equal).
+  out the diagonal by value instead of by index (with K8's S_ii, so only
+  the check's second call, with a diagonal below every S_ii, can see it),
+  and the column merge taking each column's per-CTA partials in an order
+  that changes between calls (two calls must be bit-equal).
 * The lookup check (K1 bit-exact against its plain version in its six
   cases) against the ownership test reading the next tile's feature.
 * The row-gather check (K4 bit-exact against its plain version at the
@@ -252,13 +252,15 @@ def _sweep_skips_last_unit():
 def _rank_skips_diagonal_by_value():
     """The sweep whose rank leaves out the entries equal to the row's
     diagonal instead of the diagonal's own column: S_ii counts wherever it
-    exceeds the diagonal it was given."""
+    exceeds the diagonal it was given. S_ii is the kernels' own (K8's), so
+    the fault adds nothing where the diagonal given is K8's and shows only
+    against a lowered diagonal."""
     real = fused_logits.fused_stats_sweep
 
     def fault(n_scaled, c, diag, row_offset=0):
         row_stats, col_stats = real(n_scaled, c, diag, row_offset)
         if row_stats.is_cuda:
-            s_ii = fused_logits.same_tile_diag_plain(n_scaled, c, row_offset)
+            s_ii = fused_logits.same_tile_diag(n_scaled, c, row_offset)
             row_stats[:, 3] += (s_ii > diag).float()
         return row_stats, col_stats
 

@@ -36,13 +36,31 @@ def pair():
     return n, c
 
 
+@pytest.fixture
+def pinned_numerics():
+    """Pins, for the test, the state a test run earlier in the same process
+    could leave changed: the reference's matmul precision (the session's
+    "highest") and the port's float32 matmul precision and thread count (one
+    thread: no split of the product over threads). The reference's CPU
+    thread pool is fixed when its backend starts and cannot be pinned here."""
+    precision, threads = torch.get_float32_matmul_precision(), torch.get_num_threads()
+    torch.set_float32_matmul_precision("highest")
+    torch.set_num_threads(1)
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.set_num_threads(threads)
+
+
 def _rel(got, want):
     return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(np.asarray(want)).max())
 
 
 @pytest.mark.parametrize("tau", [1.0, 0.1])
 @pytest.mark.parametrize("nomax", [True, False], ids=["nomax", "shifted"])
-def test_lean_lse_matches_pallas(pair, tau, nomax):
+def test_lean_lse_matches_pallas(pair, tau, nomax, pinned_numerics):
     n, c = pair
     n_scaled = n / np.float32(tau)
     want_r, want_c = jfl._fused_lean_call(
