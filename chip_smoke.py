@@ -47,7 +47,21 @@ NVIDIA card.
 6. Extra training paths: one call of the sampled train steps at B=16384 (the
    col-blocked CE, K7 and K10) and one at B=8192 with label smoothing 0.1
    (the statistics forward K8 + K5, and K11); every loss finite.
-7. The large-table paths, BASELINE config 3 (tables of 10,000,384 x 64 f32
+7. Headline phase: the trainer's path end to end, ``train_headline.main``
+   (the port's training CLI in-process: ``TrainConfig()`` on the
+   bench-scale data, B=8192, 8 epochs sampled on the card, validation and
+   the corpus eval after every epoch, checkpoints, metrics and the results
+   CSV, all in a temporary directory); every epoch's losses finite, the run
+   learned, its final corpus recall@100 within 0.05 of the JAX artifact's,
+   and every kernel launched exactly as often as the run's steps,
+   validation batches and encode chunks ask.
+8. Resume phase: 8 sampled steps with dropout at B=8192, ``save_step``, a
+   restore into a freshly built state and 8 more steps equal 16
+   uninterrupted steps bit for bit (every param, moment and BatchNorm
+   statistic); the checkpoint restores onto the CPU and back bit for bit;
+   ``restore_weights`` -> ``RetrievalService`` searches as the in-memory
+   weights do.
+9. The large-table paths, BASELINE config 3 (tables of 10,000,384 x 64 f32
    per tower, B=8192): ``scaled_dense`` (the row-gather kernel K4 through
    ``MeshConfig.use_pallas_lookup``, the full-table scatter and rowwise
    Adagrad), ``scaled_sparse`` (sparse tables, one update per step) and
@@ -56,7 +70,7 @@ NVIDIA card.
    twice per step on the dense path and never on the sparse ones, K1 and
    K2 never, K6 and K11 once per step; then two sparse steps against two
    dense steps from one state.
-8. One step's loss and gradients at B=1024 on the card against the same step
+10. One step's loss and gradients at B=1024 on the card against the same step
    on the CPU through the plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
@@ -68,14 +82,18 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
+import shutil
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from jodalrob_twotower_torch import bench
+from jodalrob_twotower_torch import bench, train_headline
 from jodalrob_twotower_torch.config import LossConfig, MeshConfig, ModelConfig, OptimizerConfig, TrainConfig
 from jodalrob_twotower_torch.data.synthetic import make_synthetic_dataset
 from jodalrob_twotower_torch.data.types import PairBatch, default_tower_gather
@@ -124,6 +142,7 @@ from jodalrob_twotower_torch.serving.index import recall_vs_exact
 from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
 from jodalrob_twotower_torch.train.metrics import diagonal_ranks, in_batch_metrics, random_baselines
 from jodalrob_twotower_torch.train import sparse_tables
+from jodalrob_twotower_torch.train.checkpoint import CheckpointManager, state_payload
 from jodalrob_twotower_torch.train.train_step import (
     create_train_state,
     device_store,
@@ -189,6 +208,9 @@ EVAL_PAIRS = 32768  # held-out pairs: 4 eval batches at 8192, 2 at 16384
 EVAL_TIMED_CALLS = 10  # evaluate_indexed calls per path; ms per batch is their median
 EVAL_SIM_ATOL = 1e-4  # fused eval similarities against in_batch_metrics
 EXTRA_STEPS = 2  # steps per call of the extra training paths
+HEADLINE_EPOCHS = 8  # the headline recipe's epochs (scripts/train_headline.py), not cut
+RESUME_STEPS = 8  # steps before the step checkpoint, and after the restore (the trainer's n_inner)
+RESUME_QUERIES = 1024  # notices searched with the restored and the in-memory weights
 # BASELINE config 3, the large-table path (bench_suite.py:80-105): 8
 # categorical features of 1.25M ids per tower (unified tables of 10,000,384 x
 # 64 f32, 2.56 GB each), 16 numeric features, hidden (512, 256), final 128
@@ -1219,7 +1241,7 @@ def extra_training_phase(work: bench.Workload) -> tuple[dict, dict]:
         ("train_ls0.1", CE_BATCH, 0.1, ("same_tile_diag", "fused_stats_sweep", "fused_ce_bwd")),
     ):
         cfg = work.cfg.replace(loss=dataclasses.replace(work.cfg.loss, label_smoothing=eps))
-        model = build_model(work.schema, cfg).init_weights(torch.Generator().manual_seed(SEED))
+        model = build_model(work.schema, cfg).init_flax(torch.Generator().manual_seed(SEED))
         state, tx = create_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device="cuda")
         steps = make_sampled_train_steps(model, cfg, tx, EXTRA_STEPS, b)
         # -- the main path: counters from 0, read right after ----------------------
@@ -1240,6 +1262,181 @@ def extra_training_phase(work: bench.Workload) -> tuple[dict, dict]:
                      "first_call_s": call_s, "launches": launches[path]}
         print(f"{path} " + json.dumps(out[path]), flush=True)
     return out, launches
+
+
+# -- the trainer: the headline run, and checkpoint/resume -------------------------
+
+
+def headline_launches(cfg: TrainConfig) -> dict[str, int]:
+    """The launches of each kernel on the headline run, from its shape:
+    per train step K1 and K2 twice (notice and company), K6 and K11 once;
+    per validation batch K1 twice, K6, K8 and the sweep once (after every
+    epoch and once more at the end); per epoch's corpus eval K1 once per
+    encode chunk of 8192 rows (the company store from the card, the
+    validation notices from the host)."""
+    b = CE_BATCH
+    n_val = int(round(bench.N_PAIRS * cfg.data.test_split))
+    steps = HEADLINE_EPOCHS * ((bench.N_PAIRS - n_val) // b)
+    val_batches = (HEADLINE_EPOCHS + 1) * (n_val // b)
+    encode_chunks = HEADLINE_EPOCHS * (math.ceil(bench.N_COMPANIES / b) + math.ceil(n_val / b))
+    return {"dense_table_lookup": 2 * steps + 2 * val_batches + encode_chunks, "dense_table_grad": 2 * steps,
+            "dense_table_grad_bmajor": 0, "embedding_lookup_pallas": 0, "fused_lean_lse": steps + val_batches,
+            "fused_ce_bwd": steps, "same_tile_diag": val_batches, "fused_stats_sweep": val_batches}
+
+
+def headline_phase(training: dict) -> tuple[dict, dict]:
+    """The headline recipe end to end through the port's CLIs:
+    ``train_headline.main`` (``python -m jodalrob_twotower_torch.train`` in-process:
+    ``TrainConfig()`` on the bench-scale data, B=8192, HEADLINE_EPOCHS epochs
+    sampled on the card, validation and the corpus eval after every epoch,
+    checkpoints), into a temporary directory that is removed after. Every
+    epoch's losses must be finite, the run must learn and its final corpus
+    recall@100 lie within 0.05 of the JAX artifact's, and each kernel must
+    launch exactly as often as the run's steps, validation batches and
+    encode chunks ask (``headline_launches``). Returns the record and the
+    launch counts."""
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_headline_"))
+    try:
+        # -- the main path: counters from 0, read right after ------------------
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = train_headline.main(["--epochs", str(HEADLINE_EPOCHS), "--output-dir", str(out_dir)])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counters()
+        summary = json.loads((out_dir / "summary.json").read_text())
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print("headline main path launches", json.dumps(launches), flush=True)
+    check(rc == 0, f"train_headline returned {rc}")
+    leg = summary["torch"]
+    epochs = leg["per_epoch"]
+    check(len(epochs) == HEADLINE_EPOCHS, f"headline: {len(epochs)} epochs logged, not {HEADLINE_EPOCHS}")
+    check(all(np.isfinite([e["train_loss"], e["val_loss"]]).all() for e in epochs),
+          f"headline: a non-finite epoch loss {epochs}")
+    check(summary["learned"], f"headline did not learn: {summary}")
+    check(summary["within_tolerance"], f"headline recall@100 not within {summary['tolerance']}: {summary}")
+    expected = headline_launches(TrainConfig())
+    for name, n in expected.items():
+        check(launches[name] == n, f"headline: kernel {name} launched {launches[name]} times, expected {n}")
+    row = {
+        "epochs": [{"epoch": int(e["epoch"]), "train_loss": e["train_loss"], "val_loss": e["val_loss"],
+                    "corpus_recall@10": e["corpus_recall@10"], "corpus_recall@100": e["corpus_recall@100"],
+                    "examples_per_sec": e["examples_per_sec"]} for e in epochs],
+        "final_corpus_recall_at_100": leg["final_corpus_recall_at_100"],
+        "final_corpus_recall_at_10": leg["final_corpus_recall_at_10"],
+        "reference_recall_at_100": summary["reference"]["final_corpus_recall_at_100"],
+        "recall_at_100_abs_diff": summary["recall_at_100_abs_diff"], "learned": summary["learned"],
+        "within_tolerance": summary["within_tolerance"], "final_val_loss": leg["final_val_loss"],
+        "examples_per_sec_last_epoch": leg["examples_per_sec"],
+        "bench_examples_per_sec": training["examples_per_sec"],
+        "bench_device_ms_per_step": training["device_ms_per_call"] / training["steps_per_call"],
+        "train_wall_s": leg["wall_s"], "wall_s": wall_s, "launches": launches, "card": summary["card"],
+    }
+    print("headline " + json.dumps(row), flush=True)
+    return row, {"headline": launches}
+
+
+def _payload_differences(a, b) -> list[str]:
+    """The keys of two train states' checkpoint payloads whose values are
+    not equal bit for bit (tensors compared on the CPU)."""
+    def flat(payload, prefix=""):
+        out = {}
+        for k, v in payload.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {f"{prefix}{k}": v})
+        return out
+
+    fa, fb = flat(state_payload(a)), flat(state_payload(b))
+    if set(fa) != set(fb):
+        return sorted(set(fa) ^ set(fb))
+    return [k for k, v in fa.items() if not (
+        torch.equal(v.cpu(), fb[k].cpu()) and v.dtype == fb[k].dtype if isinstance(v, torch.Tensor) else v == fb[k])]
+
+
+def resume_phase(work: bench.Workload) -> tuple[dict, dict]:
+    """Checkpoint and exact resume on the card, on the headline's config
+    (``TrainConfig()``: dropout 0.1, sampled batches, dense tables) at
+    B=8192 over the bench's stores: RESUME_STEPS steps, ``save_step``, a
+    restore into a state freshly built from other weights, RESUME_STEPS more
+    steps; every param, moment, BatchNorm statistic, the step and the
+    optimizer count must equal those of 2 x RESUME_STEPS uninterrupted steps
+    bit for bit. The card's checkpoint restores onto the CPU and the CPU's
+    back onto the card, both bit for bit. Then ``finalize``,
+    ``restore_weights`` -> FrozenState -> ``RetrievalService`` over the 100,000
+    companies: its search of RESUME_QUERIES notices must equal the search
+    with the in-memory weights. Returns the record and the launch counts of
+    the training it ran."""
+    cfg, schema = work.cfg, work.schema
+
+    def fresh(seed: int, device: str = "cuda"):
+        model = build_model(schema, cfg).init_flax(torch.Generator().manual_seed(seed))
+        state, tx = create_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device=device)
+        return model, state, make_sampled_train_steps(model, cfg, tx, RESUME_STEPS, CE_BATCH)
+
+    def call(steps, state):
+        return steps(state, SEED + 11, work.pairs, work.notice_store, work.company_store)[0]
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    try:
+        reset_counters()
+        model, straight, steps = fresh(SEED)
+        straight = call(steps, call(steps, straight))
+        _, first, steps = fresh(SEED)
+        first = call(steps, first)
+        card_ckpt = CheckpointManager(tmp / "card")
+        card_ckpt.save_step(first, 0, RESUME_STEPS)
+        _, target, steps = fresh(SEED + 1)  # other weights: all must come from the file
+        restored, _, saved_step, _ = card_ckpt.restore_step(target)
+        resumed = call(steps, restored)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        differ = _payload_differences(resumed, straight)
+        print("resume main path launches", json.dumps(launches), flush=True)
+        for name in TRAINING_KERNELS:
+            check(launches[name] > 0, f"kernel {name} was not launched on the resume path")
+        check(saved_step == RESUME_STEPS and resumed.step == straight.step == 2 * RESUME_STEPS,
+              f"resume: steps {saved_step}, {resumed.step}, {straight.step}")
+        check(not differ, f"resume on the card differs from uninterrupted training in {differ}")
+
+        # across devices: the card's checkpoint onto the CPU, the CPU's onto the card
+        card_ckpt.save_step(resumed, 0, 2 * RESUME_STEPS)
+        on_cpu = card_ckpt.restore_step(fresh(SEED + 2, "cpu")[1])[0]
+        cpu_ckpt = CheckpointManager(tmp / "cpu")
+        cpu_ckpt.save_step(on_cpu, 0, 2 * RESUME_STEPS)
+        back = cpu_ckpt.restore_step(fresh(SEED + 2)[1])[0]
+        check(on_cpu.device.type == "cpu" and back.device.type == "cuda", "restores landed on the wrong device")
+        cross = {"card_to_cpu": _payload_differences(on_cpu, resumed), "cpu_to_card": _payload_differences(back, resumed)}
+        check(not any(cross.values()), f"cross-device restore differs: {cross}")
+
+        # the serving entry point: weights/ -> FrozenState -> RetrievalService
+        card_ckpt.finalize(resumed)
+        weights = card_ckpt.restore_weights(model.state_dict(), device="cuda")
+        restored_state = FrozenState({**weights["params"], **weights["batch_stats"]})
+        queries = work.dataset.notice_store.gather(np.arange(RESUME_QUERIES))
+        results = [
+            RetrievalService(model, cfg, st, work.dataset.company_store, index_kind="exact", device="cuda")
+            .search(queries, TOP_K)
+            for st in (restored_state, FrozenState(resumed.state_dict))
+        ]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same_search = bool(np.array_equal(results[0].indices, results[1].indices)
+                       and np.array_equal(results[0].scores, results[1].scores))
+    check(same_search, "search with the restored weights differs from the in-memory weights' search")
+    # the device time of the dispatch the trainer makes on the headline path:
+    # one call of RESUME_STEPS (= the trainer's n_inner) sampled steps
+    breakdown = device_breakdown(lambda: steps(resumed, SEED + 11, work.pairs, work.notice_store,
+                                               work.company_store)[1]["loss"].cpu(), repeats=3, top=6)
+    print("device time of one trainer call " + json.dumps(breakdown), flush=True)
+    row = {"steps": 2 * RESUME_STEPS, "batch": CE_BATCH, "dropout": cfg.model.dropout_rate,
+           "leaves_compared": len(state_payload(straight)["params"]) + len(state_payload(straight)["batch_stats"]),
+           "leaves_differing": differ, "cross_device_differing": cross, "search_equal": same_search,
+           "search_queries": RESUME_QUERIES, "launches": launches,
+           "trainer_call_device_ms": breakdown["device_ms_per_call"],
+           "trainer_call_wall_ms": breakdown["wall_ms_per_call"], "trainer_call_busy_share": breakdown["busy_share"]}
+    print("resume " + json.dumps(row), flush=True)
+    return row, {"resume": launches}
 
 
 # -- the large-table paths (BASELINE config 3) -----------------------------------
@@ -1584,6 +1781,8 @@ def main() -> int:
     evaluation["card"] = card
     print("evaluation " + json.dumps(evaluation), flush=True)
     extra, extra_launches = extra_training_phase(work)
+    headline, headline_counts = headline_phase(training)
+    resume, resume_launches = resume_phase(work)
     del work
     torch.cuda.empty_cache()
     scaled, scaled_launches = scaled_phase(scaled_setup())
@@ -1593,7 +1792,7 @@ def main() -> int:
     step_check = step_grad_check()
 
     launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches,
-                **scaled_launches}
+                **headline_counts, **resume_launches, **scaled_launches}
     record = {"kernels": [
         kernel_record("onehot_lookup", "K1", "onehot_lookup.cu", "embedding_grad.py:358",
                       kernels["onehot_lookup"], launches, "dense_table_lookup", "training"),
@@ -1625,6 +1824,11 @@ def main() -> int:
                        for path in ("eval", "eval_b16384")},
         "corpus": {k: evaluation["corpus"][k] for k in ("recall@10", "recall@100", "mrr", "encode_s", "corpus_eval_s")},
         "extra_training": {path: row["losses"] for path, row in extra.items()},
+        "headline": {k: headline[k] for k in ("final_corpus_recall_at_100", "reference_recall_at_100",
+                                              "recall_at_100_abs_diff", "learned", "within_tolerance",
+                                              "examples_per_sec_last_epoch", "train_wall_s")},
+        "resume": {k: resume[k] for k in ("steps", "leaves_differing", "cross_device_differing", "search_equal",
+                                          "trainer_call_device_ms", "trainer_call_busy_share")},
         "scaled": {path: {k: scaled[path][k] for k in ("ms_per_step", "examples_per_sec", "device_busy_share",
                                                        "device_busy_share_timed", "loss_last_call")}
                    for path in SCALED_PATHS},

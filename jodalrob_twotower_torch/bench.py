@@ -7,8 +7,9 @@ one-hot lookup and table-gradient kernels, the fused CE forward and
 backward, bf16 device stores) on ``reference_shaped_schema()``; synthetic
 data of 100,000 notices, 100,000 companies and 400,000 pairs, stores and
 pairs resident on the card; ``make_sampled_train_steps`` with 16 steps per
-call, each step sampling its batch on the card. Weights are random from a
-seeded generator.
+call, each step sampling its batch on the card. Weights start from a seeded
+generator with the reference's ``model.init`` distributions
+(``TwoTowerModel.init_flax``), as the reference bench's do.
 
 Run: ``python -m jodalrob_twotower_torch.bench`` (needs a CUDA device).
 Prints the card line (``nvidia-smi`` name and power limit), then one JSON
@@ -88,7 +89,7 @@ def build_workload(*, device=None, seed: int = 0, n_inner: int = N_INNER, batch_
     company_store = device_store(ds.company_store, dtype=store_dtype, device=dev)
     pairs = torch.from_numpy(ds.pairs.astype(np.int64)).to(dev)
     data_s = time.perf_counter() - t0
-    model = build_model(schema, cfg).init_weights(torch.Generator().manual_seed(seed))
+    model = build_model(schema, cfg).init_flax(torch.Generator().manual_seed(seed))
     state, tx = create_train_state(model, cfg, seed, TOTAL_STEPS, device=dev)
     steps = make_sampled_train_steps(model, cfg, tx, n_inner, batch_size)
     return Workload(cfg, schema, state, steps, pairs, notice_store, company_store, batch_size, data_s, ds)

@@ -12,6 +12,10 @@ from jodalrob_twotower_torch.data.types import PairBatch, TowerBatch
 from jodalrob_twotower_torch.models.tower import BatchNorm, Tower
 from jodalrob_twotower_torch.schema import TwoTowerSchema
 
+# the std of a unit normal truncated to [-2, 2]; flax divides by it so that the
+# truncated draw keeps the requested variance
+_TRUNC_STD_FACTOR = 0.87962566103423978
+
 
 class TwoTowerModel(nn.Module):
     """Both towers share one :class:`ModelConfig`, so their final dims match.
@@ -55,11 +59,40 @@ class TwoTowerModel(nn.Module):
         return self.company_tower(batch)
 
     @torch.no_grad()
+    def init_flax(self, generator: torch.Generator) -> "TwoTowerModel":
+        """Fresh weights from ``generator`` with the distributions of the
+        reference's ``model.init``: every Dense kernel from flax's
+        ``lecun_normal`` (``variance_scaling(1, "fan_in",
+        "truncated_normal")``: a normal truncated at two standard deviations,
+        std sqrt(1/fan_in) / 0.87962566, so that the truncated draw has std
+        sqrt(1/fan_in)), zero biases, BatchNorm scale 1 and bias 0 with
+        running mean 0 and variance 1, and N(0, 1/D) tables. Draws are made
+        in module order on the generator's device (the CPU for a default
+        ``torch.Generator()``), so one seed gives one model. Returns self."""
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                std = float(np.sqrt(1.0 / module.weight.shape[1]) / _TRUNC_STD_FACTOR)
+                w = torch.empty(module.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+                module.weight.copy_(w)
+                module.bias.zero_()
+            elif isinstance(module, BatchNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
+        for name, p in self.named_parameters():
+            if name.endswith("embeddings.table"):
+                p.copy_(torch.randn(p.shape, generator=generator) / np.sqrt(p.shape[1]))
+        return self
+
+    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "TwoTowerModel":
-        """Random weights from ``generator`` with flax's default distributions
-        (lecun-normal kernels as a plain normal, zero biases, N(0, 1/D)
-        tables) and random BatchNorm statistics, so that a wrong statistics
-        map shows in a comparison. Returns self."""
+        """Random weights from ``generator`` for parity tests: lecun-normal
+        kernels as a plain normal, zero biases, N(0, 1/D) tables, and random
+        BatchNorm statistics, so that a wrong statistics map shows in a
+        comparison (:meth:`init_flax` is the init a run trains from).
+        Returns self."""
         for module in self.modules():
             if isinstance(module, nn.Linear):
                 fan_in = module.weight.shape[1]

@@ -1,0 +1,229 @@
+"""Checkpointing: save and restore the whole train state in torch's own
+format (port of ``jodalrob_twotower_tpu/train/checkpoint.py``, whose orbax
+payload becomes one ``torch.save`` file per checkpoint).
+
+The layout and its meaning are the reference's. Under ``directory``:
+
+  epoch_<n>/   per-epoch checkpoints (the ``keep_n`` newest are kept)
+  best/        the checkpoint with the lowest tracked metric
+  final/       the last checkpoint, written by ``finalize``
+  weights/     the weights only (params with the tables merged in, and the
+               BatchNorm statistics): the serving entry point
+  step_a/, step_b/ and step.json
+               mid-epoch checkpoints, double-buffered behind a pointer file
+  config.json  the TrainConfig of the run
+  best.json    {"epoch": n, "metric": value}
+
+Each checkpoint directory holds ``state.pt``, written to a temporary file
+and moved into place with ``os.replace``, so a checkpoint is either whole or
+absent. The payload holds every tensor of a :class:`TrainState` (params,
+BatchNorm statistics, the optimizer's moments and accumulators) or a
+:class:`SparseTrainState` (dense params, statistics, moments, both tables
+and their Adagrad accumulators) at its own dtype, and the step, optimizer
+count and dropout seed as ints, so a restored run continues bit for bit.
+Files load with ``torch.load(..., weights_only=True)`` onto the target's
+device: a checkpoint written on the CPU restores onto the card and back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import shutil
+from pathlib import Path
+from typing import Any, Mapping
+
+import torch
+
+from jodalrob_twotower_torch.config import CheckpointConfig, TrainConfig
+from jodalrob_twotower_torch.device import resolve_device
+from jodalrob_twotower_torch.train.sparse_tables import SparseTable, SparseTrainState, merged_params
+from jodalrob_twotower_torch.train.train_step import TrainState
+
+STATE_FILE = "state.pt"
+
+
+def state_payload(state: TrainState | SparseTrainState) -> dict[str, Any]:
+    """The checkpoint payload of a train state: nested dicts of tensors and
+    ints, tagged with the state's kind."""
+    if isinstance(state, SparseTrainState):
+        return {
+            "kind": "sparse", "step": int(state.step), "seed": int(state.seed),
+            "dense_params": state.dense_params, "batch_stats": state.batch_stats, "opt_state": state.opt_state,
+            "notice_table": dataclasses.asdict(state.notice_table),
+            "company_table": dataclasses.asdict(state.company_table),
+        }
+    return {
+        "kind": "dense", "step": int(state.step), "seed": int(state.seed),
+        "params": state.params, "batch_stats": state.batch_stats, "opt_state": state.opt_state,
+    }
+
+
+def _conform(loaded, target, path: str):
+    """``loaded`` checked against ``target``'s structure: the same keys, and
+    every tensor of the same shape and dtype; ints stay ints."""
+    if isinstance(target, torch.Tensor):
+        if not isinstance(loaded, torch.Tensor) or loaded.shape != target.shape or loaded.dtype != target.dtype:
+            got = (tuple(loaded.shape), loaded.dtype) if isinstance(loaded, torch.Tensor) else type(loaded).__name__
+            raise ValueError(f"checkpoint leaf {path}: {got} does not fit the target's "
+                             f"{(tuple(target.shape), target.dtype)}")
+        return loaded
+    if isinstance(target, Mapping):
+        if not isinstance(loaded, Mapping) or set(loaded) != set(target):
+            raise ValueError(f"checkpoint node {path}: keys {sorted(loaded) if isinstance(loaded, Mapping) else loaded}"
+                             f" differ from the target's {sorted(target)}")
+        return {k: _conform(loaded[k], target[k], f"{path}/{k}") for k in target}
+    if isinstance(target, (bool, int, float, str)):
+        if type(loaded) is not type(target):
+            raise ValueError(f"checkpoint leaf {path}: {loaded!r} is not a {type(target).__name__}")
+        return loaded
+    raise TypeError(f"no checkpoint form for {path} of type {type(target).__name__}")
+
+
+def state_from_payload(payload: Mapping[str, Any], target: TrainState | SparseTrainState):
+    """A new state of ``target``'s type from a loaded payload that fits it."""
+    want = state_payload(target)
+    if payload.get("kind") != want["kind"]:
+        raise ValueError(f"a {payload.get('kind')!r} checkpoint cannot restore into a {want['kind']!r} train state")
+    p = _conform(dict(payload), want, "")
+    if isinstance(target, SparseTrainState):
+        return SparseTrainState(p["step"], p["dense_params"], p["batch_stats"], p["opt_state"],
+                                SparseTable(**p["notice_table"]), SparseTable(**p["company_table"]), p["seed"])
+    return TrainState(p["step"], p["params"], p["batch_stats"], p["opt_state"], p["seed"])
+
+
+def _write_file(path: Path, payload) -> None:
+    path.mkdir(parents=True, exist_ok=True)
+    tmp = path / (STATE_FILE + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, path / STATE_FILE)
+
+
+def _write_json(path: Path, obj) -> None:
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(obj))
+    tmp.replace(path)
+
+
+class CheckpointManager:
+    """best/final/epoch/step checkpoint retention (layout in the module
+    docstring)."""
+
+    def __init__(self, directory: str | Path, cfg: CheckpointConfig | None = None) -> None:
+        self.dir = Path(directory)
+        self.cfg = cfg or CheckpointConfig()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self._best_metric: float | None = None
+        best_file = self.dir / "best.json"
+        if best_file.exists():
+            self._best_metric = json.loads(best_file.read_text()).get("metric")
+
+    # -- save --------------------------------------------------------------
+    def save_config(self, cfg: TrainConfig) -> None:
+        cfg.to_json(self.dir / "config.json")
+
+    def save_epoch(self, state, epoch: int, metric: float | None = None) -> None:
+        """Save an epoch checkpoint; update best/ when the metric improves."""
+        if self.cfg.save_every_epoch:
+            self._write(self.dir / f"epoch_{epoch}", state)
+            self._prune_epochs()
+        if (
+            self.cfg.save_best
+            and metric is not None
+            and (self._best_metric is None or metric < self._best_metric)
+        ):
+            self._best_metric = float(metric)
+            self._write(self.dir / "best", state)
+            _write_json(self.dir / "best.json", {"epoch": epoch, "metric": float(metric)})
+
+    def save_step(self, state, epoch: int, batch_in_epoch: int) -> None:
+        """Mid-epoch checkpoint for preemption recovery.
+
+        ``batch_in_epoch`` is the exact number of batches the epoch has
+        consumed so far (recorded, not derived at resume). Double-buffered:
+        the save goes to whichever of ``step_a/`` and ``step_b/`` the
+        ``step.json`` pointer does not name, and the pointer is replaced
+        atomically only after the save has landed, so a preemption during
+        the write leaves the previous good checkpoint pointed to."""
+        ptr = self.dir / "step.json"
+        prev = json.loads(ptr.read_text())["dir"] if ptr.exists() else "step_b"
+        nxt = "step_a" if prev == "step_b" else "step_b"
+        self._write(self.dir / nxt, state)
+        _write_json(ptr, {"dir": nxt, "epoch": int(epoch), "step": int(state.step), "batch": int(batch_in_epoch)})
+
+    def restore_step(self, target) -> tuple[Any, int, int, int | None] | None:
+        """The newest mid-epoch checkpoint as (state, epoch, step,
+        batch_in_epoch), or None if there is none. ``batch_in_epoch`` is
+        None for a pointer written without it (callers derive it)."""
+        ptr = self.dir / "step.json"
+        if not ptr.exists():
+            return None
+        meta = json.loads(ptr.read_text())
+        state = self.restore(meta["dir"], target)
+        batch = meta.get("batch")
+        return state, int(meta["epoch"]), int(meta["step"]), (int(batch) if batch is not None else None)
+
+    def finalize(self, state) -> None:
+        if self.cfg.save_final:
+            self._write(self.dir / "final", state)
+        # the weights-only export (the reference's model_weights.pt)
+        self._write_params_only(self.dir / "weights", state)
+
+    def _write(self, path: Path, state) -> None:
+        _write_file(path, state_payload(state))
+
+    def _write_params_only(self, path: Path, state) -> None:
+        params = merged_params(state) if isinstance(state, SparseTrainState) else state.params
+        _write_file(path, {"params": params, "batch_stats": state.batch_stats})
+
+    _EPOCH_RE = re.compile(r"^epoch_(\d+)$")
+
+    def _epoch_dirs(self) -> list[tuple[int, Path]]:
+        """Complete epoch checkpoints only: a directory named exactly
+        ``epoch_<int>`` that holds its state file (an interrupted save
+        leaves at most a temporary file, never a partial state file)."""
+        out = []
+        for p in self.dir.glob("epoch_*"):
+            m = self._EPOCH_RE.match(p.name)
+            if m and p.is_dir() and (p / STATE_FILE).exists():
+                out.append((int(m.group(1)), p))
+        return sorted(out)
+
+    def _prune_epochs(self) -> None:
+        epochs = self._epoch_dirs()
+        for _, p in epochs[: max(len(epochs) - self.cfg.keep_n, 0)]:
+            shutil.rmtree(p)
+
+    # -- restore -----------------------------------------------------------
+    def latest_epoch(self) -> int | None:
+        epochs = self._epoch_dirs()
+        return epochs[-1][0] if epochs else None
+
+    def restore(self, name: str, target):
+        """Restore checkpoint ``name`` ('best', 'final', 'epoch_N', 'step_a')
+        as a new state of ``target``'s type, structure and device (an
+        initialized state); raises if the checkpoint does not fit it."""
+        payload = torch.load(self.dir / name / STATE_FILE, map_location=target.device, weights_only=True)
+        return state_from_payload(payload, target)
+
+    def restore_latest(self, target):
+        """(state, epoch) of the newest epoch checkpoint, or None."""
+        epoch = self.latest_epoch()
+        if epoch is None:
+            return None
+        return self.restore(f"epoch_{epoch}", target), epoch
+
+    def restore_weights(self, template: Mapping[str, torch.Tensor] | None = None, *, device=None) -> dict:
+        """The weights-only export as {'params', 'batch_stats'}, each keyed
+        as the model's ``state_dict``, on ``device`` (None means the card):
+        the serving entry point, with no optimizer state and no step.
+        ``template`` (a model's ``state_dict``) checks that every key, shape
+        and dtype fits the model that will take them."""
+        payload = torch.load(self.dir / "weights" / STATE_FILE, map_location=resolve_device(device),
+                             weights_only=True)
+        if template is not None:
+            got = {**payload["params"], **payload["batch_stats"]}
+            _conform(got, {k: template[k] for k in template}, "weights")
+        return {"params": payload["params"], "batch_stats": payload["batch_stats"]}

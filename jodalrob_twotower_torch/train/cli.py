@@ -1,0 +1,160 @@
+"""Training CLI of the PyTorch port, ``python -m jodalrob_twotower_torch.train``
+(port of ``scripts/train.py``, one device).
+
+Every hyperparameter lives in the typed TrainConfig (JSON-serializable); the
+flags override the common ones. The run writes checkpoints under
+``--output-dir`` (epoch, best, final, weights and, with
+``--save-every-steps``, mid-epoch ones that ``--resume`` continues from bit
+for bit), a row of the results CSV and, with ``--metrics-jsonl``, one JSON
+line per epoch.
+
+Data: ``--synthetic`` (the default) is the planted-cluster dataset, at the
+``tiny`` scale or the headline bench's (``--synthetic-scale bench``). The
+run goes on the card; ``--force-cpu`` asks for the CPU.
+
+  python -m jodalrob_twotower_torch.train --synthetic --synthetic-scale bench \\
+      --batch-size 8192 --epochs 8 --sample-on-device --epoch-corpus-eval \\
+      --output-dir runs/headline
+  python -m jodalrob_twotower_torch.train --force-cpu --epochs 2 --output-dir runs/cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(prog="python -m jodalrob_twotower_torch.train", description=__doc__.splitlines()[0])
+    p.add_argument("--config", type=Path, help="TrainConfig JSON")
+    p.add_argument("--synthetic", action="store_true", help="use the synthetic dataset (the default)")
+    p.add_argument(
+        "--synthetic-scale", choices=["tiny", "bench"], default="tiny",
+        help="'tiny' (10k rows a side, 50k pairs) or 'bench' (the headline bench's shape: "
+        "reference-shaped schema, 100k rows a side, 400k pairs, 256 planted clusters)",
+    )
+    p.add_argument("--data-dir", type=Path, help="parquet dataset directory (not ported yet)")
+    p.add_argument("--stream", action="store_true", help="stream pairs.parquet in chunks (not ported yet)")
+    p.add_argument("--output-dir", type=Path, default=Path("output/models"))
+    p.add_argument("--epochs", type=int)
+    p.add_argument("--batch-size", type=int)
+    p.add_argument("--learning-rate", type=float)
+    p.add_argument("--pair-limit", type=int)
+    p.add_argument("--seed", type=int)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--save-every-steps", type=int,
+                   help="mid-epoch checkpoints every N steps; --resume restarts from the exact step")
+    p.add_argument("--no-corpus-eval", action="store_true")
+    p.add_argument("--epoch-corpus-eval", action="store_true",
+                   help="run the corpus-retrieval eval every epoch (default: the final one only)")
+    p.add_argument("--results-csv", type=Path, help="append the run's result row here (default train_results.csv)")
+    p.add_argument("--metrics-jsonl", type=Path, help="stream per-epoch metrics to this JSONL file")
+    p.add_argument("--sample-on-device", action="store_true",
+                   help="draw each step's batch on the device, IID with replacement, from the resident pair set")
+    p.add_argument("--fused-logits", choices=["auto", "on", "off"],
+                   help="the fused CE kernels: 'auto' (the default) on the card, 'off' the materialized loss")
+    p.add_argument("--dropout-rng", choices=["auto", "threefry", "rbg"],
+                   help="ModelConfig.dropout_rng_impl (the port draws every mask from a seeded torch.Generator)")
+    p.add_argument("--force-cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("--mesh-devices", type=int, help="train over an N-device mesh (not ported yet)")
+    p.add_argument("--store-sharding", choices=["replicated", "rows"], help="(not ported yet)")
+    p.add_argument("--grad-compression", choices=["none", "int16", "bf16"], help="(not ported yet)")
+    p.add_argument("--compressed-negatives", choices=["local", "global"], help="(not ported yet)")
+    return p.parse_args(argv)
+
+
+def configure(args):
+    """The TrainConfig of a run: ``--config`` (or the defaults) with the
+    flags applied."""
+    from jodalrob_twotower_torch.config import TrainConfig
+
+    cfg = TrainConfig.from_json(args.config) if args.config else TrainConfig()
+    if args.epochs is not None:
+        cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, num_epochs=args.epochs))
+    if args.batch_size is not None:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=args.batch_size))
+    if args.learning_rate is not None:
+        cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, learning_rate=args.learning_rate))
+    if args.pair_limit is not None:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, pair_limit=args.pair_limit))
+    if args.seed is not None:
+        cfg = cfg.replace(seed=args.seed)
+    if args.save_every_steps is not None:
+        cfg = cfg.replace(checkpoint=dataclasses.replace(cfg.checkpoint, save_every_steps=args.save_every_steps))
+    if args.sample_on_device:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, sample_on_device=True))
+    if args.metrics_jsonl:
+        cfg = cfg.replace(metrics_jsonl=str(args.metrics_jsonl))
+    if args.results_csv:
+        cfg = cfg.replace(results_csv=str(args.results_csv))
+    if args.fused_logits:
+        resolved = {"auto": "auto", "on": True, "off": False}[args.fused_logits]
+        cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, use_fused_logits=resolved))
+    if args.dropout_rng:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_rng_impl=args.dropout_rng))
+    return cfg
+
+
+def synthetic_data(scale: str, seed: int):
+    """(schema, notice store, company store, pairs) of the synthetic dataset
+    at ``scale``."""
+    from jodalrob_twotower_torch.data.synthetic import make_synthetic_dataset
+
+    if scale == "bench":
+        from jodalrob_twotower_torch.schema import reference_shaped_schema
+
+        ds = make_synthetic_dataset(
+            reference_shaped_schema(), n_notices=100_000, n_companies=100_000, n_pairs=400_000,
+            n_clusters=256, seed=seed,
+        )
+    else:
+        ds = make_synthetic_dataset(seed=seed)
+    return ds.schema, ds.notice_store, ds.company_store, ds.pairs
+
+
+def split_pairs(pairs: np.ndarray, cfg) -> tuple[np.ndarray, np.ndarray]:
+    """(train, val) pairs: ``pair_limit`` truncation first, then the seeded
+    permutation (the reference's order; the eval CLI carves the same val
+    set)."""
+    if cfg.data.pair_limit:
+        pairs = pairs[: cfg.data.pair_limit]
+    perm = np.random.default_rng(cfg.data.shuffle_seed).permutation(len(pairs))
+    n_test = int(round(len(pairs) * cfg.data.test_split))
+    return pairs[perm[n_test:]], pairs[perm[:n_test]]
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    for flag, item in (("data_dir", "A11"), ("stream", "A11"), ("mesh_devices", "A12"), ("store_sharding", "A12"),
+                       ("grad_compression", "A12"), ("compressed_negatives", "A12")):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to the PyTorch package yet (ROADMAP {item})"
+            )
+    from jodalrob_twotower_torch.train.trainer import Trainer
+
+    cfg = configure(args)
+    print(f"data: synthetic planted-cluster dataset ({args.synthetic_scale} scale)")
+    schema, notice_store, company_store, pairs = synthetic_data(args.synthetic_scale, cfg.seed)
+    train_pairs, val_pairs = split_pairs(pairs, cfg)
+    print(f"pairs: {len(train_pairs):,} train / {len(val_pairs):,} val")
+
+    trainer = Trainer(cfg, schema, notice_store, company_store, device="cpu" if args.force_cpu else None)
+    result = trainer.train(
+        train_pairs,
+        val_pairs,
+        checkpoint_dir=args.output_dir,
+        resume=args.resume,
+        corpus_eval=not args.no_corpus_eval,
+        epoch_corpus_eval=args.epoch_corpus_eval,
+    )
+    print(f"done: {result.examples_per_sec:,.0f} examples/s, results appended to {cfg.results_csv}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,437 @@
+"""The trainer (port of ``jodalrob_twotower_tpu/train/trainer.py``, one
+device).
+
+Orchestrates: stores on the device -> train steps -> per-epoch validation
+(and optionally the corpus eval) -> epoch, best and mid-epoch checkpoints ->
+the final corpus-level retrieval eval -> the results CSV. The state starts
+from ``TwoTowerModel.init_flax`` (the reference's ``model.init``
+distributions) seeded with ``cfg.seed``.
+
+Four step forms, each a call of ``n_inner`` steps with single steps for an
+epoch's remainder, as in the reference:
+
+* dense, host-fed: shuffled index batches (``epoch_batches``) stacked
+  ``n_inner`` at a time (``make_scanned_train_steps``);
+* dense, sampled on the device (``DataConfig.sample_on_device``): each step
+  draws its batch from the resident pair set with a generator keyed by the
+  global step (``make_sampled_train_steps``), so a resumed run draws the
+  batches the interrupted one would have;
+* sparse tables (``TrainConfig.sparse_tables``), host-fed or sampled, with
+  one table update per step or per window (``sparse_defer_updates``).
+
+Mid-epoch resume is exact: the epoch iterator is seeded, the checkpoint
+records how many batches the epoch had consumed, and every random draw
+(dropout, sampling) is a function of (seed, global step). Meshes, the
+compressed gradient sync (the parallel slice, ROADMAP A12) and parquet
+streaming (the data-plane slice, ROADMAP A11) are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import torch
+
+from jodalrob_twotower_torch.config import TrainConfig
+from jodalrob_twotower_torch.data.feature_store import FeatureStore
+from jodalrob_twotower_torch.data.pipeline import assemble_pair_batch, epoch_batches
+from jodalrob_twotower_torch.device import resolve_device
+from jodalrob_twotower_torch.evaluation.evaluator import (
+    CorpusEvalResult,
+    Evaluator,
+    corpus_retrieval_eval,
+    qualitative_assessment,
+)
+from jodalrob_twotower_torch.models import build_model
+from jodalrob_twotower_torch.serving.service import FrozenState
+from jodalrob_twotower_torch.train import sparse_tables
+from jodalrob_twotower_torch.train.checkpoint import CheckpointManager
+from jodalrob_twotower_torch.train.ledger import append_result
+from jodalrob_twotower_torch.train.train_step import (
+    create_train_state,
+    device_store,
+    make_indexed_train_step,
+    make_sampled_train_steps,
+    make_scanned_train_steps,
+    resolve_store_dtype,
+)
+from jodalrob_twotower_torch.utils.profiling import MetricsLogger
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: object
+    history: list[dict]
+    final_val: dict[str, float]
+    corpus: CorpusEvalResult | None
+    examples_per_sec: float
+    num_params: int
+
+
+def _count_params(params) -> int:
+    return int(sum(p.numel() for p in params.values()))
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
+
+
+class Trainer:
+    """End-to-end training over host FeatureStores + positive pairs, on one
+    device (``device``; None means the card, "cpu" must be asked for)."""
+
+    def __init__(
+        self,
+        cfg: TrainConfig,
+        schema,
+        notice_store: FeatureStore,
+        company_store: FeatureStore,
+        *,
+        mesh=None,
+        device=None,
+        log_fn: Callable[[str], None] = print,
+    ) -> None:
+        if mesh is not None:
+            raise _not_ported("training over a device mesh", "A12")
+        self.cfg = cfg
+        self.schema = schema
+        self.notice_store = notice_store
+        self.company_store = company_store
+        self.device = resolve_device(device)
+        self.model = build_model(schema, cfg)
+        self.log = log_fn
+        self.evaluator = Evaluator(self.model, cfg)
+        self._dev_stores = None
+        self._metrics_logger = MetricsLogger(cfg.metrics_jsonl) if cfg.metrics_jsonl else None
+
+    def _init_state(self, total_steps: int):
+        """Fresh weights (``init_flax`` from ``cfg.seed``) and the train state
+        of the configured form, with its optimizer."""
+        cfg = self.cfg
+        self.model.init_flax(torch.Generator().manual_seed(cfg.seed))
+        if cfg.sparse_tables:
+            return sparse_tables.create_sparse_train_state(self.model, cfg, cfg.seed, total_steps, device=self.device)
+        return create_train_state(self.model, cfg, cfg.seed, total_steps, device=self.device)
+
+    def train(
+        self,
+        train_pairs: np.ndarray,
+        val_pairs: np.ndarray,
+        *,
+        checkpoint_dir: str | Path | None = None,
+        resume: bool = False,
+        corpus_eval: bool = True,
+        epoch_corpus_eval: bool = False,
+        n_inner: int = 8,
+    ) -> TrainResult:
+        """Train ``cfg.optimizer.num_epochs`` epochs of ``len(train_pairs) //
+        batch_size`` steps, ``n_inner`` steps per call, validating on
+        ``val_pairs`` after each; with ``checkpoint_dir``, checkpoint there
+        and, with ``resume``, continue from its newest checkpoint."""
+        cfg = self.cfg
+        if cfg.mesh.grad_compression != "none":
+            raise _not_ported("the compressed gradient sync", "A12")
+        b = cfg.data.batch_size
+        steps_per_epoch = len(train_pairs) // b
+        total_steps = max(steps_per_epoch * cfg.optimizer.num_epochs, 1)
+        n_inner = max(min(n_inner, steps_per_epoch), 1)
+        dev = self.device
+        model = self.model
+
+        state, tx = self._init_state(total_steps)
+        if cfg.sparse_tables:
+            make_window = (sparse_tables.make_deferred_sparse_steps if cfg.sparse_defer_updates
+                           else sparse_tables.make_scanned_sparse_steps)
+            scan_steps = make_window(model, cfg, tx, total_steps, n_inner)
+            single_step = sparse_tables.make_sparse_train_step(model, cfg, tx, total_steps, with_metrics=True)
+            num_params = _count_params(sparse_tables.merged_params(state))
+        else:
+            scan_steps = make_scanned_train_steps(model, cfg, tx, n_inner)
+            single_step = make_indexed_train_step(model, cfg, tx, with_metrics=True)
+            num_params = _count_params(state.params)
+
+        sampled_steps: dict[int, Callable] = {}
+        if cfg.data.sample_on_device:
+            # batches drawn on the device, IID with replacement, by a
+            # generator keyed with the global step: draws are a function of
+            # the step counter, so mid-epoch resume replays them exactly
+            if not cfg.sparse_tables:
+                make_sampled = lambda k: make_sampled_train_steps(model, cfg, tx, k, b)  # noqa: E731
+            elif cfg.sparse_defer_updates:
+                make_sampled = lambda k: sparse_tables.make_sampled_deferred_sparse_steps(  # noqa: E731
+                    model, cfg, tx, total_steps, k, b)
+            else:
+                make_sampled = lambda k: sparse_tables.make_sampled_sparse_steps(  # noqa: E731
+                    model, cfg, tx, total_steps, k, b)
+
+            def sampled_fn(k: int) -> Callable:
+                if k not in sampled_steps:
+                    sampled_steps[k] = make_sampled(k)
+                return sampled_steps[k]
+
+            sampled_fn(n_inner)  # the main dispatch size
+        self.log(f"model: {num_params:,} params; {steps_per_epoch} steps/epoch x {cfg.optimizer.num_epochs} epochs")
+
+        ckpt = None
+        start_epoch = 0
+        skip_batches = 0  # mid-epoch resume: batches already trained this epoch
+        if checkpoint_dir is not None:
+            ckpt = CheckpointManager(checkpoint_dir, cfg.checkpoint)
+            ckpt.save_config(cfg)
+            if resume:
+                last_epoch = ckpt.latest_epoch()
+                step_ckpt = ckpt.restore_step(state)
+                # a mid-epoch checkpoint wins only if it is from an epoch no
+                # completed-epoch checkpoint covers (the epoch save happens
+                # after the last step save of that epoch)
+                if step_ckpt is not None and step_ckpt[1] > (last_epoch if last_epoch is not None else -1):
+                    state, start_epoch, saved_step, saved_batch = step_ckpt
+                    if saved_batch is not None:
+                        skip_batches = saved_batch
+                    else:  # a pointer written without "batch": derive it
+                        skip_batches = max(0, min(saved_step - start_epoch * steps_per_epoch, steps_per_epoch))
+                    self.log(
+                        f"resumed mid-epoch {start_epoch} at step {saved_step} "
+                        f"(skipping {skip_batches} already-trained batches)"
+                    )
+                elif last_epoch is not None:
+                    state = ckpt.restore(f"epoch_{last_epoch}", state)
+                    start_epoch = last_epoch + 1
+                    self.log(f"resumed from epoch {last_epoch} (step {int(state.step)})")
+
+        # device-resident stores (dense blocks at the configured store dtype);
+        # indices are the only per-step host-to-device traffic. Validation and
+        # the corpus encode reuse them.
+        self.prepare_device_eval()
+        n_store, c_store = self._dev_stores
+        pairs_dev = None
+        if cfg.data.sample_on_device:
+            if not len(train_pairs):
+                raise ValueError("sample_on_device requires a non-empty pair set")
+            pairs_dev = torch.from_numpy(np.asarray(train_pairs, np.int64)).to(dev)
+            sample_seed = cfg.data.shuffle_seed
+
+        def put_idx(idx: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
+
+        history: list[dict] = []
+        examples_per_sec = 0.0
+        train_loss = float("nan")
+        last_epoch_corpus = None  # the final epoch's epoch_corpus_eval result
+        first_dispatch = True  # the first dispatch builds kernels: not timed
+        save_every = cfg.checkpoint.save_every_steps if ckpt is not None else 0
+        steps_since_save = 0
+        for epoch in range(start_epoch, cfg.optimizer.num_epochs):
+            t0 = time.perf_counter()
+            losses: list[torch.Tensor] = []
+            stack: list[np.ndarray] = []
+            seen = 0
+            # batches consumed from this epoch (skipped + trained), recorded
+            # in mid-epoch checkpoints so that resume is exact
+            batches_done = skip_batches
+            if pairs_dev is not None:
+                # sampled: steps_per_epoch draws on the device, no host
+                # iterator; resume runs the remaining steps
+                steps_todo = steps_per_epoch - skip_batches
+                skip_batches = 0
+                while steps_todo > 0:
+                    k = min(n_inner, steps_todo)
+                    state, metrics = sampled_fn(k)(state, sample_seed, pairs_dev, n_store, c_store)
+                    if first_dispatch:
+                        float(metrics["loss"][-1])  # wait for the first call
+                        t0 = time.perf_counter()
+                        seen = 0
+                        first_dispatch = False
+                    else:
+                        seen += k * b
+                    losses.append(metrics["loss"])
+                    batches_done += k
+                    steps_since_save += k
+                    steps_todo -= k
+                    if save_every and steps_since_save >= save_every:
+                        ckpt.save_step(state, epoch, batches_done)
+                        steps_since_save = 0
+                batch_iter = ()
+            else:
+                batch_iter = epoch_batches(train_pairs, b, shuffle=True, seed=cfg.data.shuffle_seed + epoch)
+            for idx in batch_iter:
+                if skip_batches:  # mid-epoch resume: the epoch iterator is
+                    skip_batches -= 1  # seeded, so dropping the first N
+                    continue  # batches replays the interrupted epoch exactly
+                if first_dispatch and not stack:
+                    self.verify_pair_alignment(idx[: min(len(idx), 256)], train_pairs)
+                stack.append(idx)
+                if len(stack) == n_inner:
+                    state, metrics = scan_steps(state, put_idx(np.stack(stack)), n_store, c_store)
+                    stack.clear()
+                    if first_dispatch:
+                        float(metrics["loss"][-1])  # wait for the first call
+                        t0 = time.perf_counter()
+                        seen = 0  # this dispatch's examples and time both excluded
+                        first_dispatch = False
+                    else:
+                        seen += n_inner * b
+                    losses.append(metrics["loss"])
+                    batches_done += n_inner
+                    steps_since_save += n_inner
+                    if save_every and steps_since_save >= save_every:
+                        ckpt.save_step(state, epoch, batches_done)
+                        steps_since_save = 0
+            for idx in stack:  # remainder: single steps
+                state, metrics = single_step(state, put_idx(idx), n_store, c_store)
+                seen += b
+                losses.append(metrics["loss"].reshape(-1))
+                batches_done += 1
+                steps_since_save += 1
+                if save_every and steps_since_save >= save_every:
+                    ckpt.save_step(state, epoch, batches_done)
+                    steps_since_save = 0
+            if losses:  # empty when a resume skipped the whole epoch
+                epoch_losses = torch.cat([l.reshape(-1).float() for l in losses]).cpu().numpy()
+                train_loss = float(epoch_losses[-min(len(epoch_losses), 20):].mean())
+            dt = time.perf_counter() - t0
+            examples_per_sec = seen / dt
+
+            val = self.validate(state, val_pairs)
+            entry = {
+                "epoch": epoch,
+                "train_loss": train_loss,
+                "examples_per_sec": examples_per_sec,
+                **{f"val_{k}": v for k, v in val.items()},
+            }
+            if epoch_corpus_eval and len(val_pairs):
+                # the per-epoch corpus-retrieval trajectory, from the
+                # device-resident stores
+                last_epoch_corpus = self.corpus_eval(state, val_pairs)
+                entry.update({f"corpus_recall@{k}": v for k, v in last_epoch_corpus.recall.items()})
+                entry["corpus_mrr"] = last_epoch_corpus.mrr
+            history.append(entry)
+            if self._metrics_logger is not None:
+                self._metrics_logger.log(int(state.step), entry)
+            self.log(
+                f"epoch {epoch}: train_loss {train_loss:.4f} val_loss {val.get('loss', float('nan')):.4f} "
+                f"acc {val.get('accuracy', 0):.4f} mrr {val.get('mrr', 0):.4f} "
+                f"gap {val.get('similarity_gap', 0):.4f} z-gap {val.get('z_gap', 0):.2f} "
+                f"({examples_per_sec:,.0f} ex/s)"
+            )
+            if ckpt is not None:
+                ckpt.save_epoch(state, epoch, metric=val.get("loss"))
+
+        final_val = self.validate(state, val_pairs)
+        self.log("assessment: " + qualitative_assessment(final_val, b))
+
+        corpus = None
+        if corpus_eval and len(val_pairs):
+            # the last epoch's per-epoch result is this exact evaluation:
+            # reuse it rather than encode the corpus again
+            corpus = last_epoch_corpus if last_epoch_corpus is not None else self.corpus_eval(state, val_pairs)
+            self.log(
+                f"corpus retrieval over {corpus.corpus_size:,} companies: "
+                + " ".join(f"recall@{k}={v:.4f}" for k, v in corpus.recall.items())
+                + f" mrr={corpus.mrr:.4f}"
+            )
+
+        if ckpt is not None:
+            ckpt.finalize(state)
+        if cfg.results_csv:
+            val_out = dict(final_val)
+            if corpus is not None:
+                val_out.update({f"corpus_recall@{k}": v for k, v in corpus.recall.items()})
+            append_result(
+                cfg.results_csv,
+                run_info={
+                    "epochs": cfg.optimizer.num_epochs,
+                    "batch_size": b,
+                    "learning_rate": cfg.optimizer.learning_rate,
+                    "embedding_dim": cfg.model.final_embedding_dim,
+                    "num_params": num_params,
+                    "examples_per_sec": f"{examples_per_sec:.0f}",
+                },
+                val_metrics=val_out,
+                train_loss=train_loss,
+            )
+        return TrainResult(
+            state=state,
+            history=history,
+            final_val=final_val,
+            corpus=corpus,
+            examples_per_sec=examples_per_sec,
+            num_params=num_params,
+        )
+
+    def train_streaming(self, *args, **kwargs) -> TrainResult:
+        """Training from parquet pair files too large for host memory."""
+        raise _not_ported("streaming parquet pairs (train_streaming)", "A11")
+
+    def prepare_device_eval(self) -> None:
+        """Place both feature stores on the device, so validate() and
+        corpus_eval() run device-resident (indices-only uploads) without a
+        prior train(): the standalone-eval entry point."""
+        store_dt = resolve_store_dtype(self.cfg)
+        self._dev_stores = (
+            device_store(self.notice_store, dtype=store_dt, device=self.device),
+            device_store(self.company_store, dtype=store_dt, device=self.device),
+        )
+
+    @staticmethod
+    def verify_pair_alignment(batch_idx: np.ndarray, pairs: np.ndarray) -> None:
+        """One-time check that every row of an index batch is a known
+        positive pair (the reference ran an equivalent check on its first
+        batch)."""
+        def _pack(a: np.ndarray) -> np.ndarray:
+            # rows are non-negative ints < 2^32: pack (i, j) into one int64 so
+            # membership is a searchsorted over a sorted array
+            a = np.asarray(a, dtype=np.int64)
+            return (a[:, 0] << np.int64(32)) | a[:, 1]
+
+        known = np.sort(_pack(pairs))
+        keys = _pack(batch_idx)
+        pos = np.minimum(np.searchsorted(known, keys), len(known) - 1)
+        ok = known[pos] == keys
+        if not ok.all():
+            first = tuple(np.asarray(batch_idx)[~ok][0].tolist())
+            raise AssertionError(
+                f"{int((~ok).sum())}/{len(batch_idx)} batch rows are not known "
+                f"positive pairs (first: {first}) - input pipeline misaligned"
+            )
+
+    @staticmethod
+    def _eval_view(state) -> FrozenState:
+        """The weights the evaluator reads, under the model's state_dict
+        keys (a sparse state's tables merged back in)."""
+        return FrozenState(state.state_dict)
+
+    def validate(self, state, val_pairs: np.ndarray) -> dict[str, float]:
+        b = self.cfg.data.batch_size
+        state = self._eval_view(state)
+        if self._dev_stores is not None and len(val_pairs) >= b:
+            # device-resident eval: whole stacks of batches per call, only
+            # indices over the link
+            return self.evaluator.evaluate_indexed(state, val_pairs, *self._dev_stores, batch_size=b)
+        batches = (
+            assemble_pair_batch(self.notice_store, self.company_store, idx)
+            for idx in epoch_batches(val_pairs, b, shuffle=False)
+        )
+        return self.evaluator.evaluate(state, batches)
+
+    def corpus_eval(self, state, val_pairs: np.ndarray, ks: tuple[int, ...] = (10, 100)) -> CorpusEvalResult:
+        """Rank each val notice's paired company against the full corpus."""
+        state = self._eval_view(state)
+        if self._dev_stores is not None:
+            # the big side encodes straight from the device-resident store
+            corpus_emb = self.evaluator.encode_corpus_device(
+                state, self._dev_stores[1], len(self.company_store), side="company"
+            )
+        else:
+            corpus_emb = self.evaluator.encode_corpus(
+                state, self.company_store.dense, self.company_store.cat_ids, side="company"
+            )
+        q_rows = val_pairs[:, 0]
+        query_emb = self.evaluator.encode_corpus(
+            state, self.notice_store.dense[q_rows], self.notice_store.cat_ids[q_rows], side="notice"
+        )
+        return corpus_retrieval_eval(query_emb, corpus_emb, val_pairs[:, 1], ks=ks)
