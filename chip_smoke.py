@@ -32,7 +32,11 @@ NVIDIA card.
    seeded generator, a synthetic corpus of 1,000,000 companies - through
    ``RetrievalService`` (exact flat, and int8 chunked with a bf16 rescore),
    checks its answers against plain float32 scans, shows through the launch
-   counters that the path ran the kernels, and measures throughput.
+   counters that the path ran the kernels, and measures throughput; then the
+   serve CLI's auto-configuration (``calibrate_serving_config`` at recall
+   0.95, k=100, 2,048 notice queries) over the 1M corpus embeddings, from the
+   card and streamed from host numpy: the same pick, the two exact
+   references equal except at ties, both timed.
 4. Training phase: the headline bench's workload (``jodalrob_twotower_torch.
    bench``: the same config at B=8192, 16 steps per call, stores and pairs
    on the card) for one warm-up and several timed calls; the launch counters
@@ -55,13 +59,27 @@ NVIDIA card.
    learned, its final corpus recall@100 within 0.05 of the JAX artifact's,
    and every kernel launched exactly as often as the run's steps,
    validation batches and encode chunks ask.
-8. Resume phase: 8 sampled steps with dropout at B=8192, ``save_step``, a
+8. Serve-CLI phase, on the headline's trained weights:
+   ``python -m jodalrob_twotower_torch.serve`` in-process over the 100,000
+   companies, 8,192 notices at k=100 per run: int8 built and saved, then
+   loaded (the JSONL equal line for line), exact (the int8 and exact answers
+   each equal to a plain scan of the same embeddings except at ties; the
+   int8 recall@100 against exact measured), ``--target-recall 0.95`` (the
+   pick's measured recall meets it) and ``--qps-bench``; K1 launched exactly once per corpus encode chunk
+   and query batch, no other kernel.
+9. Resume phase: 8 sampled steps with dropout at B=8192, ``save_step``, a
    restore into a freshly built state and 8 more steps equal 16
    uninterrupted steps bit for bit (every param, moment and BatchNorm
    statistic); the checkpoint restores onto the CPU and back bit for bit;
    ``restore_weights`` -> ``RetrievalService`` searches as the in-memory
    weights do.
-9. The large-table paths, BASELINE config 3 (tables of 10,000,384 x 64 f32
+10. Profile phase: ``python -m jodalrob_twotower_torch.profile_step``'s
+   variants at B=8192 over the bench's stores (one warm-up and 3 timed
+   dispatches of 16 steps each): ms/step finite and each kernel's launches
+   exact per step (the variants that bypass K1, K2 or K6/K11 launch them
+   never); its trace of 3 dispatches of ``full``, busy share in (0, 1]; the
+   measured matmul peak.
+11. The large-table paths, BASELINE config 3 (tables of 10,000,384 x 64 f32
    per tower, B=8192): ``scaled_dense`` (the row-gather kernel K4 through
    ``MeshConfig.use_pallas_lookup``, the full-table scatter and rowwise
    Adagrad), ``scaled_sparse`` (sparse tables, one update per step) and
@@ -70,7 +88,7 @@ NVIDIA card.
    twice per step on the dense path and never on the sparse ones, K1 and
    K2 never, K6 and K11 once per step; then two sparse steps against two
    dense steps from one state.
-10. One step's loss and gradients at B=1024 on the card against the same step
+12. One step's loss and gradients at B=1024 on the card against the same step
    on the CPU through the plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
@@ -80,7 +98,9 @@ the per-kernel JSON record, the last line ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -93,7 +113,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from jodalrob_twotower_torch import bench, train_headline
+from jodalrob_twotower_torch import bench, profile_step, serve, train_headline
 from jodalrob_twotower_torch.config import LossConfig, MeshConfig, ModelConfig, OptimizerConfig, TrainConfig
 from jodalrob_twotower_torch.data.synthetic import make_synthetic_dataset
 from jodalrob_twotower_torch.data.types import PairBatch, default_tower_gather
@@ -138,7 +158,8 @@ from jodalrob_twotower_torch.schema import (
     TwoTowerSchema,
     reference_shaped_schema,
 )
-from jodalrob_twotower_torch.serving.index import recall_vs_exact
+from jodalrob_twotower_torch.serving import autoconfig
+from jodalrob_twotower_torch.serving.index import BruteForceIndex, recall_vs_exact
 from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
 from jodalrob_twotower_torch.train.metrics import diagonal_ranks, in_batch_metrics, random_baselines
 from jodalrob_twotower_torch.train import sparse_tables
@@ -152,6 +173,7 @@ from jodalrob_twotower_torch.train.train_step import (
     resolve_store_dtype,
 )
 from jodalrob_twotower_torch.utils.flops import H100_PEAK_BF16_FLOPS
+from jodalrob_twotower_torch.utils.profiling import device_breakdown, device_flops_estimate
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at the 700 W limit
 # the special-function units' exponentials: 16 per clock and SM (CUDA C++
@@ -239,6 +261,17 @@ SCALED_CHANGE_RTOL = 1e-3
 SCALED_VALUE_ULPS = 2.0 ** -22
 SCALED_DENSE_SLACK_SHARE = 0.01
 SCALED_CHECK_ADAGRAD = {"adagrad_init_accumulator": 0.0, "adagrad_eps": 1e-16}
+CALIBRATION_TARGET = 0.95  # the serve CLI's --target-recall in the serving and serve-CLI phases
+CALIBRATION_QUERIES = 2048  # the serve CLI's sample (serve.CALIBRATION_QUERIES)
+STREAM_CHUNK = 262_144  # corpus rows per streamed slice of the exact reference (the calibration's default)
+SERVE_QUERIES = 8192  # notices the serve CLI answers in each run, in batches of serve.QUERY_BATCH
+SERVE_QPS_BATCHES = 11  # qps_bench's warm-up batch and its 10 timed ones (serve.main)
+PROFILE_VARIANTS = {  # per-step launches of K1, K2, K6, K11 on each profile_step variant the smoke times
+    "full": (2, 2, 1, 1), "no_opt": (2, 2, 1, 1), "fwd_only": (2, 0, 1, 0), "gather_only": (0, 0, 0, 0),
+    "sample_only": (0, 0, 0, 0), "xla_loss": (2, 2, 0, 0), "scatter_grad": (0, 0, 1, 1),
+    "gather_lookup": (0, 2, 1, 1),
+}
+PROFILE_DISPATCHES = 3  # timed dispatches of 16 steps per variant (the CLI's default is 20)
 N_COMPANIES = 1_000_000
 N_NOTICES = 20_000
 QUERY_BATCH = 1024
@@ -901,15 +934,59 @@ def check_exact_vs_plain_scan(res, q: torch.Tensor, corpus: torch.Tensor) -> int
     ref_s, ref_i = ref_s.cpu().numpy(), ref_i.cpu().numpy()
     check(bool(np.abs(res.scores - ref_s).max() <= 1e-5),
           f"exact scores vs plain scan: max diff {np.abs(res.scores - ref_s).max()}")
+    return rows_tied_at_k(res.indices, ref_i, ref_s[:, -1], q, corpus, "exact index vs plain scan")
+
+
+def rows_tied_at_k(got: np.ndarray, want: np.ndarray, kth: np.ndarray, q: torch.Tensor, corpus: torch.Tensor,
+                   what: str, score=None) -> int:
+    """Two top-k index sets [Q, k] of one scoring must be equal except where
+    scores tie at the k-th place (``kth`` [Q], the k-th score): every row in
+    one set and not the other scores the k-th score within 1e-5. The scoring
+    is the float32 dot of ``q`` and ``corpus`` rows, or ``score(r, rows)``.
+    Returns the number of query rows whose sets differ."""
+    score = score or (lambda r, rows: corpus[rows] @ q[r])
     ties = 0
-    for r in range(QUERY_BATCH):
-        diff = set(res.indices[r].tolist()) ^ set(ref_i[r].tolist())
+    for r in range(got.shape[0]):
+        diff = set(got[r].tolist()) ^ set(want[r].tolist())
         if diff:
-            dots = (corpus[list(diff)] @ q[r]).cpu().numpy()
-            check(bool(np.abs(dots - ref_s[r, -1]).max() <= 1e-5),
-                  f"exact index set differs from plain scan beyond a tie, query row {r}")
+            dots = score(r, list(diff)).cpu().numpy()
+            check(bool(np.abs(dots - kth[r]).max() <= 1e-5), f"{what}: sets differ beyond a tie, query row {r}")
             ties += 1
     return ties
+
+
+def calibration_check(corpus: torch.Tensor, queries: torch.Tensor) -> dict:
+    """``calibrate_serving_config(CALIBRATION_TARGET)`` over a corpus on the
+    card, once with the corpus there (its exact reference a device-resident
+    ``BruteForceIndex``) and once from host numpy (the exact reference
+    streamed in STREAM_CHUNK-row slices): both must pick the same index
+    configuration, whose measured recall meets the target; the two exact
+    references' top-k must be equal except at ties. Both calls are timed."""
+    host = corpus.cpu().numpy()
+    picks, seconds = {}, {}
+    for where, corpus_emb in (("device", corpus), ("host", host)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        picks[where] = autoconfig.calibrate_serving_config(CALIBRATION_TARGET, corpus_emb, queries, k=TOP_K,
+                                                           device="cuda")
+        torch.cuda.synchronize()
+        seconds[where] = time.perf_counter() - t0
+    knobs = {where: (c.index_kind, c.approx_recall, c.rescore_depth, c.rescore_dtype) for where, (c, _) in picks.items()}
+    check(knobs["device"] == knobs["host"], f"calibration: device corpus picked {knobs['device']}, host {knobs['host']}")
+    chosen, measured = picks["device"]
+    check(chosen.index_kind == "exact" or measured[chosen.note] >= CALIBRATION_TARGET,
+          f"calibration picked {chosen.note} at recall {measured.get(chosen.note)} < {CALIBRATION_TARGET}")
+    exact = BruteForceIndex(corpus, device=corpus.device).search(queries, TOP_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = autoconfig._exact_topk_streamed(host, queries, TOP_K, STREAM_CHUNK, device="cuda")
+    stream_s = time.perf_counter() - t0
+    ties = rows_tied_at_k(streamed, exact.indices, exact.scores[:, -1], queries, corpus,
+                          "streamed exact reference vs device-resident")
+    return {"companies": corpus.shape[0], "queries": queries.shape[0], "k": TOP_K, "target": CALIBRATION_TARGET,
+            "pick": chosen.cli_flags(), "measured_device": picks["device"][1], "measured_host": picks["host"][1],
+            "device_s": seconds["device"], "host_streamed_s": seconds["host"], "exact_streamed_scan_s": stream_s,
+            "stream_chunk": STREAM_CHUNK, "rows_tied_at_k": ties}
 
 
 def reset_counters() -> None:
@@ -1005,6 +1082,13 @@ def serving_phase() -> dict:
     }
     for kind, row in breakdown.items():
         print(f"device time of one {kind} query batch " + json.dumps(row), flush=True)
+
+    # -- the serve CLI's auto-configuration at 1M companies ------------------------
+    rows = np.sort(gen.choice(N_NOTICES, size=CALIBRATION_QUERIES, replace=False))
+    cal_q = exact._evaluator.encode_corpus(exact.state, ds.notice_store.dense[rows], ds.notice_store.cat_ids[rows],
+                                           side="notice")
+    calibration = calibration_check(exact.index.corpus, cal_q)
+    print("calibration " + json.dumps(calibration), flush=True)
     return {
         "params": n_params, "companies": N_COMPANIES, "notices": N_NOTICES,
         "launches": launches, "recall_int8_vs_exact": recalls,
@@ -1013,44 +1097,7 @@ def serving_phase() -> dict:
         "qps_exact": qps["exact"]["qps"], "ms_per_batch_exact": qps["exact"]["latency_ms_per_batch"],
         "qps_int8": qps["int8"]["qps"], "ms_per_batch_int8": qps["int8"]["latency_ms_per_batch"],
         "device_busy_share": {kind: row["busy_share"] for kind, row in breakdown.items()},
-    }
-
-
-def device_breakdown(fn, repeats: int = 3, top: int = 8, host_top: int = 0) -> dict:
-    """Where one call of ``fn`` (a query batch, a training call) spends its
-    time: torch.profiler's CUDA events (kernels and copies) over ``repeats``
-    serial calls, summed by name, and the card's busy share of the wall
-    time; with ``host_top``, also the host operators with the most self CPU
-    time (profiled, so inflated by the profiler's own cost)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict[str, float] = {}
-    n_events = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name[:90]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / repeats
-            n_events += 1
-    busy_us = sum(by_name.values())
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return {
-        "wall_ms_per_call": wall_us / repeats / 1e3,
-        "device_ms_per_call": busy_us / 1e3,
-        "busy_share": busy_us * repeats / wall_us if busy_us else None,
-        "device_events_per_call": n_events / repeats,
-        "top_ms": {name: us / 1e3 for name, us in ranked},
-        "host_top": [
-            {"op": a.key[:60], "calls": a.count / repeats, "self_cpu_ms": a.self_cpu_time_total / repeats / 1e3}
-            for a in sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:host_top]
-        ],
+        "calibration": calibration,
     }
 
 
@@ -1284,30 +1331,28 @@ def headline_launches(cfg: TrainConfig) -> dict[str, int]:
             "fused_ce_bwd": steps, "same_tile_diag": val_batches, "fused_stats_sweep": val_batches}
 
 
-def headline_phase(training: dict) -> tuple[dict, dict]:
+def headline_phase(training: dict, out_dir: Path) -> tuple[dict, dict]:
     """The headline recipe end to end through the port's CLIs:
     ``train_headline.main`` (``python -m jodalrob_twotower_torch.train`` in-process:
     ``TrainConfig()`` on the bench-scale data, B=8192, HEADLINE_EPOCHS epochs
     sampled on the card, validation and the corpus eval after every epoch,
-    checkpoints), into a temporary directory that is removed after. Every
+    checkpoints), into ``out_dir``, whose ``run/`` keeps the run's checkpoints
+    for the serve CLI (the caller removes the directory). Every
     epoch's losses must be finite, the run must learn and its final corpus
     recall@100 lie within 0.05 of the JAX artifact's, and each kernel must
     launch exactly as often as the run's steps, validation batches and
     encode chunks ask (``headline_launches``). Returns the record and the
     launch counts."""
-    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_headline_"))
-    try:
-        # -- the main path: counters from 0, read right after ------------------
-        reset_counters()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = train_headline.main(["--epochs", str(HEADLINE_EPOCHS), "--output-dir", str(out_dir)])
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = read_counters()
-        summary = json.loads((out_dir / "summary.json").read_text())
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    # -- the main path: counters from 0, read right after ----------------------
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = train_headline.main(["--epochs", str(HEADLINE_EPOCHS), "--output-dir", str(out_dir),
+                              "--checkpoint-dir", str(out_dir / "run")])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    summary = json.loads((out_dir / "summary.json").read_text())
     print("headline main path launches", json.dumps(launches), flush=True)
     check(rc == 0, f"train_headline returned {rc}")
     leg = summary["torch"]
@@ -1336,6 +1381,196 @@ def headline_phase(training: dict) -> tuple[dict, dict]:
     }
     print("headline " + json.dumps(row), flush=True)
     return row, {"headline": launches}
+
+
+# -- the serve CLI on the headline's weights, and the step profiler ----------------
+
+
+def run_cli(main, argv: list) -> tuple[str, str]:
+    """``main(argv)`` in-process; returns (stdout, stderr), each also echoed."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main([str(a) for a in argv])
+    print(out.getvalue() + err.getvalue(), end="", flush=True)
+    check(rc == 0, f"{main.__module__}.main returned {rc}")
+    return out.getvalue(), err.getvalue()
+
+
+def _jsonl_hits(path: Path) -> list[tuple[str, list[str]]]:
+    return [(row["notice"], [h["company"] for h in row["top_k"]])
+            for row in map(json.loads, path.read_text().splitlines())]
+
+
+def serve_cli_phase(model_dir: Path) -> tuple[dict, dict]:
+    """``python -m jodalrob_twotower_torch.serve`` in-process on the
+    headline's trained weights (``TrainConfig()`` at full width) over the
+    bench-scale data (100,000 companies), SERVE_QUERIES notices at k = 100
+    in each run: the int8 index built and saved; the saved index loaded,
+    whose JSONL must equal the build's line for line; the exact index; the
+    int8 and exact answers each equal to a plain scan of the same embeddings
+    except at ties, and the int8 recall@100 against the exact measured
+    (``serve_cli_answers``); ``--target-recall``
+    CALIBRATION_TARGET, whose pick's measured recall must meet it; and
+    ``--qps-bench``. Each run's K1 launches must equal its corpus encode
+    chunks plus its query batches exactly, and no other kernel may launch."""
+    tmp = model_dir.parent / "serve"
+    tmp.mkdir()
+    base = ["--model-dir", model_dir, "--synthetic", "--synthetic-scale", "bench", "--k", TOP_K]
+    answer = ["--queries", SERVE_QUERIES]
+    corpus_chunks = math.ceil(bench.N_COMPANIES / 8192)  # Evaluator.encode_corpus's chunk
+    query_batches = math.ceil(SERVE_QUERIES / serve.QUERY_BATCH)
+    runs = {  # name: (argv, expected K1 launches)
+        "int8": (base + answer + ["--output", tmp / "int8.jsonl", "--save-index", tmp / "int8.npz"],
+                 corpus_chunks + query_batches),
+        "loaded": (base + answer + ["--output", tmp / "loaded.jsonl", "--load-index", tmp / "int8.npz"], query_batches),
+        "exact": (base + answer + ["--index", "exact", "--output", tmp / "exact.jsonl"], corpus_chunks + query_batches),
+        "target_recall": (base + answer + ["--target-recall", CALIBRATION_TARGET, "--output", tmp / "auto.jsonl"],
+                          corpus_chunks + math.ceil(CALIBRATION_QUERIES / 8192) + query_batches),
+        "qps_bench": (base + ["--qps-bench"], corpus_chunks + SERVE_QPS_BATCHES),
+    }
+    row, launches, streams = {}, {}, {}
+    for name, (argv, k1) in runs.items():
+        # -- the main path: counters from 0, read right after ------------------
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams[name] = run_cli(serve.main, argv)
+        torch.cuda.synchronize()
+        row[f"{name}_wall_s"] = time.perf_counter() - t0
+        launches[f"serve_cli_{name}"] = got = read_counters()
+        print(f"serve_cli_{name} main path launches", json.dumps(got), flush=True)
+        want = {c: 0 for c in got} | {"dense_table_lookup": k1}
+        check(got == want, f"serve CLI {name}: launches {got}, expected {want}")
+    check((tmp / "int8.jsonl").read_text() == (tmp / "loaded.jsonl").read_text(),
+          "serve CLI: the loaded index's JSONL differs from the built index's")
+    int8, exact = _jsonl_hits(tmp / "int8.jsonl"), _jsonl_hits(tmp / "exact.jsonl")
+    check(len(int8) == len(exact) == SERVE_QUERIES and all(a[0] == b[0] for a, b in zip(int8, exact)),
+          "serve CLI: the int8 and exact runs answered different notices")
+    row.update(serve_cli_answers(model_dir, int8, exact))
+    (auto_line,) = [x for x in streams["target_recall"][1].splitlines() if x.startswith("auto-config")]
+    m = re.search(r": (.*) — measured recall@\d+ (.*); equivalent to (.*)$", auto_line)
+    check(m is not None, f"serve CLI: no pick in {auto_line!r}")
+    note, measured = m.group(1), dict(item.rsplit(": ", 1) for item in m.group(2).split(", "))
+    row["target_recall_pick"], row["target_recall_measured"] = m.group(3), {k: float(v) for k, v in measured.items()}
+    check(note == "exact brute-force f32 scan" or float(measured[note]) >= CALIBRATION_TARGET,
+          f"serve CLI: --target-recall {CALIBRATION_TARGET} picked {note} at recall {measured.get(note)}")
+    qps = json.loads([x for x in streams["qps_bench"][0].splitlines() if x.startswith('{"bench"')][-1])
+    check(qps["bench"] == "serve_cli_qps" and qps["qps"] > 0 and qps["corpus_size"] == bench.N_COMPANIES,
+          f"serve CLI: qps line {qps}")
+    row.update({"companies": bench.N_COMPANIES, "queries": SERVE_QUERIES, "k": TOP_K, "qps": qps["qps"],
+                "ms_per_batch": qps["latency_ms_per_batch"], "qps_batch": qps["batch_size"],
+                "launches": launches})
+    print("serve_cli " + json.dumps(row), flush=True)
+    return row, launches
+
+
+def serve_cli_answers(model_dir: Path, int8: list[tuple[str, list[str]]], exact: list[tuple[str, list[str]]]) -> dict:
+    """The serve CLI's int8 and exact answers (notice, company keys) against
+    plain scans of the same embeddings, encoded again from ``model_dir`` as
+    the CLI encodes them (the corpus in chunks of 8192, the notices in
+    batches of QUERY_BATCH): each must equal its plain scan except at ties
+    (``rows_tied_at_k``): the exact one a float32 product, the int8 one the
+    reference's int8 scoring (host ``quantize_int8``, which the card's must
+    equal bit for bit; bf16-rounded queries, float32 sums, the row scale).
+    Returns the int8 recall@k against the exact
+    scan as set overlap and with ties counted (a returned company is a hit
+    when its exact score reaches the exact k-th within 1e-5), and the rows
+    tied at k. The trained towers put companies of one planted cluster (up
+    to 255 share their categorical ids; a company has one numeric feature)
+    within about 1e-3 of each other in score, where int8's scoring error
+    lies, so that recall measures the data as much as the index."""
+    from jodalrob_twotower_torch.serving.index import quantize_int8
+    from jodalrob_twotower_torch.train.cli import synthetic_data
+
+    cfg = TrainConfig.from_json(model_dir / "config.json")
+    schema, notice_store, company_store, _ = synthetic_data("bench", cfg.seed)
+    model = build_model(schema, cfg)
+    weights = CheckpointManager(model_dir, cfg.checkpoint).restore_weights(model.state_dict(), device="cuda")
+    state = FrozenState({**weights["params"], **weights["batch_stats"]})
+    ev = Evaluator(model, cfg)
+    corpus = ev.encode_corpus(state, company_store.dense, company_store.cat_ids)
+    rows = notice_store.rows_for_keys([notice for notice, _ in exact])
+    # in the CLI's query batches: another batch size may round the bf16 towers' products otherwise
+    q = torch.cat([ev._encode_notice(state, notice_store.gather(rows[lo : lo + serve.QUERY_BATCH]).to(corpus.device))
+                   for lo in range(0, len(rows), serve.QUERY_BATCH)])
+    values, scales = (torch.from_numpy(a).to(corpus.device) for a in quantize_int8(corpus.cpu().numpy()))
+    on_card = quantize_int8(corpus)
+    check(torch.equal(on_card[0], values) and torch.equal(on_card[1], scales),
+          "quantize_int8 on the card differs from the host's bits")
+
+    def int8_scores(qb, cols=None):
+        v, sc = (values, scales[:, 0]) if cols is None else (values[cols], scales[cols, 0])
+        return (qb.to(torch.bfloat16).float() @ v.float().T) * sc
+
+    def keys(hits):
+        return torch.from_numpy(np.stack([company_store.rows_for_keys(c) for _, c in hits])).to(corpus.device)
+
+    got8, got_exact = keys(int8), keys(exact)
+    k = got8.shape[1]
+    out = {"int8_rows_tied_vs_plain": 0, "exact_rows_tied_vs_plain": 0}
+    n_hits = 0
+    for lo in range(0, len(exact), QUERY_BATCH):
+        qb, g8, ge = q[lo : lo + QUERY_BATCH], got8[lo : lo + QUERY_BATCH], got_exact[lo : lo + QUERY_BATCH]
+        e_s, e_i = torch.topk(qb @ corpus.T, k, dim=1)
+        i_s, i_i = torch.topk(int8_scores(qb), k, dim=1)
+        out["exact_rows_tied_vs_plain"] += rows_tied_at_k(
+            ge.cpu().numpy(), e_i.cpu().numpy(), e_s[:, -1].cpu().numpy(), qb, corpus, "serve CLI exact vs plain scan")
+        out["int8_rows_tied_vs_plain"] += rows_tied_at_k(
+            g8.cpu().numpy(), i_i.cpu().numpy(), i_s[:, -1].cpu().numpy(), qb, corpus, "serve CLI int8 vs plain int8 scan",
+            score=lambda r, cols, qb=qb: int8_scores(qb[r : r + 1], cols)[0])
+        n_hits += int((torch.bmm(corpus[g8], qb[:, :, None])[..., 0] >= e_s[:, -1:] - 1e-5).sum())
+    out["int8_recall_at_100_vs_exact"] = sum(len(set(a[1]) & set(b[1])) for a, b in zip(int8, exact)) / got8.numel()
+    out["int8_recall_at_100_ties_counted"] = n_hits / got8.numel()
+    return out
+
+
+def profile_phase(work: bench.Workload) -> tuple[dict, dict]:
+    """``profile_step``'s variants at B=8192 over the bench's stores and
+    pairs (16 steps a dispatch, one warm-up and PROFILE_DISPATCHES timed
+    dispatches): every ms/step finite and each kernel's launches exactly the
+    variant's per-step count (PROFILE_VARIANTS: the variants that bypass a
+    kernel launch it never); then ``run_trace`` over 3 dispatches of
+    ``full``, whose busy share must lie in (0, 1]."""
+    data = (work.schema, work.notice_store, work.company_store, work.pairs)
+    dev = torch.device("cuda")
+    base = profile_step.setup_state(profile_step.build(), work.schema, dev)
+    rows, launches = {}, {}
+    for name, per_step in PROFILE_VARIANTS.items():
+        fn, state = profile_step.prepare(name, work.schema, dev, base)
+        # -- the main path: counters from 0, read right after ------------------
+        reset_counters()
+        torch.cuda.synchronize()
+        rows[name] = profile_step.timeit(name, fn, state, data, n_dispatch=PROFILE_DISPATCHES)
+        torch.cuda.synchronize()
+        launches[f"profile_{name}"] = got = read_counters()
+        steps = rows[name]["steps"]
+        want = {c: 0 for c in got} | {k: n * steps for k, n in zip(TRAINING_KERNELS, per_step)}
+        check(got == want, f"profile_step {name}: launches {got}, expected {want} ({steps} steps)")
+        check(math.isfinite(rows[name]["ms_per_step"]) and math.isfinite(rows[name]["probe"]),
+              f"profile_step {name}: {rows[name]}")
+        del fn, state
+    parts = profile_step.attribute(rows)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    try:
+        reset_counters()
+        table = profile_step.run_trace(device=dev, data=data, n_dispatch=3, top=12, log_dir=tmp)
+        torch.cuda.synchronize()
+        launches["profile_trace"] = read_counters()
+        trace_mb = (tmp / "trace.json").stat().st_size / 2**20
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(table["busy_share"] is not None and 0.0 < table["busy_share"] <= 1.0,
+          f"profile_step trace: busy share {table['busy_share']}")
+    # the measured matmul peak at utils/profiling's default n = 2048 and at 8192, TFLOP/s
+    peak = {dt: {f"n{n}": device_flops_estimate(dtype=dt, n=n, device="cuda") / 1e12 for n in (2048, 8192)}
+            for dt in ("bfloat16", "float32")}
+    row = {"batch": profile_step.B, "steps_per_dispatch": profile_step.N_INNER, "dispatches": PROFILE_DISPATCHES,
+           "ms_per_step": {k: v["ms_per_step"] for k, v in rows.items()}, "attribution_ms_per_step": parts,
+           "trace": {k: table[k] for k in ("busy_share", "device_ms_per_call", "wall_ms_per_call",
+                                           "device_events_per_call", "top_ms")},
+           "trace_file_mb": trace_mb, "matmul_peak_tflops": peak, "launches": launches}
+    print("profile " + json.dumps(row), flush=True)
+    return row, launches
 
 
 def _payload_differences(a, b) -> list[str]:
@@ -1781,8 +2016,14 @@ def main() -> int:
     evaluation["card"] = card
     print("evaluation " + json.dumps(evaluation), flush=True)
     extra, extra_launches = extra_training_phase(work)
-    headline, headline_counts = headline_phase(training)
+    headline_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_headline_"))
+    try:
+        headline, headline_counts = headline_phase(training, headline_dir)
+        serve_cli, serve_launches = serve_cli_phase(headline_dir / "run")
+    finally:
+        shutil.rmtree(headline_dir, ignore_errors=True)
     resume, resume_launches = resume_phase(work)
+    profile, profile_launches = profile_phase(work)
     del work
     torch.cuda.empty_cache()
     scaled, scaled_launches = scaled_phase(scaled_setup())
@@ -1792,7 +2033,7 @@ def main() -> int:
     step_check = step_grad_check()
 
     launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches,
-                **headline_counts, **resume_launches, **scaled_launches}
+                **headline_counts, **serve_launches, **resume_launches, **profile_launches, **scaled_launches}
     record = {"kernels": [
         kernel_record("onehot_lookup", "K1", "onehot_lookup.cu", "embedding_grad.py:358",
                       kernels["onehot_lookup"], launches, "dense_table_lookup", "training"),
@@ -1827,6 +2068,14 @@ def main() -> int:
         "headline": {k: headline[k] for k in ("final_corpus_recall_at_100", "reference_recall_at_100",
                                               "recall_at_100_abs_diff", "learned", "within_tolerance",
                                               "examples_per_sec_last_epoch", "train_wall_s")},
+        "serve_cli": {k: serve_cli[k] for k in ("qps", "ms_per_batch", "int8_recall_at_100_vs_exact",
+                                                "int8_recall_at_100_ties_counted", "int8_rows_tied_vs_plain",
+                                                "exact_rows_tied_vs_plain", "target_recall_pick",
+                                                "target_recall_measured")},
+        "calibration": {k: serving["calibration"][k] for k in ("companies", "pick", "device_s", "host_streamed_s",
+                                                               "exact_streamed_scan_s", "rows_tied_at_k")},
+        "profile": {k: profile[k] for k in ("ms_per_step", "attribution_ms_per_step", "matmul_peak_tflops")}
+        | {"trace_busy_share": profile["trace"]["busy_share"]},
         "resume": {k: resume[k] for k in ("steps", "leaves_differing", "cross_device_differing", "search_equal",
                                           "trainer_call_device_ms", "trainer_call_busy_share")},
         "scaled": {path: {k: scaled[path][k] for k in ("ms_per_step", "examples_per_sec", "device_busy_share",

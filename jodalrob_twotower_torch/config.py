@@ -27,7 +27,10 @@ class ModelConfig:
     final_embedding_dim: int = 128
     dropout_rate: float = 0.1
     # PRNG implementation of the dropout stream in the reference:
-    # "auto" | "threefry" | "rbg". The port's dropout arrives with training.
+    # "auto" | "threefry" | "rbg". The port keeps the field so that a config
+    # file means the same in both packages, but draws every dropout mask
+    # from one torch.Generator per step whichever value is set
+    # (train/train_step.step_generator).
     dropout_rng_impl: str = "auto"
     use_batch_norm: bool = True
     # Compute dtype for tower matmuls; params stay float32.

@@ -38,6 +38,10 @@ sound and once per fault, and reports each fault as caught or not.
 * The sparse-against-dense check (two sparse steps against two dense steps
   at config 3) against the sparse update skipping the dedup of duplicate
   rows (as ``sparse_duplicate_handling="per_occurrence"`` would).
+* The calibration check (``chip_smoke.calibration_check``: the serve CLI's
+  auto-configuration over 1,000,000 unit rows on the card, from the device
+  and streamed from the host) against the streamed exact scan dropping its
+  last slice of corpus rows.
 
 Run from the repository root on a machine with a CUDA card:
 ``python3 -m jodalrob_twotower_torch.planted_faults``. Exits nonzero if a
@@ -51,6 +55,7 @@ import sys
 import torch
 
 from jodalrob_twotower_torch.ops import embedding_grad, embedding_lookup, fused_logits
+from jodalrob_twotower_torch.serving import autoconfig
 from jodalrob_twotower_torch.train import sparse_tables
 
 
@@ -340,6 +345,18 @@ def _no_dedup():
     return sparse_tables, "sparse_rowwise_adagrad_update", fault
 
 
+def _stream_drops_last_slice():
+    """The streamed exact scan that never reads the corpus's last slice."""
+    real = autoconfig._exact_topk_streamed
+
+    def fault(corpus_np, query_emb, k, chunk, query_chunk=1024, *, device=None):
+        n = corpus_np.shape[0]
+        last = (n - 1) // min(chunk, n) * min(chunk, n)
+        return real(corpus_np[:last], query_emb, k, chunk, query_chunk, device=device)
+
+    return autoconfig, "_exact_topk_streamed", fault
+
+
 def _grad_check(chip_smoke):
     chip_smoke.table_grad_phase(None, runs=0)
 
@@ -377,6 +394,13 @@ def _sparse_check(chip_smoke):
 _scaled: list = []  # config 3's data and model, built once
 
 
+def _calibration_check(chip_smoke):
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    corpus = chip_smoke.unit_rows(gen, chip_smoke.N_COMPANIES, chip_smoke.CE_DIM, "cuda")
+    queries = chip_smoke.unit_rows(gen, chip_smoke.CALIBRATION_QUERIES, chip_smoke.CE_DIM, "cuda")
+    chip_smoke.calibration_check(corpus, queries)
+
+
 def _flush():
     return torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
 
@@ -400,6 +424,7 @@ FAULTS = {
     "K1 ownership test reads the next tile": (_lookup_next_tile, _lookup_check),
     "K4 returns row r+1 for every 64th row": (_gather_next_row, _gather_check),
     "sparse update skips the dedup": (_no_dedup, _sparse_check),
+    "streamed exact scan drops its last slice": (_stream_drops_last_slice, _calibration_check),
 }
 
 
@@ -409,7 +434,7 @@ def main() -> int:
     print(chip_smoke.bench.card_line(), flush=True)
     chip_smoke._build.build(chip_smoke.KERNEL_SOURCES)
     for check in (_grad_check, _step_check, _lean_check, _wide_bwd_check, _stats_check, _lookup_check, _gather_check,
-                  _sparse_check):
+                  _sparse_check, _calibration_check):
         check(chip_smoke)
         print(f"sound {check.__name__.strip('_')} passed", flush=True)
     missed = []

@@ -14,8 +14,11 @@ chunk with a running top-k, so peak memory is one [Q, C] score block.
 The scoring products and top-k stay ``torch.matmul`` and ``torch.topk``, as
 the reference left them to XLA. Products of bf16-rounded values are formed
 in float32: exact, and the same sum as a bf16 product with float32
-accumulation. The reference's ``approx_max_k`` has no PyTorch counterpart,
-so ``approx_recall`` raises. The mesh-sharded index arrives with the
+accumulation. ``approx_recall`` is the reference's ``jax.lax.approx_max_k``
+recall target: it is checked against the range that function accepts,
+(0, 1], kept and saved, and the selection stays exact, as the reference's
+is everywhere but on a TPU (XLA's CPU and GPU backends lower
+``approx_max_k`` to an exact top-k). The mesh-sharded index arrives with the
 parallel slice. The npz format of ``save_index``/``load_index`` is the
 reference's, so an index saved by either package loads in the other.
 """
@@ -59,13 +62,12 @@ class HostCopy:
         return [h.numpy() for h in self.hosts]
 
 
-def _check_approx(approx_recall: float | None) -> None:
-    if approx_recall is not None:
-        raise ValueError(
-            "approx_recall selects jax.lax.approx_max_k, which has no PyTorch "
-            "counterpart; the port searches exactly (use rescore_depth for the "
-            "two-stage int8 search)"
-        )
+def _check_approx(approx_recall: float | None) -> float | None:
+    """The recall target ``jax.lax.approx_max_k`` takes, in (0, 1]; the
+    reference fails at its first search outside it, the port at once."""
+    if approx_recall is not None and not 0.0 < approx_recall <= 1.0:
+        raise ValueError(f"approx_recall must be in (0, 1], got {approx_recall}")
+    return approx_recall
 
 
 def _check_rescore_depth(depth: int | None) -> int | None:
@@ -158,12 +160,11 @@ class BruteForceIndex:
                  approx_recall: float | None = None,
                  rescore_depth: int | None = None,
                  device=None) -> None:
-        _check_approx(approx_recall)
+        self.approx_recall = _check_approx(approx_recall)
         self.device = resolve_device(device)
         corpus = _as_corpus(corpus_emb, self.device)
         self.query_chunk = query_chunk
         self.corpus_chunk = corpus_chunk
-        self.approx_recall = None
         self.rescore_depth = _check_rescore_depth(rescore_depth)
         self.n_valid = corpus.shape[0]
         self.corpus = corpus if corpus_chunk is None else _pad_chunks(corpus, corpus_chunk)
@@ -211,7 +212,9 @@ class Int8Index:
                  rescore_dtype: str = "int8",
                  device=None) -> None:
         device = resolve_device(device)
-        corpus = _as_corpus(corpus_emb, device)
+        # host rows are quantized on the host: only the int8 values, scales
+        # and bf16 rescore rows reach the device, never the f32 corpus
+        corpus = _as_corpus(corpus_emb, device if isinstance(corpus_emb, torch.Tensor) else torch.device("cpu"))
         values, scales = quantize_int8(corpus)
         rescore_rows = corpus if rescore_depth and rescore_dtype == "bfloat16" else None
         self._init_from_quantized(values, scales, query_chunk, corpus_chunk, approx_recall,
@@ -224,7 +227,7 @@ class Int8Index:
                              rescore_dtype: str,
                              rescore_rows,
                              device: torch.device) -> None:
-        _check_approx(approx_recall)
+        self.approx_recall = _check_approx(approx_recall)
         if rescore_dtype not in ("int8", "bfloat16"):
             raise ValueError(
                 f"rescore_dtype must be 'int8' or 'bfloat16', got {rescore_dtype!r}"
@@ -242,7 +245,6 @@ class Int8Index:
         self.device = device
         self.query_chunk = query_chunk
         self.corpus_chunk = corpus_chunk
-        self.approx_recall = None
         self.rescore_depth = _check_rescore_depth(rescore_depth)
         self.rescore_dtype = rescore_dtype
         values = torch.as_tensor(values).to(device)
@@ -255,7 +257,7 @@ class Int8Index:
             self.scales = _pad_chunks(scales, corpus_chunk)  # [nc, C, 1]
         self.rescore_rows = None
         if self.rescore_depth and rescore_dtype == "bfloat16":
-            rows = torch.as_tensor(rescore_rows).to(device=device, dtype=torch.bfloat16)
+            rows = torch.as_tensor(rescore_rows).to(torch.bfloat16).to(device)  # cast where the rows are
             if corpus_chunk is not None:
                 # pad to the chunked row count so candidate indices into
                 # padding rows stay in bounds (their scores are masked)
@@ -329,10 +331,13 @@ def quantize_int8(corpus):
     """Row-wise symmetric int8: values [N, D] int8, scales [N, 1] f32.
 
     Works on numpy arrays or tensors (on their device), with the same
-    arithmetic, so both give the reference's bits."""
+    arithmetic, so both give the reference's host bits. The divisor 127 is a
+    tensor on the corpus's device: CUDA turns division by a Python scalar
+    into a product with its reciprocal, one ulp off on some rows, which can
+    move a value across a rounding boundary."""
     if isinstance(corpus, torch.Tensor):
         amax = corpus.abs().amax(dim=1, keepdim=True)
-        scales = (amax / 127.0).float()
+        scales = (amax / amax.new_tensor(127.0)).float()
         safe = torch.where(scales > 0, scales, torch.ones_like(scales))
         values = torch.clamp(torch.round(corpus / safe), -127, 127).to(torch.int8)
         return values, scales
@@ -357,7 +362,7 @@ def save_index(index: "BruteForceIndex | Int8Index", path) -> None:
             path, kind="int8", values=values, scales=scales,
             query_chunk=index.query_chunk,
             corpus_chunk=index.corpus_chunk or 0,
-            approx_recall=0.0,
+            approx_recall=index.approx_recall or 0.0,
             rescore_depth=index.rescore_depth or 0,
             rescore_dtype=index.rescore_dtype,
             **extra,
@@ -367,7 +372,7 @@ def save_index(index: "BruteForceIndex | Int8Index", path) -> None:
             path, kind="exact", corpus=index._host_corpus(),
             query_chunk=index.query_chunk,
             corpus_chunk=index.corpus_chunk or 0,
-            approx_recall=0.0,
+            approx_recall=index.approx_recall or 0.0,
             rescore_depth=index.rescore_depth or 0,
         )
 

@@ -67,16 +67,19 @@ class RetrievalService:
         rescore_depth: int | None = None,
         rescore_dtype: str = "int8",
         mesh=None,
+        precomputed_corpus_emb=None,
         prebuilt_index=None,
         device=None,
     ) -> None:
         """Serve on ``device`` (None means the card). ``state`` is moved
         there; the corpus is encoded there unless ``prebuilt_index`` (e.g.
-        from ``index.load_index``) is given."""
+        from ``index.load_index``) or ``precomputed_corpus_emb`` (the corpus
+        already encoded: a tensor, or host numpy that the index moves, int8
+        rows quantized on the host) is given."""
         if mesh is not None:
             raise NotImplementedError(
-                "the port serves on one device; the mesh-sharded index arrives "
-                "with the parallel slice"
+                "the port serves on one device; the mesh-sharded index is not "
+                "ported yet (ROADMAP A12)"
             )
         if index_kind not in ("exact", "int8"):
             raise ValueError(f"index_kind must be 'exact' or 'int8', got {index_kind!r}")
@@ -93,9 +96,11 @@ class RetrievalService:
                 )
             self.index = prebuilt_index
         else:
-            corpus_emb = self._evaluator.encode_corpus(
-                self.state, company_store.dense, company_store.cat_ids, side="company"
-            )
+            corpus_emb = precomputed_corpus_emb
+            if corpus_emb is None:
+                corpus_emb = self._evaluator.encode_corpus(
+                    self.state, company_store.dense, company_store.cat_ids, side="company"
+                )
             if index_kind == "int8":
                 self.index = Int8Index(
                     corpus_emb, query_chunk=query_chunk, corpus_chunk=corpus_chunk,

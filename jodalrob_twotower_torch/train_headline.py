@@ -45,9 +45,12 @@ EPOCH_KEYS = ("epoch", "train_loss", "val_loss", "val_accuracy", "corpus_recall@
               "examples_per_sec")
 
 
-def run_leg(art: Path, epochs: int, extra: list[str], *, batch_size: int, scale: str) -> dict:
+def run_leg(art: Path, epochs: int, extra: list[str], *, batch_size: int, scale: str,
+            checkpoint_dir: Path | None = None) -> dict:
     """One training run through ``train.main`` in-process; its numbers from
-    the results CSV and the metrics stream it wrote."""
+    the results CSV and the metrics stream it wrote. Its checkpoints go to
+    ``checkpoint_dir``, which is kept, or else to a temporary directory
+    removed after."""
     from jodalrob_twotower_torch import train
     from jodalrob_twotower_torch.utils.profiling import MetricsLogger
 
@@ -56,7 +59,7 @@ def run_leg(art: Path, epochs: int, extra: list[str], *, batch_size: int, scale:
     for p in (results_csv, metrics_jsonl):
         if p.exists():
             p.unlink()
-    ckpt = Path(tempfile.mkdtemp(prefix="headline_torch_"))
+    ckpt = checkpoint_dir or Path(tempfile.mkdtemp(prefix="headline_torch_"))
     argv = [
         "--synthetic", "--synthetic-scale", scale,
         "--batch-size", str(batch_size), "--epochs", str(epochs),
@@ -71,7 +74,8 @@ def run_leg(art: Path, epochs: int, extra: list[str], *, batch_size: int, scale:
     try:
         rc = train.main(argv)
     finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+        if checkpoint_dir is None:
+            shutil.rmtree(ckpt, ignore_errors=True)
     wall_s = time.perf_counter() - t0
     if rc != 0:
         raise SystemExit(f"training failed rc={rc}")
@@ -103,6 +107,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tolerance", type=float, default=0.05,
                     help="max |torch - JAX artifact| final corpus recall@100")
     ap.add_argument("--output-dir", type=Path, help="write the artifact here instead of " + str(ART.relative_to(REPO)))
+    ap.add_argument("--checkpoint-dir", type=Path,
+                    help="keep the run's checkpoints (config.json, weights/, ...) here; default: a temporary "
+                         "directory removed after the run")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny scale, B=256, on the CPU, into a temporary directory; the learned gate only")
     args = ap.parse_args(argv)
@@ -120,7 +127,8 @@ def main(argv=None) -> int:
         from jodalrob_twotower_torch.bench import card_line
 
         summary["card"] = card_line()  # nvidia-smi name, power limit: the numbers below are this card's
-    summary["torch"] = leg = run_leg(art, args.epochs, extra, batch_size=batch, scale=scale)
+    summary["torch"] = leg = run_leg(art, args.epochs, extra, batch_size=batch, scale=scale,
+                                        checkpoint_dir=args.checkpoint_dir)
     # 10x random recall@100: 1e-3 over the bench corpus's 100k companies,
     # 1e-2 over the tiny corpus's 10k
     min_recall = 0.1 if args.smoke else 0.01

@@ -1,7 +1,8 @@
 """The port's MIPS indexes against the JAX package's on the same corpus and
 queries: int8 quantization bit for bit, exact and int8 top-k (flat and
-chunked, with and without rescore) index for index with scores within
-float32 summation-order error, and the npz format both ways."""
+chunked, with and without rescore, with and without an ``approx_recall``
+target) index for index with scores within float32 summation-order error,
+the recall targets both refuse, and the npz format both ways."""
 
 import numpy as np
 import pytest
@@ -97,12 +98,45 @@ def test_reference_saved_index_loads(tmp_path, data, kind, kw):
     np.testing.assert_array_equal(again.indices, want.indices)
 
 
+@pytest.mark.parametrize("approx", [0.9, 0.95])
+@pytest.mark.parametrize("kind,kw", CONFIGS, ids=lambda x: str(x))
+def test_approx_recall_matches_reference(data, kind, kw, approx):
+    """The reference's approx_max_k off the TPU is XLA's exact fallback: the
+    port's exact selection gives its indices, scores within float32
+    summation-order error, and keeps the recall target."""
+    corpus, queries = data
+    kw = {**kw, "approx_recall": approx}
+    want = _build(j_index, kind, corpus, kw).search(queries, k=7)
+    got_index = _build(t_index, kind, corpus, kw)
+    got = got_index.search(queries, k=7)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_allclose(got.scores, want.scores, rtol=RTOL, atol=ATOL)
+    plain = _build(t_index, kind, corpus, {k: v for k, v in kw.items() if k != "approx_recall"}).search(queries, k=7)
+    np.testing.assert_array_equal(got.indices, plain.indices)
+    assert got_index.approx_recall == approx
+
+
+@pytest.mark.parametrize("approx", [0.0, -0.1, 1.5])
+def test_out_of_range_approx_recall_refused_by_both(data, approx):
+    corpus, queries = data
+    for kind in ("exact", "int8"):
+        with pytest.raises(Exception, match="recall_target out of range"):  # jax.lax.approx_max_k, at search
+            _build(j_index, kind, corpus, {"approx_recall": approx}).search(queries, k=7)
+        with pytest.raises(ValueError, match=r"approx_recall must be in \(0, 1\]"):  # the port, at build
+            _build(t_index, kind, corpus, {"approx_recall": approx})
+
+
+def test_saved_approx_recall_round_trips(tmp_path, data):
+    corpus, queries = data
+    t_index.save_index(_build(t_index, "int8", corpus, {"approx_recall": 0.9, "rescore_depth": 20}), tmp_path / "a.npz")
+    j_loaded = j_index.load_index(tmp_path / "a.npz")
+    t_loaded = t_index.load_index(tmp_path / "a.npz", device="cpu")
+    assert j_loaded.approx_recall == t_loaded.approx_recall == 0.9
+    np.testing.assert_array_equal(t_loaded.search(queries, k=7).indices, j_loaded.search(queries, k=7).indices)
+
+
 def test_int8_index_checks_and_size(data):
     corpus, _ = data
-    with pytest.raises(ValueError, match="approx_max_k"):
-        t_index.Int8Index(corpus, approx_recall=0.95, device="cpu")
-    with pytest.raises(ValueError, match="approx_max_k"):
-        t_index.BruteForceIndex(corpus, approx_recall=0.95, device="cpu")
     with pytest.raises(ValueError, match="rescore_depth must be >= 1"):
         t_index.BruteForceIndex(corpus, rescore_depth=0, device="cpu")
     with pytest.raises(ValueError, match="rescore_dtype"):
