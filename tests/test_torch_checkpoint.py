@@ -42,6 +42,17 @@ MODES = {  # name: (sparse_tables, sparse_defer_updates)
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small CPU steps run fastest on one thread, and several test workers
+    sharing the cores do not oversubscribe them. Module scope, so that the
+    module-scoped runs below take it too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfg(mode="dense", sampled=False, **ckpt_kw):
     sparse, deferred = MODES[mode]
     return TrainConfig(

@@ -31,6 +31,17 @@ TRAIN_ARGS = ["--force-cpu", "--synthetic", "--epochs", "2", "--pair-limit", "20
 METRIC_ATOL = 0.02  # bf16 towers on both sides: loss ~5, similarities ~1, shares of 400 rows
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small CPU steps run fastest on one thread, and several test workers
+    sharing the cores do not oversubscribe them. Module scope, so that the
+    module-scoped runs below take it too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_eval_main(argv):
     spec = importlib.util.spec_from_file_location("jax_eval_cli", REPO / "scripts" / "eval.py")
     module = importlib.util.module_from_spec(spec)

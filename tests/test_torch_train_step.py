@@ -78,6 +78,17 @@ CASES = {
 NOISE_SHARE = 0.07
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small CPU steps run fastest on one thread, and several test workers
+    sharing the cores do not oversubscribe them. Module scope, so that the
+    module-scoped runs below take it too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _setup(model_kw, use_fused_t, temperature=0.2, dropout=0.0):
     j_schema, t_schema = schemas()
     j_mcfg, t_mcfg = model_configs(**{**model_kw, "dropout_rate": dropout})

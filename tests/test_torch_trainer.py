@@ -57,6 +57,17 @@ LOSS_RTOL = 1e-4
 CHANGE_TOL = 0.15
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small CPU steps run fastest on one thread, and several test workers
+    sharing the cores do not oversubscribe them. Module scope, so that the
+    module-scoped runs below take it too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _leaves(tree, prefix=""):
     out = {}
     for k, v in tree.items():
