@@ -79,7 +79,25 @@ NVIDIA card.
    exact per step (the variants that bypass K1, K2 or K6/K11 launch them
    never); its trace of 3 dispatches of ``full``, busy share in (0, 1]; the
    measured matmul peak.
-11. The large-table paths, BASELINE config 3 (tables of 10,000,384 x 64 f32
+11. Host-fed phase, on the bench's data at B=8192: ``index_stacks`` windows
+   of 16 steps, 2 in flight, through ``make_scanned_train_steps`` for 160
+   steps, timed between two runs of the device-sampled bench's calls and
+   beside the same steps on windows uploaded beforehand;
+   ``train_batches`` (``BackgroundAssembler`` gathering each batch into
+   page-locked memory on a worker thread, ``prefetch_to_device`` copying it
+   on a side stream) through ``make_train_step`` for 24 batches, with the
+   MB per step, the effective host-to-device rate and the consumer's wait
+   for each batch, beside the gather on the consumer's thread and beside
+   the same batches already on the card, then the race check: 8 batches through that path and the
+   same 8 through plain blocking copies, from copies of one state, equal
+   bit for bit (losses and every parameter, moment and statistic);
+   ``Trainer.train`` fed by ``streaming_index_batches`` over the training
+   pairs in 4 in-memory chunks (``train_streaming``'s source without the
+   parquet reader) for 2 epochs with validation: every epoch runs the
+   batches its stream yields, losses finite and falling. K1, K2, K6 and
+   K11 launch exactly as the steps ask, K1, K6, K8 and K5 as the validation
+   batches ask.
+12. The large-table paths, BASELINE config 3 (tables of 10,000,384 x 64 f32
    per tower, B=8192): ``scaled_dense`` (the row-gather kernel K4 through
    ``MeshConfig.use_pallas_lookup``, the full-table scatter and rowwise
    Adagrad), ``scaled_sparse`` (sparse tables, one update per step) and
@@ -88,7 +106,7 @@ NVIDIA card.
    twice per step on the dense path and never on the sparse ones, K1 and
    K2 never, K6 and K11 once per step; then two sparse steps against two
    dense steps from one state.
-12. One step's loss and gradients at B=1024 on the card against the same step
+13. One step's loss and gradients at B=1024 on the card against the same step
    on the CPU through the plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
@@ -99,8 +117,10 @@ the per-kernel JSON record, the last line ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
+import itertools
 import json
 import math
 import re
@@ -115,6 +135,8 @@ import torch
 
 from jodalrob_twotower_torch import bench, profile_step, serve, train_headline
 from jodalrob_twotower_torch.config import LossConfig, MeshConfig, ModelConfig, OptimizerConfig, TrainConfig
+from jodalrob_twotower_torch.data.parquet_stream import streaming_index_batches
+from jodalrob_twotower_torch.data.pipeline import index_stacks, train_batches
 from jodalrob_twotower_torch.data.synthetic import make_synthetic_dataset
 from jodalrob_twotower_torch.data.types import PairBatch, default_tower_gather
 from jodalrob_twotower_torch.evaluation.evaluator import (
@@ -170,8 +192,12 @@ from jodalrob_twotower_torch.train.train_step import (
     loss_and_grads,
     make_encode_fn,
     make_sampled_train_steps,
+    make_scanned_train_steps,
+    make_train_step,
     resolve_store_dtype,
 )
+from jodalrob_twotower_torch.train.cli import split_pairs
+from jodalrob_twotower_torch.train.trainer import Trainer
 from jodalrob_twotower_torch.utils.flops import H100_PEAK_BF16_FLOPS
 from jodalrob_twotower_torch.utils.profiling import device_breakdown, device_flops_estimate
 
@@ -272,6 +298,13 @@ PROFILE_VARIANTS = {  # per-step launches of K1, K2, K6, K11 on each profile_ste
     "gather_lookup": (0, 2, 1, 1),
 }
 PROFILE_DISPATCHES = 3  # timed dispatches of 16 steps per variant (the CLI's default is 20)
+HOSTFED_N_INNER = 16  # steps per index window (bench_suite.py train_hostfed)
+HOSTFED_STEPS = 160  # host-fed index steps timed (bench_suite.py train_hostfed)
+HOSTFED_FEATURE_BATCHES = 24  # host-assembled feature batches timed (bench_suite.py train_hostfed_features)
+HOSTFED_PREFETCH = 2  # batches or windows in flight on the card
+RACE_CHECK_BATCHES = 8  # batches through the prefetched and the plain feed, from one state
+STREAM_CHUNKS = 4  # in-memory chunks the streaming trainer's source reads
+STREAM_EPOCHS = 2
 N_COMPANIES = 1_000_000
 N_NOTICES = 20_000
 QUERY_BATCH = 1024
@@ -998,6 +1031,30 @@ def read_counters() -> dict[str, int]:
     return {c.__name__: c.launches for c in LAUNCH_COUNTERS}
 
 
+def step_launches(steps: int, val_batches: int = 0) -> dict[str, int]:
+    """Each kernel's launches over ``steps`` train steps and ``val_batches``
+    validation batches at B <= 8192: per step K1 and K2 twice (notice and
+    company), K6 and K11 once; per validation batch K1 twice, K6, K8 and the
+    sweep once."""
+    return {"dense_table_lookup": 2 * steps + 2 * val_batches, "dense_table_grad": 2 * steps,
+            "dense_table_grad_bmajor": 0, "embedding_lookup_pallas": 0, "fused_lean_lse": steps + val_batches,
+            "fused_ce_bwd": steps, "same_tile_diag": val_batches, "fused_stats_sweep": val_batches}
+
+
+def check_launches(launches: dict, expected: dict, path: str) -> None:
+    for name, n in expected.items():
+        check(launches[name] == n, f"{path}: kernel {name} launched {launches[name]} times, expected {n}")
+
+
+def fresh_train_state(work: bench.Workload, cfg: TrainConfig | None = None):
+    """(model, state, optimizer) of ``cfg`` (the bench's by default) from the
+    flax-distributed init seeded with SEED, on the card."""
+    cfg = cfg or work.cfg
+    model = build_model(work.schema, cfg).init_flax(torch.Generator().manual_seed(SEED))
+    state, tx = create_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device="cuda")
+    return model, state, tx
+
+
 def serving_phase() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products (the default), stated
     cfg = TrainConfig()
@@ -1288,8 +1345,7 @@ def extra_training_phase(work: bench.Workload) -> tuple[dict, dict]:
         ("train_ls0.1", CE_BATCH, 0.1, ("same_tile_diag", "fused_stats_sweep", "fused_ce_bwd")),
     ):
         cfg = work.cfg.replace(loss=dataclasses.replace(work.cfg.loss, label_smoothing=eps))
-        model = build_model(work.schema, cfg).init_flax(torch.Generator().manual_seed(SEED))
-        state, tx = create_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device="cuda")
+        model, state, tx = fresh_train_state(work, cfg)
         steps = make_sampled_train_steps(model, cfg, tx, EXTRA_STEPS, b)
         # -- the main path: counters from 0, read right after ----------------------
         reset_counters()
@@ -1315,20 +1371,16 @@ def extra_training_phase(work: bench.Workload) -> tuple[dict, dict]:
 
 
 def headline_launches(cfg: TrainConfig) -> dict[str, int]:
-    """The launches of each kernel on the headline run, from its shape:
-    per train step K1 and K2 twice (notice and company), K6 and K11 once;
-    per validation batch K1 twice, K6, K8 and the sweep once (after every
-    epoch and once more at the end); per epoch's corpus eval K1 once per
-    encode chunk of 8192 rows (the company store from the card, the
-    validation notices from the host)."""
+    """The launches of each kernel on the headline run, from its shape: its
+    train steps and validation batches (``step_launches``; validation after
+    every epoch and once more at the end), and per epoch's corpus eval K1
+    once per encode chunk of 8192 rows (the company store from the card,
+    the validation notices from the host)."""
     b = CE_BATCH
     n_val = int(round(bench.N_PAIRS * cfg.data.test_split))
-    steps = HEADLINE_EPOCHS * ((bench.N_PAIRS - n_val) // b)
-    val_batches = (HEADLINE_EPOCHS + 1) * (n_val // b)
-    encode_chunks = HEADLINE_EPOCHS * (math.ceil(bench.N_COMPANIES / b) + math.ceil(n_val / b))
-    return {"dense_table_lookup": 2 * steps + 2 * val_batches + encode_chunks, "dense_table_grad": 2 * steps,
-            "dense_table_grad_bmajor": 0, "embedding_lookup_pallas": 0, "fused_lean_lse": steps + val_batches,
-            "fused_ce_bwd": steps, "same_tile_diag": val_batches, "fused_stats_sweep": val_batches}
+    launches = step_launches(HEADLINE_EPOCHS * ((bench.N_PAIRS - n_val) // b), (HEADLINE_EPOCHS + 1) * (n_val // b))
+    launches["dense_table_lookup"] += HEADLINE_EPOCHS * (math.ceil(bench.N_COMPANIES / b) + math.ceil(n_val / b))
+    return launches
 
 
 def headline_phase(training: dict, out_dir: Path) -> tuple[dict, dict]:
@@ -1362,9 +1414,7 @@ def headline_phase(training: dict, out_dir: Path) -> tuple[dict, dict]:
           f"headline: a non-finite epoch loss {epochs}")
     check(summary["learned"], f"headline did not learn: {summary}")
     check(summary["within_tolerance"], f"headline recall@100 not within {summary['tolerance']}: {summary}")
-    expected = headline_launches(TrainConfig())
-    for name, n in expected.items():
-        check(launches[name] == n, f"headline: kernel {name} launched {launches[name]} times, expected {n}")
+    check_launches(launches, headline_launches(TrainConfig()), "headline")
     row = {
         "epochs": [{"epoch": int(e["epoch"]), "train_loss": e["train_loss"], "val_loss": e["val_loss"],
                     "corpus_recall@10": e["corpus_recall@10"], "corpus_recall@100": e["corpus_recall@100"],
@@ -1522,6 +1572,243 @@ def serve_cli_answers(model_dir: Path, int8: list[tuple[str, list[str]]], exact:
     out["int8_recall_at_100_vs_exact"] = sum(len(set(a[1]) & set(b[1])) for a, b in zip(int8, exact)) / got8.numel()
     out["int8_recall_at_100_ties_counted"] = n_hits / got8.numel()
     return out
+
+
+# -- the host-fed input pipeline and the streaming trainer -------------------------
+
+
+def hostfed_index_phase(work: bench.Workload) -> tuple[dict, dict]:
+    """Host-fed index streaming (``bench_suite.py`` ``train_hostfed``'s
+    workload): ``index_stacks(pairs, 8192, 16, seed=epoch, prefetch=2)``
+    windows, epoch after epoch, through ``make_scanned_train_steps`` over
+    the bench's stores on the card, HOSTFED_STEPS steps after one warm-up
+    window. Beside it, in turns: the device-sampled bench's timed calls
+    (before and after), and the same steps on the same windows uploaded
+    before the clock starts (what the steps cost without the pipeline).
+    Launches exact per step. Returns the record and the counts."""
+    model, state, tx = fresh_train_state(work)
+    steps = make_scanned_train_steps(model, work.cfg, tx, HOSTFED_N_INNER)
+    pairs = work.dataset.pairs
+    n_windows = HOSTFED_STEPS // HOSTFED_N_INNER
+
+    def streamed_windows():
+        epoch = 0
+        while True:
+            yield from index_stacks(pairs, CE_BATCH, HOSTFED_N_INNER, seed=epoch, prefetch=HOSTFED_PREFETCH,
+                                    device="cuda")
+            epoch += 1
+
+    def run(windows) -> tuple[np.ndarray, float]:
+        nonlocal state
+        torch.cuda.synchronize()
+        losses = []
+        t0 = time.perf_counter()
+        for stack in windows:
+            state, m = steps(state, stack, work.notice_store, work.company_store)
+            losses.append(m["loss"])
+        losses = torch.cat(losses).cpu().numpy()  # ends in the losses' fetch
+        return losses, time.perf_counter() - t0
+
+    run(itertools.islice(streamed_windows(), 1))  # warm-up
+    sampled_before = bench.timed_calls(work, TRAIN_TIMED_CALLS, first_seed=100)
+    # -- the main path: counters from 0, read right after ----------------------
+    reset_counters()
+    losses, elapsed = run(itertools.islice(streamed_windows(), n_windows))
+    launches = read_counters()
+    print("hostfed_index main path launches", json.dumps(launches), flush=True)
+    resident = list(itertools.islice(streamed_windows(), n_windows))
+    _, resident_s = run(resident)
+    sampled_after = bench.timed_calls(work, TRAIN_TIMED_CALLS, first_seed=200)
+    done = losses.size
+    check(done == HOSTFED_STEPS, f"hostfed_index ran {done} steps, not {HOSTFED_STEPS}")
+    check_launches(launches, step_launches(done), "hostfed_index")
+    check(bool(np.isfinite(losses).all()), f"hostfed_index: non-finite loss {losses}")
+    row = {"batch": CE_BATCH, "n_inner": HOSTFED_N_INNER, "prefetch": HOSTFED_PREFETCH, "steps": done,
+           "examples_per_sec": done * CE_BATCH / elapsed, "ms_per_step": elapsed / done * 1e3,
+           "resident_windows_ms_per_step": resident_s / done * 1e3,
+           "loss_first": float(losses[:HOSTFED_N_INNER].mean()), "loss_last": float(losses[-HOSTFED_N_INNER:].mean()),
+           "sampled_examples_per_sec": [sampled_before["examples_per_sec"], sampled_after["examples_per_sec"]],
+           "sampled_ms_per_step": [sampled_before["ms_per_step"], sampled_after["ms_per_step"]],
+           "launches": launches}
+    print("hostfed_index " + json.dumps(row), flush=True)
+    return row, {"hostfed_index": launches}
+
+
+def hostfed_features_phase(work: bench.Workload) -> tuple[dict, dict]:
+    """The whole host feature pipeline (``bench_suite.py``
+    ``train_hostfed_features``'s workload): ``train_batches(background=True,
+    prefetch=2)``, i.e. ``BackgroundAssembler`` gathering the rows of each
+    B=8192 batch into page-locked memory on a worker thread and
+    ``prefetch_to_device`` copying them on a side stream, through
+    ``make_train_step``, HOSTFED_FEATURE_BATCHES batches after a warm-up
+    step; examples/s, MB per step, the effective host-to-device MB/s and the
+    consumer's wait for each batch (the time ``next`` takes). Beside it, in
+    one call: the same steps with the gather on the consumer's thread
+    (``background=False, prefetch=2``), and on the same batches already on
+    the card (the step without the feed). Then the race
+    check: RACE_CHECK_BATCHES batches through this path and the same batches
+    through ``background=False, prefetch=0`` (plain blocking copies on the
+    consumer's stream), from copies of one state: every loss, parameter,
+    moment and statistic must be equal bit for bit (dropout is keyed by
+    (seed, step) and the kernels are bit-equal across calls, so a difference
+    is a copy that raced its step). Returns the record and the counts."""
+    model, state, tx = fresh_train_state(work)
+    step = make_train_step(model, work.cfg, tx)
+    notice, company, pairs = work.dataset.notice_store, work.dataset.company_store, work.dataset.pairs
+    warm = next(train_batches(notice, company, pairs, CE_BATCH, seed=10_000, prefetch=0, background=False,
+                              device="cuda"))
+    state, m = step(state, warm)
+    m["loss"].cpu()
+    batch_bytes = sum(t.numel() * t.element_size() for side in warm for t in side)
+    pinned = [torch.empty_like(t, device="cpu", pin_memory=True).copy_(t) for side in warm for t in side]
+
+    def copy_once():
+        for t in pinned:
+            t.to("cuda", non_blocking=True)
+
+    copy_ms = median_ms(copy_once, torch.empty(64 << 20, dtype=torch.uint8, device="cuda"), runs=10)
+
+    def run(batches) -> tuple[np.ndarray, float, list[float]]:
+        """HOSTFED_FEATURE_BATCHES steps on ``batches``: the losses, the
+        seconds (ending in the losses' fetch) and each ``next``'s ms."""
+        nonlocal state
+        it = iter(batches)
+        torch.cuda.synchronize()
+        waits, losses = [], []
+        t0 = time.perf_counter()
+        for _ in range(HOSTFED_FEATURE_BATCHES):
+            tw = time.perf_counter()
+            batch = next(it)
+            waits.append((time.perf_counter() - tw) * 1e3)
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        losses = torch.stack(losses).cpu().numpy()
+        return losses, time.perf_counter() - t0, waits
+
+    def feed(background: bool, prefetch: int, seed: int = 1):
+        return train_batches(notice, company, pairs, CE_BATCH, seed=seed, prefetch=prefetch, background=background,
+                             device="cuda")
+
+    # -- the main path: counters from 0, read right after ----------------------
+    reset_counters()
+    batches = feed(True, HOSTFED_PREFETCH)
+    losses, elapsed, waits = run(batches)
+    batches.close()
+    launches = read_counters()
+    print("hostfed_features main path launches", json.dumps(launches), flush=True)
+    check_launches(launches, step_launches(HOSTFED_FEATURE_BATCHES), "hostfed_features")
+    check(bool(np.isfinite(losses).all()), f"hostfed_features: non-finite loss {losses}")
+    batches = feed(False, HOSTFED_PREFETCH)
+    _, inline_s, inline_waits = run(batches)
+    batches.close()
+    resident = list(itertools.islice(feed(False, 0), HOSTFED_FEATURE_BATCHES))
+    _, resident_s, _ = run(resident)
+    del resident
+
+    # the race check: the prefetched path against plain copies, from one state
+    arms = {}
+    for arm, background, prefetch in (("prefetched", True, HOSTFED_PREFETCH), ("plain", False, 0)):
+        arm_state = copy.deepcopy(state)
+        arm_losses = []
+        arm_feed = feed(background, prefetch, seed=2)
+        for _, batch in zip(range(RACE_CHECK_BATCHES), arm_feed):
+            arm_state, m = step(arm_state, batch)
+            arm_losses.append(m["loss"])
+        arm_feed.close()
+        arms[arm] = (arm_state, torch.stack(arm_losses).cpu())
+    differ = _payload_differences(arms["prefetched"][0], arms["plain"][0])
+    losses_equal = bool(torch.equal(arms["prefetched"][1], arms["plain"][1]))
+    check(losses_equal and not differ,
+          f"hostfed_features race check: losses equal {losses_equal}, leaves differing {differ}")
+
+    step_s = elapsed / HOSTFED_FEATURE_BATCHES
+    row = {"batch": CE_BATCH, "prefetch": HOSTFED_PREFETCH, "background": True, "batches": HOSTFED_FEATURE_BATCHES,
+           "examples_per_sec": CE_BATCH / step_s, "ms_per_step": step_s * 1e3,
+           "inline_gather_ms_per_step": inline_s / HOSTFED_FEATURE_BATCHES * 1e3,
+           "inline_gather_wait_ms_median": float(np.median(inline_waits[1:])),
+           "resident_batches_ms_per_step": resident_s / HOSTFED_FEATURE_BATCHES * 1e3, "mb_per_step": batch_bytes / 1e6,
+           "effective_h2d_mb_per_s": batch_bytes / 1e6 / step_s,
+           "one_batch_copy_ms": copy_ms, "pinned_copy_mb_per_s": batch_bytes / 1e6 / (copy_ms / 1e3),
+           "consumer_wait_ms": {"first": waits[0], "median": float(np.median(waits)),
+                                "median_after_first": float(np.median(waits[1:])), "max_after_first": max(waits[1:]),
+                                "all": waits},
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "race_check": {"batches": RACE_CHECK_BATCHES, "losses_equal": losses_equal, "leaves_differing": differ,
+                          "losses": arms["plain"][1].tolist()},
+           "launches": launches}
+    print("hostfed_features " + json.dumps(row), flush=True)
+    return row, {"hostfed_features": launches}
+
+
+def streaming_trainer_phase(work: bench.Workload) -> tuple[dict, dict]:
+    """``Trainer.train`` fed by a batch source, as ``train_streaming`` feeds
+    it, at B=8192 on the bench's data: the training pairs of the CLI's split
+    in STREAM_CHUNKS consecutive in-memory chunks (the chunks
+    ``stream_pair_chunks`` would read from a file of them; the card machine
+    has no pyarrow) through ``streaming_index_batches``, seeded per epoch,
+    for STREAM_EPOCHS epochs, validating after each and at the end (no
+    corpus eval). Every epoch must run the steps its stream yields, the
+    losses be finite and fall, and the kernels launch exactly as often as
+    those steps and the validation batches ask. Returns the record and the
+    counts."""
+    cfg = work.cfg.replace(
+        data=dataclasses.replace(work.cfg.data, batch_size=CE_BATCH),
+        optimizer=dataclasses.replace(work.cfg.optimizer, num_epochs=STREAM_EPOCHS), results_csv="")
+    train_pairs, val_pairs = split_pairs(work.dataset.pairs, cfg)
+    chunks = np.array_split(train_pairs, STREAM_CHUNKS)
+    yielded: list[int] = []
+
+    def source(epoch: int):
+        yielded.append(0)
+        for idx in streaming_index_batches(iter(chunks), CE_BATCH, seed=cfg.data.shuffle_seed + epoch):
+            yielded[-1] += 1
+            yield idx
+
+    steps_per_epoch = len(train_pairs) // CE_BATCH
+    logs: list[str] = []
+    trainer = Trainer(cfg, work.schema, work.dataset.notice_store, work.dataset.company_store, device="cuda",
+                      log_fn=logs.append)
+    # -- the main path: counters from 0, read right after ----------------------
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.train(np.empty((0, 2), np.int64), val_pairs, batch_source=source,
+                        steps_per_epoch=steps_per_epoch, corpus_eval=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    print("streaming_trainer main path launches", json.dumps(launches), flush=True)
+    print("\n".join(logs), flush=True)
+    val_batches = (STREAM_EPOCHS + 1) * (len(val_pairs) // CE_BATCH)
+    check(yielded == [steps_per_epoch] * STREAM_EPOCHS and res.state.step == sum(yielded),
+          f"streaming_trainer: the streams yielded {yielded} batches, the trainer ran {res.state.step} steps")
+    check_launches(launches, step_launches(sum(yielded), val_batches), "streaming_trainer")
+    train_losses = [h["train_loss"] for h in res.history]
+    val_losses = [h["val_loss"] for h in res.history]
+    check(bool(np.isfinite(train_losses + val_losses).all()), f"streaming_trainer: non-finite loss {res.history}")
+    check(train_losses[-1] < train_losses[0] and val_losses[-1] < val_losses[0],
+          f"streaming_trainer: losses did not fall: train {train_losses}, val {val_losses}")
+    row = {"batch": CE_BATCH, "epochs": STREAM_EPOCHS, "chunks": [len(c) for c in chunks],
+           "batches_yielded": yielded, "steps": res.state.step, "val_batches": val_batches,
+           "train_loss": train_losses, "val_loss": val_losses,
+           "examples_per_sec": [h["examples_per_sec"] for h in res.history], "wall_s": wall_s,
+           "launches": launches}
+    print("streaming_trainer " + json.dumps(row), flush=True)
+    return row, {"streaming_trainer": launches}
+
+
+def hostfed_phase(work: bench.Workload) -> tuple[dict, dict]:
+    """The host-fed phase: index streaming, the feature pipeline with its
+    race check, and the streaming trainer, one after the other."""
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    for name, phase in (("index", hostfed_index_phase), ("features", hostfed_features_phase),
+                        ("streaming_trainer", streaming_trainer_phase)):
+        out[name], counts = phase(work)
+        launches.update(counts)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out, launches
 
 
 def profile_phase(work: bench.Workload) -> tuple[dict, dict]:
@@ -2024,6 +2311,9 @@ def main() -> int:
         shutil.rmtree(headline_dir, ignore_errors=True)
     resume, resume_launches = resume_phase(work)
     profile, profile_launches = profile_phase(work)
+    hostfed, hostfed_launches_by_path = hostfed_phase(work)
+    hostfed["card"] = card
+    print("hostfed " + json.dumps(hostfed), flush=True)
     del work
     torch.cuda.empty_cache()
     scaled, scaled_launches = scaled_phase(scaled_setup())
@@ -2033,7 +2323,8 @@ def main() -> int:
     step_check = step_grad_check()
 
     launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches,
-                **headline_counts, **serve_launches, **resume_launches, **profile_launches, **scaled_launches}
+                **headline_counts, **serve_launches, **resume_launches, **profile_launches, **hostfed_launches_by_path,
+                **scaled_launches}
     record = {"kernels": [
         kernel_record("onehot_lookup", "K1", "onehot_lookup.cu", "embedding_grad.py:358",
                       kernels["onehot_lookup"], launches, "dense_table_lookup", "training"),
@@ -2078,6 +2369,21 @@ def main() -> int:
         | {"trace_busy_share": profile["trace"]["busy_share"]},
         "resume": {k: resume[k] for k in ("steps", "leaves_differing", "cross_device_differing", "search_equal",
                                           "trainer_call_device_ms", "trainer_call_busy_share")},
+        "hostfed": {
+            "index": {k: hostfed["index"][k] for k in ("examples_per_sec", "ms_per_step", "resident_windows_ms_per_step",
+                                                       "sampled_examples_per_sec", "sampled_ms_per_step", "steps")},
+            "features": {k: hostfed["features"][k] for k in ("examples_per_sec", "ms_per_step",
+                                                             "inline_gather_ms_per_step",
+                                                             "resident_batches_ms_per_step", "mb_per_step",
+                                                             "effective_h2d_mb_per_s", "one_batch_copy_ms",
+                                                             "pinned_copy_mb_per_s")}
+            | {"consumer_wait_ms_median": hostfed["features"]["consumer_wait_ms"]["median"],
+               "race_check_equal": hostfed["features"]["race_check"]["losses_equal"]
+               and not hostfed["features"]["race_check"]["leaves_differing"]},
+            "streaming_trainer": {k: hostfed["streaming_trainer"][k] for k in ("steps", "train_loss", "val_loss",
+                                                                               "examples_per_sec", "wall_s")},
+            "phase_s": hostfed["phase_s"],
+        },
         "scaled": {path: {k: scaled[path][k] for k in ("ms_per_step", "examples_per_sec", "device_busy_share",
                                                        "device_busy_share_timed", "loss_last_call")}
                    for path in SCALED_PATHS},

@@ -3,8 +3,9 @@
 
 Contiguous per-side matrices (the dense block is numeric ++ text embeddings,
 pre-concatenated so batch assembly is one row gather) plus a key -> row map.
-``gather`` uses numpy indexing; the reference's native multithreaded gather
-is not part of the port.
+``gather`` uses numpy indexing under the reference's contract: rows must lie
+in [0, n), anything else raises ``IndexError`` (the reference's native
+multithreaded gather is not part of the port; its bounds check is).
 """
 
 from __future__ import annotations
@@ -17,6 +18,19 @@ import numpy as np
 
 from jodalrob_twotower_torch.data.types import TowerBatch
 from jodalrob_twotower_torch.schema import SideSchema
+
+
+def check_rows(rows, n_src_rows: int) -> np.ndarray:
+    """``rows`` as contiguous int64, which must lie in [0, n_src_rows): a
+    negative row would silently read from the end, so one contract holds
+    for every gather (reference ``native._check_bounds``, with its message)."""
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    if rows.size and (rows.min() < 0 or rows.max() >= n_src_rows):
+        raise IndexError(
+            f"row indices out of bounds for source with {n_src_rows} rows "
+            f"(min {rows.min()}, max {rows.max()}; negatives not allowed)"
+        )
+    return rows
 
 
 @dataclasses.dataclass
@@ -62,8 +76,8 @@ class FeatureStore:
         return np.fromiter((m[k] for k in keys), dtype=np.int64, count=len(keys))
 
     def gather(self, rows: np.ndarray) -> TowerBatch:
-        """Assemble a host TowerBatch for the given row indices."""
-        rows = np.asarray(rows)
+        """Assemble a host TowerBatch for the given row indices, each in [0, n)."""
+        rows = check_rows(rows, len(self))
         return TowerBatch(dense=self.dense[rows], cat_ids=self.cat_ids[rows])
 
     @classmethod

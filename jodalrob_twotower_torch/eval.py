@@ -9,10 +9,13 @@ in-batch metric surface (``evaluate_indexed`` over device-resident stores, or
 ``evaluate`` over host batches with ``--host-eval``) with the random
 baselines and the qualitative verdict, the corpus-level retrieval recall@k
 and MRR over ``--ks``, and with ``--demo-queries`` the top-10 predictions of
-the first queries. The keys are the reference CLI's. Runs on the card;
-``--force-cpu`` asks for the CPU.
+the first queries. The keys are the reference CLI's. The data is the
+synthetic dataset, or with ``--data-dir`` a parquet dataset directory (the
+training CLI's; its readers need pyarrow). Runs on the card; ``--force-cpu``
+asks for the CPU.
 
   python -m jodalrob_twotower_torch.eval --model-dir runs/exp1 --output eval.json
+  python -m jodalrob_twotower_torch.eval --model-dir runs/ds --data-dir ds/ --output eval.json
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from pathlib import Path
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m jodalrob_twotower_torch.eval", description=__doc__.splitlines()[0])
     p.add_argument("--model-dir", type=Path, required=True, help="training output dir (config.json + weights/)")
-    p.add_argument("--data-dir", type=Path, help="parquet dataset directory (not ported yet)")
+    p.add_argument("--data-dir", type=Path, help="parquet dataset directory")
     p.add_argument("--synthetic", action="store_true", help="use the synthetic dataset (the default)")
     p.add_argument("--synthetic-scale", choices=["tiny", "bench"], default="tiny",
                    help="the synthetic dataset's scale, as the training run's --synthetic-scale")
@@ -48,10 +51,10 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for flag, item in (("data_dir", "A11"), ("mesh_devices", "A12"), ("store_sharding", "A12")):
+    for flag in ("mesh_devices", "store_sharding"):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to the PyTorch package yet (ROADMAP {item})"
+                f"--{flag.replace('_', '-')} is not ported to the PyTorch package yet (ROADMAP A12)"
             )
     from jodalrob_twotower_torch.config import TrainConfig
     from jodalrob_twotower_torch.data.pipeline import assemble_pair_batch
@@ -71,7 +74,12 @@ def main(argv=None) -> int:
 
     device = resolve_device("cpu" if args.force_cpu else None)
     cfg = TrainConfig.from_json(args.model_dir / "config.json")
-    schema, notice_store, company_store, pairs = synthetic_data(args.synthetic_scale, cfg.seed)
+    if args.data_dir and not args.synthetic:
+        from jodalrob_twotower_torch.data.parquet_dataset import load_dataset
+
+        schema, notice_store, company_store, pairs = load_dataset(args.data_dir)
+    else:
+        schema, notice_store, company_store, pairs = synthetic_data(args.synthetic_scale, cfg.seed)
     if cfg.data.pair_limit:
         pairs = pairs[: cfg.data.pair_limit]
     _, val_pairs = split_pairs(pairs, cfg)

@@ -9,13 +9,19 @@ for bit), a row of the results CSV and, with ``--metrics-jsonl``, one JSON
 line per epoch.
 
 Data: ``--synthetic`` (the default) is the planted-cluster dataset, at the
-``tiny`` scale or the headline bench's (``--synthetic-scale bench``). The
-run goes on the card; ``--force-cpu`` asks for the CPU.
+``tiny`` scale or the headline bench's (``--synthetic-scale bench``);
+``--data-dir`` reads a parquet dataset directory (``data/parquet_dataset.py``:
+schema.json, notice/company.parquet, pairs.parquet), and with ``--stream``
+trains on pairs.parquet streamed in chunks of ``DataConfig.chunk_size``
+(``Trainer.train_streaming``; validation pairs are carved from the loaded
+set as without it). The parquet readers need pyarrow. The run goes on the
+card; ``--force-cpu`` asks for the CPU.
 
   python -m jodalrob_twotower_torch.train --synthetic --synthetic-scale bench \\
       --batch-size 8192 --epochs 8 --sample-on-device --epoch-corpus-eval \\
       --output-dir runs/headline
   python -m jodalrob_twotower_torch.train --force-cpu --epochs 2 --output-dir runs/cpu
+  python -m jodalrob_twotower_torch.train --data-dir ds/ --stream --output-dir runs/ds
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ def parse_args(argv=None):
         help="'tiny' (10k rows a side, 50k pairs) or 'bench' (the headline bench's shape: "
         "reference-shaped schema, 100k rows a side, 400k pairs, 256 planted clusters)",
     )
-    p.add_argument("--data-dir", type=Path, help="parquet dataset directory (not ported yet)")
-    p.add_argument("--stream", action="store_true", help="stream pairs.parquet in chunks (not ported yet)")
+    p.add_argument("--data-dir", type=Path, help="parquet dataset directory")
+    p.add_argument("--stream", action="store_true",
+                   help="with --data-dir: stream pairs.parquet in chunks instead of holding every pair")
     p.add_argument("--output-dir", type=Path, default=Path("output/models"))
     p.add_argument("--epochs", type=int)
     p.add_argument("--batch-size", type=int)
@@ -86,6 +93,9 @@ def configure(args):
     if args.save_every_steps is not None:
         cfg = cfg.replace(checkpoint=dataclasses.replace(cfg.checkpoint, save_every_steps=args.save_every_steps))
     if args.sample_on_device:
+        if args.stream:
+            raise SystemExit("--sample-on-device needs the whole pair set device-resident; "
+                             "it is incompatible with --stream")
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, sample_on_device=True))
     if args.metrics_jsonl:
         cfg = cfg.replace(metrics_jsonl=str(args.metrics_jsonl))
@@ -129,29 +139,40 @@ def split_pairs(pairs: np.ndarray, cfg) -> tuple[np.ndarray, np.ndarray]:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for flag, item in (("data_dir", "A11"), ("stream", "A11"), ("mesh_devices", "A12"), ("store_sharding", "A12"),
-                       ("grad_compression", "A12"), ("compressed_negatives", "A12")):
+    for flag in ("mesh_devices", "store_sharding", "grad_compression", "compressed_negatives"):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to the PyTorch package yet (ROADMAP {item})"
+                f"--{flag.replace('_', '-')} is not ported to the PyTorch package yet (ROADMAP A12)"
             )
     from jodalrob_twotower_torch.train.trainer import Trainer
 
     cfg = configure(args)
-    print(f"data: synthetic planted-cluster dataset ({args.synthetic_scale} scale)")
-    schema, notice_store, company_store, pairs = synthetic_data(args.synthetic_scale, cfg.seed)
+    if args.data_dir and not args.synthetic:
+        from jodalrob_twotower_torch.data.parquet_dataset import load_dataset
+
+        schema, notice_store, company_store, pairs = load_dataset(args.data_dir)
+        print(f"data: {args.data_dir} ({len(pairs):,} pairs)")
+    else:
+        print(f"data: synthetic planted-cluster dataset ({args.synthetic_scale} scale)")
+        schema, notice_store, company_store, pairs = synthetic_data(args.synthetic_scale, cfg.seed)
     train_pairs, val_pairs = split_pairs(pairs, cfg)
     print(f"pairs: {len(train_pairs):,} train / {len(val_pairs):,} val")
 
     trainer = Trainer(cfg, schema, notice_store, company_store, device="cpu" if args.force_cpu else None)
-    result = trainer.train(
-        train_pairs,
-        val_pairs,
-        checkpoint_dir=args.output_dir,
-        resume=args.resume,
-        corpus_eval=not args.no_corpus_eval,
-        epoch_corpus_eval=args.epoch_corpus_eval,
-    )
+    common = dict(checkpoint_dir=args.output_dir, resume=args.resume, corpus_eval=not args.no_corpus_eval)
+    if args.stream and args.data_dir:
+        # the stream reads the whole pairs file each epoch: the split above
+        # only carves out the validation pairs, which training then sees
+        # too (the reference's rule for the huge-pairs regime it serves)
+        result = trainer.train_streaming(
+            args.data_dir / "pairs.parquet",
+            val_pairs,
+            steps_per_epoch=max((len(train_pairs) + len(val_pairs)) // cfg.data.batch_size, 1),
+            chunk_rows=cfg.data.chunk_size,
+            **common,
+        )
+    else:
+        result = trainer.train(train_pairs, val_pairs, epoch_corpus_eval=args.epoch_corpus_eval, **common)
     print(f"done: {result.examples_per_sec:,.0f} examples/s, results appended to {cfg.results_csv}")
     return 0
 

@@ -19,11 +19,15 @@ epoch's remainder, as in the reference:
 * sparse tables (``TrainConfig.sparse_tables``), host-fed or sampled, with
   one table update per step or per window (``sparse_defer_updates``).
 
+A host-fed run may take its index batches from a ``batch_source(epoch)``
+instead of the in-memory pairs: ``train_streaming`` streams them from
+parquet pair files too large for host memory (``data/parquet_stream.py``).
+
 Mid-epoch resume is exact: the epoch iterator is seeded, the checkpoint
 records how many batches the epoch had consumed, and every random draw
-(dropout, sampling) is a function of (seed, global step). Meshes, the
-compressed gradient sync (the parallel slice, ROADMAP A12) and parquet
-streaming (the data-plane slice, ROADMAP A11) are not ported.
+(dropout, sampling) is a function of (seed, global step); a streamed epoch
+is seeded too, and resume skips the batches it had consumed. Meshes and the
+compressed gradient sync (the parallel slice, ROADMAP A12) are not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -127,16 +131,29 @@ class Trainer:
         corpus_eval: bool = True,
         epoch_corpus_eval: bool = False,
         n_inner: int = 8,
+        batch_source: Callable[[int], Iterable[np.ndarray]] | None = None,
+        steps_per_epoch: int | None = None,
     ) -> TrainResult:
         """Train ``cfg.optimizer.num_epochs`` epochs of ``len(train_pairs) //
         batch_size`` steps, ``n_inner`` steps per call, validating on
         ``val_pairs`` after each; with ``checkpoint_dir``, checkpoint there
-        and, with ``resume``, continue from its newest checkpoint."""
+        and, with ``resume``, continue from its newest checkpoint.
+
+        ``batch_source(epoch) -> iterable of [B, 2] index batches`` replaces
+        the shuffled in-memory epochs (``train_streaming`` passes one); an
+        epoch then runs as many steps as its source yields, and
+        ``steps_per_epoch`` sizes the schedule."""
         cfg = self.cfg
         if cfg.mesh.grad_compression != "none":
             raise _not_ported("the compressed gradient sync", "A12")
+        if cfg.data.sample_on_device and batch_source is not None:
+            raise ValueError(
+                "sample_on_device needs the whole pair set device-resident; "
+                "it is incompatible with streaming batch sources"
+            )
         b = cfg.data.batch_size
-        steps_per_epoch = len(train_pairs) // b
+        if steps_per_epoch is None:
+            steps_per_epoch = len(train_pairs) // b
         total_steps = max(steps_per_epoch * cfg.optimizer.num_epochs, 1)
         n_inner = max(min(n_inner, steps_per_epoch), 1)
         dev = self.device
@@ -256,13 +273,15 @@ class Trainer:
                         ckpt.save_step(state, epoch, batches_done)
                         steps_since_save = 0
                 batch_iter = ()
+            elif batch_source is not None:
+                batch_iter = batch_source(epoch)
             else:
                 batch_iter = epoch_batches(train_pairs, b, shuffle=True, seed=cfg.data.shuffle_seed + epoch)
             for idx in batch_iter:
                 if skip_batches:  # mid-epoch resume: the epoch iterator is
                     skip_batches -= 1  # seeded, so dropping the first N
                     continue  # batches replays the interrupted epoch exactly
-                if first_dispatch and not stack:
+                if first_dispatch and not stack and batch_source is None:
                     self.verify_pair_alignment(idx[: min(len(idx), 256)], train_pairs)
                 stack.append(idx)
                 if len(stack) == n_inner:
@@ -363,9 +382,35 @@ class Trainer:
             num_params=num_params,
         )
 
-    def train_streaming(self, *args, **kwargs) -> TrainResult:
-        """Training from parquet pair files too large for host memory."""
-        raise _not_ported("streaming parquet pairs (train_streaming)", "A11")
+    def train_streaming(
+        self,
+        pair_files,
+        val_pairs: np.ndarray,
+        *,
+        steps_per_epoch: int,
+        host_index: int = 0,
+        host_count: int = 1,
+        chunk_rows: int = 1_000_000,
+        **train_kwargs,
+    ) -> TrainResult:
+        """Train from parquet pair files too large for host memory
+        (``data/parquet_stream.py``): each epoch streams the files again,
+        in chunks of ``chunk_rows`` joined to the stores' keys, this host's
+        lockstep shard of each (``host_index`` of ``host_count``), shuffled
+        with the seed ``shuffle_seed + epoch``. ``steps_per_epoch`` sizes
+        the schedule; ``train_kwargs`` go to :meth:`train`."""
+        from jodalrob_twotower_torch.data.parquet_stream import stream_pair_chunks, streaming_index_batches
+
+        def source(epoch: int):
+            return streaming_index_batches(
+                stream_pair_chunks(pair_files, self.notice_store, self.company_store, chunk_rows=chunk_rows,
+                                   host_index=host_index, host_count=host_count),
+                self.cfg.data.batch_size,
+                seed=self.cfg.data.shuffle_seed + epoch,
+            )
+
+        return self.train(np.empty((0, 2), np.int64), val_pairs, batch_source=source,
+                          steps_per_epoch=steps_per_epoch, **train_kwargs)
 
     def prepare_device_eval(self) -> None:
         """Place both feature stores on the device, so validate() and

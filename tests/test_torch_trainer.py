@@ -13,8 +13,9 @@ change over the run must match the reference's by relative norm within
 
 Then: sampled runs (dense and sparse tables) learn; the results CSV has the
 reference's header; the final corpus eval reuses the last epoch's result
-instead of encoding the corpus again; meshes, the compressed gradient sync
-and streaming raise; and the default device is the card, never the CPU.
+instead of encoding the corpus again; meshes and the compressed gradient
+sync raise (``train_streaming`` runs in tests/test_torch_streaming_trainer.py);
+and the default device is the card, never the CPU.
 """
 
 import csv
@@ -213,7 +214,7 @@ def test_final_corpus_eval_reuses_the_last_epoch(small_dataset, monkeypatch, epo
         assert res.history[-1]["corpus_recall@100"] == res.corpus.recall[100]
 
 
-def test_unported_modes_raise(small_dataset, tmp_path):
+def test_unported_modes_raise(small_dataset):
     ds = small_dataset
     args = (ds.schema, ds.notice_store, ds.company_store)
     with pytest.raises(NotImplementedError, match="A12"):
@@ -221,8 +222,6 @@ def test_unported_modes_raise(small_dataset, tmp_path):
     cfg = _small_cfg().replace(mesh=TMeshConfig(grad_compression="int16"))
     with pytest.raises(NotImplementedError, match="A12"):
         ttrainer.Trainer(cfg, *args, device="cpu").train(ds.pairs[:512], ds.pairs[512:640])
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttrainer.Trainer(_small_cfg(), *args, device="cpu").train_streaming(tmp_path / "pairs.parquet", ds.pairs[:64])
 
 
 def test_default_device_is_the_card(small_dataset, monkeypatch):

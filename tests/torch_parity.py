@@ -7,6 +7,7 @@ so that a wrong map in the converter cannot hide behind init values."""
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import jax
 import numpy as np
@@ -96,3 +97,28 @@ def flax_variables(jax_model, jax_schema_, rng: np.random.Generator):
 
 def replace_cfg(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
+
+
+DRAIN_TIMEOUT_S = 60
+
+
+def drain(items, timeout: float = DRAIN_TIMEOUT_S) -> list:
+    """Every item of ``items``, consumed on a thread that gets ``timeout``
+    seconds: a hung worker or reader thread fails the test instead of
+    running into the suite's clock. The consumer's exception is re-raised
+    here."""
+    out, err = [], []
+
+    def consume():
+        try:
+            out.extend(items)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            err.append(e)
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), f"not drained within {timeout} s"
+    if err:
+        raise err[0]
+    return out
