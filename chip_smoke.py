@@ -97,7 +97,25 @@ NVIDIA card.
    batches its stream yields, losses finite and falling. K1, K2, K6 and
    K11 launch exactly as the steps ask, K1, K6, K8 and K5 as the validation
    batches ask.
-12. The large-table paths, BASELINE config 3 (tables of 10,000,384 x 64 f32
+12. ETL phase: raw tables to a trained, serving model at the bench's width
+   (``etl_phase``): a reference-format metadata.csv classified and turned
+   into a schema with the port's functions; 100,000 notices and companies
+   (29 numeric, 32 categorical of 990 values and the title; 1 numeric and 6
+   categorical) and 400,000 pairs in 256 planted clusters, from seed; the
+   ETL that ``run_pipeline`` composes, in memory (the fit on the whole
+   table, the transform in chunks of 25,000, the hash embedder at 768;
+   only the parquet files are left out, the card machine has no pyarrow)
+   into the manifest's schema and the feature stores, the unified notice
+   table [32768, 32]; ``Trainer.train`` at B=8192 for 2 epochs with
+   validation and the corpus eval (launches exact, loss falling, corpus
+   recall@100 >= 0.01); the int8 service over the 100,000 companies
+   answering 8,192 held-out notices (equal to a plain int8 scan except at
+   ties); the company table and 2,000 notices to gzip TFRecord and back
+   with the native CRC32C, and 20,000 company rows through the Example
+   encoder's direct and general paths (the same bytes, both rates); and
+   ``quickstart.main`` at its full size
+   (launches exact: K2 only, its float32 towers at D = 32).
+13. The large-table paths, BASELINE config 3 (tables of 10,000,384 x 64 f32
    per tower, B=8192): ``scaled_dense`` (the row-gather kernel K4 through
    ``MeshConfig.use_pallas_lookup``, the full-table scatter and rowwise
    Adagrad), ``scaled_sparse`` (sparse tables, one update per step) and
@@ -106,7 +124,7 @@ NVIDIA card.
    twice per step on the dense path and never on the sparse ones, K1 and
    K2 never, K6 and K11 once per step; then two sparse steps against two
    dense steps from one state.
-13. One step's loss and gradients at B=1024 on the card against the same step
+14. One step's loss and gradients at B=1024 on the card against the same step
    on the CPU through the plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
@@ -119,10 +137,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gzip
 import io
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import sys
@@ -133,7 +153,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from jodalrob_twotower_torch import bench, profile_step, serve, train_headline
+from jodalrob_twotower_torch import bench, profile_step, quickstart, serve, train_headline
+from jodalrob_twotower_torch.etl.pipeline import preprocess_in_memory
+from jodalrob_twotower_torch.etl.text import HashTextEmbedder
+from jodalrob_twotower_torch.etl.to_feature_store import feature_store_from_columns, side_schema_from_manifest_dict
+from jodalrob_twotower_torch.io import crc32c as crc32c_io
+from jodalrob_twotower_torch.io.tfrecord import (
+    TFRecordReader,
+    TFRecordWriter,
+    count_records,
+    search_records,
+    table_to_tfrecord,
+)
 from jodalrob_twotower_torch.config import LossConfig, MeshConfig, ModelConfig, OptimizerConfig, TrainConfig
 from jodalrob_twotower_torch.data.parquet_stream import streaming_index_batches
 from jodalrob_twotower_torch.data.pipeline import index_stacks, train_batches
@@ -178,7 +209,9 @@ from jodalrob_twotower_torch.schema import (
     NumericSpec,
     SideSchema,
     TwoTowerSchema,
+    classify_columns,
     reference_shaped_schema,
+    schema_from_metadata_csv,
 )
 from jodalrob_twotower_torch.serving import autoconfig
 from jodalrob_twotower_torch.serving.index import BruteForceIndex, recall_vs_exact
@@ -1376,10 +1409,19 @@ def headline_launches(cfg: TrainConfig) -> dict[str, int]:
     every epoch and once more at the end), and per epoch's corpus eval K1
     once per encode chunk of 8192 rows (the company store from the card,
     the validation notices from the host)."""
-    b = CE_BATCH
     n_val = int(round(bench.N_PAIRS * cfg.data.test_split))
-    launches = step_launches(HEADLINE_EPOCHS * ((bench.N_PAIRS - n_val) // b), (HEADLINE_EPOCHS + 1) * (n_val // b))
-    launches["dense_table_lookup"] += HEADLINE_EPOCHS * (math.ceil(bench.N_COMPANIES / b) + math.ceil(n_val / b))
+    return trainer_launches(HEADLINE_EPOCHS, bench.N_PAIRS - n_val, n_val, bench.N_COMPANIES)
+
+
+def trainer_launches(epochs: int, n_train: int, n_val: int, n_companies: int, batch: int = CE_BATCH) -> dict[str, int]:
+    """Each kernel's launches on ``Trainer.train`` at B = ``batch`` with the
+    corpus eval after every epoch: the train steps and validation batches
+    (``step_launches``; validation after every epoch and once more at the
+    end), and per epoch's corpus eval K1 once per encode chunk of 8192 rows
+    (the company store from the card, the validation notices from the
+    host)."""
+    launches = step_launches(epochs * (n_train // batch), (epochs + 1) * (n_val // batch))
+    launches["dense_table_lookup"] += epochs * (math.ceil(n_companies / 8192) + math.ceil(n_val / 8192))
     return launches
 
 
@@ -1961,6 +2003,392 @@ def resume_phase(work: bench.Workload) -> tuple[dict, dict]:
     return row, {"resume": launches}
 
 
+# -- the offline ETL from raw tables to a trained, serving model -------------------
+
+# The migration workflow of scripts/reference_scale_demo.py (metadata ->
+# schema -> raw tables -> ETL -> training) at the bench's width: the
+# reference-shaped notice (29 numeric, 32 categorical, the 768-float title)
+# and company (1 numeric, 6 categorical) tables, 100,000 rows each and
+# 400,000 positive pairs within 256 planted clusters. Every categorical
+# column has 990 values, each observed, so each vocab fits to 993 ids, 1,003
+# rows with the margin and 1,024 once aligned: the notice table is K1's
+# timed [32768, 32].
+ETL_NOTICES = 100_000
+ETL_COMPANIES = 100_000
+ETL_PAIRS = 400_000
+ETL_CLUSTERS = 256
+ETL_CATEGORIES = 990
+ETL_NULL_EVERY = 37  # every 37th row of every column is null
+ETL_CHUNK_ROWS = 25_000  # the transform's chunks (the fit sees the whole table)
+ETL_TEXT_DIM = 768
+ETL_TEXT_WORDS = 200  # a title is "공고 c<cluster> w<word>", the word uniform
+# numeric columns: cluster centroids shared by both tables, plus noise. At a
+# noise of 0.3 two epochs learned far less on the card (corpus recall@100
+# under 0.01), as did columns that were a multiple of the cluster number.
+ETL_CENTROID_DIM, ETL_NUMERIC_NOISE = 8, 1.0
+ETL_OWN_SHARE = 0.5  # a categorical value is its cluster's with this probability, else uniform
+ETL_EPOCHS = 2
+ETL_SERVE_QUERIES = 8192
+ETL_TFRECORD_NOTICES = 2_000
+ETL_CODEC_ROWS = 20_000  # company rows written both ways by etl_codec_check
+ETL_RECALL_FLOOR = 0.01  # 10x the 0.001 of random at 100 of 100,000
+ETL_CRC_BYTES = 1 << 20
+
+
+def etl_metadata_csv(path: Path, n_notice_numeric: int = 29, n_notice_categorical: int = 32,
+                     n_company_categorical: int = 6, n_categories: int = ETL_CATEGORIES) -> Path:
+    """A reference-format ``metadata.csv`` (the Korean headers) of the
+    notice and company tables: PKs, ``numeric`` columns, ``character
+    varying`` categoricals with their category count, the notice title as
+    ``text``, and one unused column each."""
+    rows = ["테이블명,컬럼명,타입,사용 여부,PK,범주형 여부,범주 갯수",
+            "notice,bidntceno,character varying(40),Y,Y,,", "notice,bidntceord,character varying(3),Y,Y,,"]
+    rows += [f"notice,num_{i},numeric,Y,,," for i in range(n_notice_numeric)]
+    rows += [f"notice,cat_{i},character varying(100),Y,,Y,{n_categories}" for i in range(n_notice_categorical)]
+    rows += ["notice,bidntcenm,text,Y,,,", "notice,rgstdt,timestamp,N,,,",
+             "company,bizno,character varying(10),Y,Y,,", "company,num_0,numeric,Y,,,"]
+    rows += [f"company,cat_{i},character varying(100),Y,,Y,{n_categories}" for i in range(n_company_categorical)]
+    rows += ["company,opbizdt,timestamp,N,,,"]
+    path.write_text("\n".join(rows) + "\n", encoding="utf-8")
+    return path
+
+
+def etl_raw_table(cls: dict, n: int, cluster: np.ndarray, centroids: np.ndarray, rng: np.random.Generator,
+                  n_categories: int) -> dict:
+    """One raw table of ``n`` rows for the classified columns ``cls``, with
+    the planted cluster structure: numeric column j the cluster's centroid
+    coordinate j (cycled over ``centroids``' width, the centroids shared by
+    both tables) plus noise, each categorical value its cluster's with
+    probability ETL_OWN_SHARE and else uniform over the column's ``n_categories``
+    values (strings), titles sharing their cluster's token; every
+    ETL_NULL_EVERY-th row null in every column."""
+    table = {}
+    if len(cls["pk"]) == 2:
+        table[cls["pk"][0]] = np.asarray([f"N{i:08d}" for i in range(n)], object)
+        table[cls["pk"][1]] = np.asarray(["000"] * n, object)
+    else:
+        table[cls["pk"][0]] = np.asarray([f"{i:010d}" for i in range(n)], object)
+    for j, col in enumerate(cls["numeric"]):
+        x = centroids[cluster, j % centroids.shape[1]] + rng.normal(0.0, ETL_NUMERIC_NOISE, n)
+        x[::ETL_NULL_EVERY] = np.nan
+        table[col] = x
+    names = np.asarray([f"v{v:03d}" for v in range(n_categories)], object)
+    for j, (col, _) in enumerate(cls["categorical"]):
+        own = (np.arange(len(centroids)) * 131 + j * 17) % n_categories
+        v = np.where(rng.random(n) < ETL_OWN_SHARE, own[cluster], rng.integers(0, n_categories, n))
+        values = names[v]
+        values[::ETL_NULL_EVERY] = None
+        table[col] = values
+    for col in cls["text"]:
+        words = rng.integers(0, ETL_TEXT_WORDS, n)
+        titles = np.asarray([f"공고 c{c} w{w}" for c, w in zip(cluster.tolist(), words.tolist())], object)
+        titles[::ETL_NULL_EVERY] = None
+        table[col] = titles
+    return table
+
+
+def etl_raw_tables(metadata: Path, n_notices: int, n_companies: int, n_pairs: int, seed: int = SEED,
+                   n_categories: int = ETL_CATEGORIES, n_clusters: int = ETL_CLUSTERS):
+    """(notice table, company table, pairs [n_pairs, 2]) from seed: each
+    pair a uniform notice and a uniform company of its cluster."""
+    rng = np.random.default_rng(seed)
+    n_cluster = rng.integers(0, n_clusters, n_notices)
+    c_cluster = rng.integers(0, n_clusters, n_companies)
+    centroids = rng.normal(0.0, 1.0, (n_clusters, ETL_CENTROID_DIM))
+    notice = etl_raw_table(classify_columns("notice", metadata), n_notices, n_cluster, centroids, rng, n_categories)
+    company = etl_raw_table(classify_columns("company", metadata), n_companies, c_cluster, centroids, rng,
+                            n_categories)
+    order = np.argsort(c_cluster, kind="stable")
+    starts = np.searchsorted(c_cluster[order], np.arange(n_clusters))
+    counts = np.bincount(c_cluster, minlength=n_clusters)
+    notices = rng.integers(0, n_notices, n_pairs)
+    cl = n_cluster[notices]
+    check(bool((counts[cl] > 0).all()), "etl: a paired cluster has no company")
+    companies = order[starts[cl] + (rng.random(n_pairs) * counts[cl]).astype(np.int64)]
+    return notice, company, np.stack([notices, companies], axis=1).astype(np.int64)
+
+
+def etl_side(name: str, table: dict, metadata: Path, chunk_rows: int, embedder):
+    """One table through the ETL that ``run_pipeline`` composes, in memory
+    (the fit on the whole table, the transform in chunks of ``chunk_rows``;
+    only the parquet files are left out): (side schema from the manifest
+    dict, FeatureStore from the shared assembly, manifest, preprocessed
+    columns, seconds)."""
+    cls = classify_columns(name, metadata)
+    n = len(table[cls["pk"][0]])
+    chunks = ({k: v[lo : lo + chunk_rows] for k, v in table.items()} for lo in range(0, n, chunk_rows))
+    t0 = time.perf_counter()
+    manifest, columns = preprocess_in_memory(
+        name, chunks, fit_table=table, pk_columns=cls["pk"], numeric_columns=cls["numeric"],
+        categorical_columns=[c for c, _ in cls["categorical"]], text_columns=cls["text"] or None,
+        text_embedder=embedder)
+    side = side_schema_from_manifest_dict(manifest)
+    store = feature_store_from_columns(side, columns)
+    return side, store, manifest, columns, time.perf_counter() - t0
+
+
+def etl_stores(metadata: Path, n_notices: int, n_companies: int, n_pairs: int, *, chunk_rows: int = ETL_CHUNK_ROWS,
+               text_dim: int = ETL_TEXT_DIM, n_categories: int = ETL_CATEGORIES, n_clusters: int = ETL_CLUSTERS,
+               seed: int = SEED) -> dict:
+    """Raw tables from seed -> both ETLs -> schema and stores, with the
+    metadata schema's checks: the manifests' schema keeps the metadata's
+    columns (each numeric one with its null flag), every id lies within its
+    vocab and the text block is ``text_dim`` wide."""
+    t0 = time.perf_counter()
+    notice_raw, company_raw, pairs = etl_raw_tables(metadata, n_notices, n_companies, n_pairs, seed, n_categories,
+                                                    n_clusters)
+    raw_s = time.perf_counter() - t0
+    meta_schema = schema_from_metadata_csv(metadata, text_embed_dim=text_dim)
+    embedder = HashTextEmbedder(text_dim)
+    out = {"pairs": pairs, "raw_s": raw_s, "raw": (notice_raw, company_raw)}
+    for name, table in (("notice", notice_raw), ("company", company_raw)):
+        side, store, manifest, columns, seconds = etl_side(name, table, metadata, chunk_rows, embedder)
+        want = meta_schema.side(name)
+        check(side.numeric_names == tuple(x for c in want.numeric_names for x in (f"{c}_is_null", c)),
+              f"etl {name}: numeric outputs {side.numeric_names}")
+        check(side.categorical_names == want.categorical_names and side.text_names == want.text_names,
+              f"etl {name}: columns {side.categorical_names} {side.text_names}")
+        check(store.cat_ids.shape == (len(table[side.pk[0]]), want.num_categorical)
+              and store.dense.shape[1] == 2 * want.num_numeric + want.text_dim,
+              f"etl {name}: store {store.dense.shape} {store.cat_ids.shape}")
+        vocab = np.asarray(side.vocab_sizes)
+        check(bool(((store.cat_ids >= 0) & (store.cat_ids < vocab[None, :])).all()), f"etl {name}: an id outside its vocab")
+        check(bool(np.isfinite(store.dense).all()), f"etl {name}: non-finite features")
+        out[name] = {"schema": side, "store": store, "manifest": manifest, "columns": columns, "seconds": seconds}
+    out["schema"] = TwoTowerSchema(notice=out["notice"]["schema"], company=out["company"]["schema"])
+    return out
+
+
+def quickstart_launches() -> dict[str, int]:
+    """The full quickstart's launches: its float32 towers demote the lookup
+    to the gather (``resolve_lookup_mode``), whose backward is K2 on the
+    card, twice per step; D = 32 lies outside the CE kernels' envelope, so
+    the loss, the validation and the corpus eval are materialized."""
+    size = quickstart.sizes(fast=False)
+    steps = size["epochs"] * ((size["rows"] - size["val"]) // quickstart.BATCH_SIZE)
+    return {name: 0 for name in read_counters()} | {"dense_table_grad": 2 * steps}
+
+
+def etl_serve_check(svc: RetrievalService, queries: list, hits: list, corpus: torch.Tensor) -> dict:
+    """The int8 service's answers [Q, k] (per query batch of ``queries``)
+    against a plain int8 scan of the same embeddings (bf16-rounded queries
+    against the index's int8 rows times their scales, float32 sums), equal
+    except at ties; and the int8 recall@k against an exact float32 scan of
+    ``corpus``. The queries are encoded again in the service's batches."""
+    values, scales = svc.index.values, svc.index.scales[:, 0]
+    tied, overlap, n = 0, 0, 0
+    for batch, got in zip(queries, hits):
+        q = svc.encode_queries(batch)
+
+        def int8_scores(r, cols, q=q):
+            return (q[r : r + 1].to(torch.bfloat16).float() @ values[cols].float().T)[0] * scales[cols]
+
+        s8, i8 = torch.topk((q.to(torch.bfloat16).float() @ values.float().T) * scales, TOP_K, dim=1)
+        tied += rows_tied_at_k(got, i8.cpu().numpy(), s8[:, -1].cpu().numpy(), q, corpus,
+                               "etl int8 service vs plain int8 scan", score=int8_scores)
+        exact = torch.topk(q @ corpus.T, TOP_K, dim=1).indices.cpu().numpy()
+        overlap += sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(got, exact))
+        n += got.size
+    return {"int8_rows_tied_vs_plain": tied, "int8_recall_at_100_vs_exact": overlap / n}
+
+
+def etl_tfrecord_check(tmp: Path, columns: dict, name: str, key: str, planted_row: int) -> dict:
+    """``columns`` (a table's preprocessed columns) exported to gzip
+    TFRecord: the count equals the rows, reading back gives the same arrays,
+    and ``search`` for the key of ``planted_row`` finds that row's record
+    (and stops there). Rates are the file's bytes over the write and read
+    seconds."""
+    path = tmp / f"{name}.tfrecord.gz"
+    n = len(columns[key])
+    t0 = time.perf_counter()
+    written = table_to_tfrecord(path, columns, compress=True)
+    write_s = time.perf_counter() - t0
+    mb = path.stat().st_size / 1e6
+    check(written == n and count_records(path) == n, f"etl tfrecord {name}: {written} written, rows {n}")
+    t0 = time.perf_counter()
+    back = list(TFRecordReader(path).examples())
+    read_s = time.perf_counter() - t0
+    for col, arr in columns.items():
+        arr = np.asarray(arr)
+        if arr.dtype.kind in "US":
+            got = np.asarray([ex[col][0].decode() for ex in back])
+        else:
+            got = np.asarray([ex[col] for ex in back], dtype=arr.dtype).reshape(arr.shape)
+        check(np.array_equal(got, arr), f"etl tfrecord {name}: column {col} read back differs")
+    want = str(columns[key][planted_row])
+    t0 = time.perf_counter()
+    hits = search_records(path, key, want.encode(), max_results=1)
+    search_s = time.perf_counter() - t0
+    check(len(hits) == 1 and hits[0] == back[planted_row], f"etl tfrecord {name}: search for {want} found {hits}")
+    return {"rows": n, "columns": len(columns), "file_mb": mb, "write_s": write_s, "read_s": read_s,
+            "search_s": search_s, "write_mb_per_s": mb / write_s, "read_mb_per_s": mb / read_s}
+
+
+def etl_codec_check(tmp: Path, columns: dict, rows: int) -> dict:
+    """The first ``rows`` rows of ``columns`` written to gzip TFRecord two
+    ways: by ``table_to_tfrecord``, which passes each number as one Python
+    float or int (the encoder's direct path), and row by row with their
+    numpy scalars (its general path, the route of the JAX package's
+    export). The two files must hold the same bytes once decompressed;
+    the rates are the direct file's bytes over each way's seconds."""
+    part = {c: np.asarray(v)[:rows] for c, v in columns.items()}
+    direct, general = tmp / "codec_direct.tfrecord.gz", tmp / "codec_general.tfrecord.gz"
+    t0 = time.perf_counter()
+    table_to_tfrecord(direct, part, compress=True)
+    direct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with TFRecordWriter(general, compress=True) as w:
+        for i in range(rows):
+            w.write_example({c: a[i] for c, a in part.items()})
+    general_s = time.perf_counter() - t0
+    check(gzip.decompress(direct.read_bytes()) == gzip.decompress(general.read_bytes()),
+          "etl tfrecord: the direct path's records differ from the general path's")
+    mb = direct.stat().st_size / 1e6
+    return {"rows": rows, "file_mb": mb, "direct_s": direct_s, "general_s": general_s,
+            "direct_mb_per_s": mb / direct_s, "general_mb_per_s": mb / general_s}
+
+
+def etl_phase() -> tuple[dict, dict]:
+    """Raw tables -> ETL -> a trained, serving model, on the card, at the
+    bench's width (module constants ETL_*):
+
+    1. a reference-format metadata.csv, classified, and the schema built
+       from it with the port's functions;
+    2. the raw tables from seed; the ETL (``etl_stores``): the notice store
+       holds the 29 numeric columns and their null flags, [N, 32] ids and
+       [N, 768] text, every id within its vocab, and the unified notice
+       table is [32768, 32];
+    3. ``Trainer.train`` (``TrainConfig()`` at B=8192, seed 0, the
+       flax-distributed init) for ETL_EPOCHS epochs with validation and the
+       corpus eval after each: launches exact (``trainer_launches``), train
+       loss falling, corpus recall@100 >= ETL_RECALL_FLOOR;
+    4. ``RetrievalService(index_kind="int8")`` over the ETL-built companies
+       answering ETL_SERVE_QUERIES held-out notices at k=100: K1 once per
+       corpus encode chunk and query batch, the answers equal to a plain
+       int8 scan except at ties, queries/s and the int8 recall@100;
+    5. TFRecord: the company table and ETL_TFRECORD_NOTICES notices (their
+       768-float titles) to gzip and back (``etl_tfrecord_check``), with the
+       native CRC in use and equal to the Python one on 1 MiB, and
+       ETL_CODEC_ROWS company rows through both encoder paths
+       (``etl_codec_check``);
+    6. ``quickstart.main`` at its full size on the card, launches exact
+       (``quickstart_launches``: K6 and K11 never at D = 32).
+    Returns the record and the launch counts of its three paths."""
+    t_phase = time.perf_counter()
+    cfg = TrainConfig().replace(
+        data=dataclasses.replace(TrainConfig().data, batch_size=CE_BATCH),
+        optimizer=dataclasses.replace(TrainConfig().optimizer, num_epochs=ETL_EPOCHS),
+        results_csv="", seed=SEED)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_etl_"))
+    try:
+        metadata = etl_metadata_csv(tmp / "metadata.csv")
+        data = etl_stores(metadata, ETL_NOTICES, ETL_COMPANIES, ETL_PAIRS)
+        schema = data["schema"]
+        n_store, c_store = data["notice"]["store"], data["company"]["store"]
+        _, n_table = table_layout(schema.notice.vocab_sizes)
+        check((n_table, cfg.model.categorical_embedding_dim) == (32768, 32),
+              f"etl: the unified notice table is [{n_table}, {cfg.model.categorical_embedding_dim}], not [32768, 32]")
+        check(n_store.dense.shape == (ETL_NOTICES, 2 * 29 + ETL_TEXT_DIM) and n_store.cat_ids.shape == (ETL_NOTICES, 32),
+              f"etl: notice store {n_store.dense.shape} {n_store.cat_ids.shape}")
+        print(f"etl: raw tables {data['raw_s']:.1f} s, notice ETL {data['notice']['seconds']:.1f} s, "
+              f"company ETL {data['company']['seconds']:.1f} s, vocabs {schema.notice.vocab_sizes[:2]}... "
+              f"tables [{n_table}, 32] and [{table_layout(schema.company.vocab_sizes)[1]}, 32]", flush=True)
+
+        # -- training: the main path, counters from 0, read right after --------
+        train_pairs, val_pairs = split_pairs(data["pairs"], cfg)
+        logs: list[str] = []
+        trainer = Trainer(cfg, schema, n_store, c_store, device="cuda", log_fn=logs.append)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = trainer.train(train_pairs, val_pairs, epoch_corpus_eval=True)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = read_counters()
+        print("etl_train main path launches", json.dumps(train_launches), flush=True)
+        print("\n".join(logs), flush=True)
+        check_launches(train_launches, trainer_launches(ETL_EPOCHS, len(train_pairs), len(val_pairs), ETL_COMPANIES),
+                       "etl_train")
+        train_losses = [h["train_loss"] for h in res.history]
+        check(bool(np.isfinite(train_losses).all()) and train_losses[-1] < train_losses[0],
+              f"etl: train loss did not fall: {train_losses}")
+        recall = res.corpus.recall[TOP_K]
+        check(recall >= ETL_RECALL_FLOOR, f"etl: corpus recall@{TOP_K} {recall} < {ETL_RECALL_FLOOR}")
+        steps = ETL_EPOCHS * (len(train_pairs) // CE_BATCH)
+
+        # -- serving: the main path, counters from 0, read right after ---------
+        state = FrozenState(res.state.state_dict)
+        query_rows = val_pairs[:ETL_SERVE_QUERIES, 0]
+        queries = [n_store.gather(query_rows[lo : lo + QUERY_BATCH]) for lo in range(0, len(query_rows), QUERY_BATCH)]
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc = RetrievalService(trainer.model, cfg, state, c_store, index_kind="int8", device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hits = [svc.search(b, TOP_K).indices for b in queries]
+        serve_s = time.perf_counter() - t0
+        serve_launches = read_counters()
+        print("etl_serve main path launches", json.dumps(serve_launches), flush=True)
+        want = {c: 0 for c in serve_launches} | {"dense_table_lookup": math.ceil(ETL_COMPANIES / 8192) + len(queries)}
+        check(serve_launches == want, f"etl_serve: launches {serve_launches}, expected {want}")
+        corpus = svc._evaluator.encode_corpus(svc.state, c_store.dense, c_store.cat_ids, side="company")
+        answers = etl_serve_check(svc, queries, hits, corpus)
+        history = res.history
+        del svc, corpus, trainer, res
+
+        # -- TFRecord -----------------------------------------------------------
+        crc_bytes = np.random.default_rng(SEED).integers(0, 256, ETL_CRC_BYTES, dtype=np.uint8).tobytes()
+        check(crc32c_io.backend() == "native", "etl: the TFRecord CRC is not the native library")
+        check(crc32c_io.crc32c(crc_bytes) == crc32c_io._crc32c_py(crc_bytes), "etl: native CRC32C differs from Python's")
+        notice_cols = {k: v[:ETL_TFRECORD_NOTICES] for k, v in data["notice"]["columns"].items()}
+        tfrecord = {
+            "company": etl_tfrecord_check(tmp, data["company"]["columns"], "company", "bizno", ETL_COMPANIES // 2 + 1),
+            "notice": etl_tfrecord_check(tmp, notice_cols, "notice", "bidntceno", ETL_TFRECORD_NOTICES // 2 + 1),
+        }
+        codec = etl_codec_check(tmp, data["company"]["columns"], ETL_CODEC_ROWS)
+
+        # -- the quickstart: the main path, counters from 0, read right after --
+        os.environ.pop("QUICKSTART_FAST", None)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = run_cli(quickstart.main, ["--workdir", tmp / "quickstart"])
+        torch.cuda.synchronize()
+        quickstart_s = time.perf_counter() - t0
+        qs_launches = read_counters()
+        print("etl_quickstart main path launches", json.dumps(qs_launches), flush=True)
+        check(qs_launches == quickstart_launches(),
+              f"etl_quickstart: launches {qs_launches}, expected {quickstart_launches()}")
+        lines = out.splitlines()
+        check("ETL notice:" in out and "ETL company:" in out and "corpus retrieval over" in out
+              and lines[-1].startswith("done"), "etl_quickstart: a printed marker is missing")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    examples_per_sec = [h["examples_per_sec"] for h in history]
+    row = {
+        "notices": ETL_NOTICES, "companies": ETL_COMPANIES, "pairs": ETL_PAIRS, "chunk_rows": ETL_CHUNK_ROWS,
+        "raw_tables_s": data["raw_s"],
+        "etl_s": {side: data[side]["seconds"] for side in ("notice", "company")},
+        "etl_rows_per_s": {side: len(data[side]["store"]) / data[side]["seconds"] for side in ("notice", "company")},
+        "notice_table": [n_table, cfg.model.categorical_embedding_dim],
+        "vocab_sizes": {side: sorted(set(schema.side(side).vocab_sizes)) for side in ("notice", "company")},
+        "batch": CE_BATCH, "epochs": ETL_EPOCHS, "steps": steps, "train_s": train_s,
+        "train_loss": train_losses, "val_loss": [h["val_loss"] for h in history],
+        "examples_per_sec": examples_per_sec,
+        "ms_per_step": [1e3 * CE_BATCH / x if x > 0 else None for x in examples_per_sec],
+        "corpus_recall@10": history[-1]["corpus_recall@10"], "corpus_recall@100": recall,
+        "serve_queries": len(query_rows), "serve_build_s": build_s, "serve_s": serve_s,
+        "serve_qps": len(query_rows) / serve_s, **answers,
+        "tfrecord": tfrecord, "tfrecord_codec": codec, "crc32c": crc32c_io.backend(), "quickstart_s": quickstart_s,
+        "phase_s": time.perf_counter() - t_phase,
+        "launches": {"train": train_launches, "serve": serve_launches, "quickstart": qs_launches},
+    }
+    print("etl " + json.dumps(row), flush=True)
+    return row, {"etl_train": train_launches, "etl_serve": serve_launches, "etl_quickstart": qs_launches}
+
+
 # -- the large-table paths (BASELINE config 3) -----------------------------------
 
 
@@ -2316,6 +2744,9 @@ def main() -> int:
     print("hostfed " + json.dumps(hostfed), flush=True)
     del work
     torch.cuda.empty_cache()
+    etl, etl_launches = etl_phase()
+    etl["card"] = card
+    torch.cuda.empty_cache()
     scaled, scaled_launches = scaled_phase(scaled_setup())
     scaled["card"] = card
     print("scaled " + json.dumps(scaled), flush=True)
@@ -2324,7 +2755,7 @@ def main() -> int:
 
     launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches,
                 **headline_counts, **serve_launches, **resume_launches, **profile_launches, **hostfed_launches_by_path,
-                **scaled_launches}
+                **etl_launches, **scaled_launches}
     record = {"kernels": [
         kernel_record("onehot_lookup", "K1", "onehot_lookup.cu", "embedding_grad.py:358",
                       kernels["onehot_lookup"], launches, "dense_table_lookup", "training"),
@@ -2384,6 +2815,12 @@ def main() -> int:
                                                                                "examples_per_sec", "wall_s")},
             "phase_s": hostfed["phase_s"],
         },
+        "etl": {k: etl[k] for k in ("etl_rows_per_s", "notice_table", "train_loss", "examples_per_sec", "ms_per_step",
+                                   "corpus_recall@100", "serve_qps", "int8_recall_at_100_vs_exact",
+                                   "int8_rows_tied_vs_plain", "crc32c", "quickstart_s", "phase_s", "card")}
+        | {"tfrecord_mb_per_s": {side: {"write": r["write_mb_per_s"], "read": r["read_mb_per_s"]}
+                                 for side, r in etl["tfrecord"].items()},
+           "tfrecord_codec_mb_per_s": {way: etl["tfrecord_codec"][f"{way}_mb_per_s"] for way in ("direct", "general")}},
         "scaled": {path: {k: scaled[path][k] for k in ("ms_per_step", "examples_per_sec", "device_busy_share",
                                                        "device_busy_share_timed", "loss_last_call")}
                    for path in SCALED_PATHS},

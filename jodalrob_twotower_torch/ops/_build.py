@@ -8,7 +8,8 @@ package's own sources, into ``_build/`` beside them (listed in .gitignore).
 A library's file name carries a hash of its source and the flags, so an
 edited source is rebuilt and an unchanged one reused. ``build`` starts one
 nvcc process per missing library, all at once; each library's build log
-is kept beside it (``build_log``).
+is kept beside it (``build_log``). Host code (``csrc/<name>.cpp``, plain C
+interface too) is compiled the same way with g++ by ``build_host``.
 """
 
 from __future__ import annotations
@@ -108,4 +109,44 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+# -- host code ------------------------------------------------------------------
+
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
+GXX_TIMEOUT_S = 120
+
+
+def host_library_path(name: str) -> Path:
+    """The host library's path; its hash covers the source and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cpp").read_bytes())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> None:
+    """Compile ``csrc/<name>.cpp`` with g++ unless its library exists; raises
+    on a failed build (OSError when there is no g++)."""
+    out = host_library_path(name)
+    if out.exists():
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cpp")],
+                              capture_output=True, text=True, timeout=GXX_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"g++ build of {name} failed (exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library ``name``, built first if needed; loaded once per process."""
+    lib = _loaded.get(f"host:{name}")
+    if lib is None:
+        build_host(name)
+        lib = _loaded[f"host:{name}"] = ctypes.CDLL(str(host_library_path(name)))
     return lib

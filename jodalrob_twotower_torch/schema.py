@@ -3,17 +3,30 @@
 
 The frozen dataclasses drive table construction and the feature stores. The
 JSON forms (``to_dict``/``from_dict``) are the JAX package's, so a schema
-written by either package loads in the other. Parsing the reference's
-``meta/metadata.csv`` stays in the JAX package until the ETL and CLI slices
-of the port need it.
+written by either package loads in the other. A schema is built
+programmatically, from a JSON dict, or from the reference-format
+``meta/metadata.csv`` (Korean or English headers) with
+:func:`schema_from_metadata_csv`: used columns only, PK columns apart, SQL
+numeric types numeric, text/char types categorical when flagged so (their
+vocab from the category count plus a margin) and text otherwise.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
+import re
 from pathlib import Path
-from typing import Mapping
+from typing import Iterable, Mapping, Sequence
+
+# SQL types treated as numeric features.
+_NUMERIC_SQL_TYPES = {"bigint", "double precision", "numeric", "integer", "real", "smallint"}
+
+# Safety margin added on top of the observed category count when sizing
+# embedding tables; an unknown count takes the fallback.
+VOCAB_SAFETY_MARGIN = 10
+VOCAB_FALLBACK = 1000
 
 # Default text-embedding width (koELECTRA-base sentence embeddings).
 DEFAULT_TEXT_EMBED_DIM = 768
@@ -180,6 +193,151 @@ class TwoTowerSchema:
     @classmethod
     def from_json(cls, path: str | Path) -> "TwoTowerSchema":
         return cls.from_dict(json.loads(Path(path).read_text()))
+
+
+# -- metadata.csv parsing (the reference-format input) ---------------------------
+
+# Header aliases: Korean (the reference's meta/metadata.csv) or English.
+_HEADER_ALIASES: dict[str, tuple[str, ...]] = {
+    "table": ("테이블명", "table"),
+    "column": ("컬럼명", "컬럼", "column", "필드명"),
+    "dtype": ("타입", "데이터타입", "type", "data_type"),
+    "use": ("사용 여부", "사용여부", "use"),
+    "pk": ("pk",),
+    "is_categorical": ("범주형 여부", "범주형여부", "categorical", "is_categorical"),
+    "n_categories": ("범주 갯수", "범주갯수", "n_categories", "category_count"),
+}
+
+
+def _norm(s: str) -> str:
+    return re.sub(r"\s+", "", s).strip().lower().lstrip("\ufeff")
+
+
+def _resolve_headers(fieldnames: Sequence[str]) -> dict[str, str]:
+    norm_to_raw = {_norm(f): f for f in fieldnames}
+    resolved: dict[str, str] = {}
+    for key, aliases in _HEADER_ALIASES.items():
+        for alias in aliases:
+            raw = norm_to_raw.get(_norm(alias))
+            if raw is not None:
+                resolved[key] = raw
+                break
+        else:
+            if key != "n_categories":  # the category count is optional
+                raise KeyError(f"metadata csv missing a header for {key!r} (aliases {aliases})")
+    return resolved
+
+
+def _truthy(value: object) -> bool:
+    return str(value or "").strip().lower() in {"y", "yes", "true", "1", "t"}
+
+
+def _is_numeric_sql(dtype: str) -> bool:
+    return dtype.strip().lower() in _NUMERIC_SQL_TYPES
+
+
+def _is_textual_sql(dtype: str) -> bool:
+    s = dtype.strip().lower()
+    if s == "text" or s.startswith("text"):
+        return True
+    if s.startswith("character varying") or s.startswith("varchar"):
+        return True
+    # fixed-width char types, e.g. character(1)
+    return re.fullmatch(r"(character|char)\s*\(\s*\d+\s*\)", s) is not None
+
+
+def classify_columns(table: str, metadata_path: str | Path) -> dict[str, list]:
+    """Classify a table's used columns into pk/numeric/categorical/text.
+
+    Returns ``{"pk": [...], "numeric": [...], "categorical": [(name,
+    n_categories or None)], "text": [...]}``; columns of other SQL types
+    (dates, booleans, ...) are left out."""
+    path = Path(metadata_path)
+    with path.open(newline="", encoding="utf-8-sig") as fh:
+        reader = csv.DictReader(fh)
+        if reader.fieldnames is None:
+            raise ValueError(f"empty metadata csv: {path}")
+        hdr = _resolve_headers(reader.fieldnames)
+        pk: list[str] = []
+        numeric: list[str] = []
+        categorical: list[tuple[str, int | None]] = []
+        text: list[str] = []
+        for row in reader:
+            if str(row.get(hdr["table"], "")).strip() != table:
+                continue
+            if not _truthy(row.get(hdr["use"])):
+                continue
+            name = str(row[hdr["column"]]).strip()
+            if _truthy(row.get(hdr["pk"])):
+                pk.append(name)
+                continue
+            dtype = str(row.get(hdr["dtype"], "")).strip()
+            if _is_numeric_sql(dtype):
+                numeric.append(name)
+            elif _is_textual_sql(dtype):
+                if _truthy(row.get(hdr["is_categorical"])):
+                    raw_count = row.get(hdr["n_categories"]) if "n_categories" in hdr else None
+                    try:
+                        count = int(float(raw_count)) if raw_count not in (None, "") else None
+                    except (TypeError, ValueError):
+                        count = None
+                    categorical.append((name, count))
+                else:
+                    text.append(name)
+    return {"pk": pk, "numeric": numeric, "categorical": categorical, "text": text}
+
+
+def vocab_rows(n_categories: int | None) -> int:
+    """Embedding rows for an observed category count (margin + fallback)."""
+    if n_categories is None or n_categories <= 0:
+        return VOCAB_FALLBACK
+    return n_categories + VOCAB_SAFETY_MARGIN
+
+
+def side_schema_from_metadata_csv(
+    table: str,
+    metadata_path: str | Path,
+    *,
+    text_embed_dim: int = DEFAULT_TEXT_EMBED_DIM,
+    text_columns: Iterable[str] | None = None,
+) -> SideSchema:
+    """Build a :class:`SideSchema` for one table from a metadata csv.
+
+    ``text_columns`` optionally restricts which classified text columns get
+    an embedding; by default every classified text column does."""
+    cls = classify_columns(table, metadata_path)
+    wanted_text = set(text_columns) if text_columns is not None else None
+    return SideSchema(
+        table=table,
+        pk=tuple(cls["pk"]),
+        numeric=tuple(NumericSpec(n) for n in cls["numeric"]),
+        categorical=tuple(CategoricalSpec(n, vocab_rows(c)) for n, c in cls["categorical"]),
+        text=tuple(
+            TextSpec(n, text_embed_dim)
+            for n in cls["text"]
+            if wanted_text is None or n in wanted_text
+        ),
+    )
+
+
+def schema_from_metadata_csv(
+    metadata_path: str | Path,
+    *,
+    notice_table: str = "notice",
+    company_table: str = "company",
+    text_embed_dim: int = DEFAULT_TEXT_EMBED_DIM,
+    notice_text_columns: Iterable[str] | None = None,
+    company_text_columns: Iterable[str] | None = None,
+) -> TwoTowerSchema:
+    """Build the full two-tower schema from a reference-format metadata csv."""
+    return TwoTowerSchema(
+        notice=side_schema_from_metadata_csv(
+            notice_table, metadata_path, text_embed_dim=text_embed_dim, text_columns=notice_text_columns
+        ),
+        company=side_schema_from_metadata_csv(
+            company_table, metadata_path, text_embed_dim=text_embed_dim, text_columns=company_text_columns
+        ),
+    )
 
 
 def tiny_synthetic_schema(

@@ -1,11 +1,12 @@
 """The PyTorch port and chip_smoke.py stand alone: they import no JAX, flax,
 optax, orbax or JAX-package module (the machine with the card has none of
 them; the port's checkpoints are torch files), and importing the port pulls
-in none of them either. pyarrow, which the card machine lacks too, is
-imported only inside the functions that read or write parquet: no module
-imports it at its top level, and importing every module and chip_smoke.py
-loads none of it. Every module of the package is scanned, the trainer,
-checkpoints and CLIs included."""
+in none of them either. pyarrow, transformers, sqlalchemy, psycopg and
+tensorflow, which the card machine lacks too, are imported only inside the
+functions that need them (parquet IO, the HF text embedder, the SQL shim
+and write-back): no module imports one at its top level, and importing
+every module and chip_smoke.py loads none of them. Every module of the
+package is scanned, the trainer, checkpoints, ETL and CLIs included."""
 
 import ast
 import os
@@ -17,7 +18,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "jodalrob_twotower_tpu"}
-IMPORTED_IN_FUNCTIONS_ONLY = {"pyarrow"}
+IMPORTED_IN_FUNCTIONS_ONLY = {"pyarrow", "transformers", "sqlalchemy", "psycopg", "tensorflow"}
 SOURCES = sorted((REPO / "jodalrob_twotower_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
