@@ -126,6 +126,17 @@ NVIDIA card.
    dense steps from one state.
 14. One step's loss and gradients at B=1024 on the card against the same step
    on the CPU through the plain versions.
+15. The mesh phase (``mesh_phase``): two ranks over gloo share the card (NCCL
+   refuses two ranks on one device), spawned by the port's launcher after
+   the kernels are built, each with the bench's data: ``Trainer(mesh=...)``
+   for one sampled epoch at B=8192 with validation and the sharded corpus
+   eval (equal to one device's eval of the same embeddings), one mesh step
+   against one device's step on the whole batch, two steps at B=16384 and
+   two with label smoothing 0.1 (the ranks' states bit-equal after every
+   step), and ``ShardedIndex`` over 1M companies, exact and int8, against
+   one device's index; launches exact per rank. Then the train, eval and
+   serve CLIs in-process with ``--mesh-devices 1`` (one NCCL rank) beside
+   the same runs without it: bit-equal.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
 nonzero; so does a machine without a CUDA device. The second-to-last line is
@@ -153,7 +164,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from jodalrob_twotower_torch import bench, profile_step, quickstart, serve, train_headline
+from jodalrob_twotower_torch import bench, profile_step, quickstart, serve, train, train_headline
+from jodalrob_twotower_torch import eval as eval_cli
 from jodalrob_twotower_torch.etl.pipeline import preprocess_in_memory
 from jodalrob_twotower_torch.etl.text import HashTextEmbedder
 from jodalrob_twotower_torch.etl.to_feature_store import feature_store_from_columns, side_schema_from_manifest_dict
@@ -175,6 +187,7 @@ from jodalrob_twotower_torch.evaluation.evaluator import (
     corpus_retrieval_eval,
     demonstrate_predictions,
     qualitative_assessment,
+    sharded_corpus_retrieval_eval,
 )
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.models.embedding import table_layout, tile_feature_map
@@ -214,7 +227,10 @@ from jodalrob_twotower_torch.schema import (
     schema_from_metadata_csv,
 )
 from jodalrob_twotower_torch.serving import autoconfig
-from jodalrob_twotower_torch.serving.index import BruteForceIndex, recall_vs_exact
+from jodalrob_twotower_torch.parallel.distributed import launch
+from jodalrob_twotower_torch.parallel.mesh import make_mesh, put_replicated
+from jodalrob_twotower_torch.parallel.sharded_train import make_sharded_indexed_train
+from jodalrob_twotower_torch.serving.index import BruteForceIndex, Int8Index, ShardedIndex, recall_vs_exact
 from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
 from jodalrob_twotower_torch.train.metrics import diagonal_ranks, in_batch_metrics, random_baselines
 from jodalrob_twotower_torch.train import sparse_tables
@@ -225,6 +241,7 @@ from jodalrob_twotower_torch.train.train_step import (
     loss_and_grads,
     make_encode_fn,
     make_sampled_train_steps,
+    make_sharded_ce,
     make_scanned_train_steps,
     make_train_step,
     resolve_store_dtype,
@@ -338,6 +355,17 @@ HOSTFED_PREFETCH = 2  # batches or windows in flight on the card
 RACE_CHECK_BATCHES = 8  # batches through the prefetched and the plain feed, from one state
 STREAM_CHUNKS = 4  # in-memory chunks the streaming trainer's source reads
 STREAM_EPOCHS = 2
+# the mesh phase: two ranks on the one card over gloo (NCCL refuses two ranks
+# on one device), the trainer for one epoch in dispatches of 16 steps, two
+# steps at B=16384 and at label smoothing 0.1, each rank's loss and grads
+# against one device's within MESH_LOSS_RTOL and the step check's gate
+MESH_RANKS = 2
+MESH_EPOCHS = 1
+MESH_N_INNER = 16
+MESH_EXTRA_STEPS = 2
+MESH_LOSS_RTOL = 1e-5
+MESH_PG_S = 300  # each rank's process-group timeout
+MESH_JOIN_S = 600  # the launch's deadline: past it the ranks are killed
 N_COMPANIES = 1_000_000
 N_NOTICES = 20_000
 QUERY_BATCH = 1024
@@ -516,25 +544,29 @@ def bound(flops: float, nbytes: float, exps: float = 0.0) -> dict:
 
 
 def lean_case(flush: torch.Tensor, b: int, nomax: bool, runs: int = 0, label: str = "fused_ce_fwd",
-              d: int = CE_DIM, tau: float = 1.0) -> dict:
+              d: int = CE_DIM, tau: float = 1.0, rows: int = 0) -> dict:
     """The lean forward (K6; K7 past B=8192) at batch b and width d, on N/tau,
     against its plain version, two calls bit-equal; timed beside its bound
-    and a library yardstick when ``runs``."""
+    and a library yardstick when ``runs``. With ``rows`` the last ``rows``
+    rows of N against all of C: a mesh rank's block (the forward needs no
+    row offset)."""
     n, c = ce_inputs(b, d, "cuda")
-    n = n / tau
+    n = n[b - rows:] / tau if rows else n / tau
+    m = n.shape[0]
     # through the module, so a fault planted there (planted_faults.py) shows here
     got, again = fl.fused_lean_lse(n, c, nomax=nomax), fl.fused_lean_lse(n, c, nomax=nomax)
     want = fused_lean_lse_plain(n, c, nomax=nomax)
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     tol = LSE_ATOL + (LSE_RTOL_LARGE * max(float(w.abs().max()) for w in want) if tau != 1.0 else 0.0)
-    row = {"case": f"B={b} D={d} {'nomax' if nomax else 'shifted'}" + (f" tau={tau}" if tau != 1.0 else ""),
+    row = {"case": (f"rows {b - m}..{b} of " if rows else "") + f"B={b} D={d} {'nomax' if nomax else 'shifted'}"
+           + (f" tau={tau}" if tau != 1.0 else ""),
            "two_calls_equal": all(torch.equal(x, y) for x, y in zip(got, again)), "max_abs_err": err,
            "tolerance": tol}
     if runs:
         nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
-        # products 2 B^2 D; one exponential per entry unshifted, two shifted (row and column max)
-        row.update(bound(2 * b * b * d, 2 * b * d * 2 + 2 * b * 4, exps=(1 if nomax else 2) * b * b))
+        # products 2 m B D; one exponential per entry unshifted, two shifted (row and column max)
+        row.update(bound(2 * m * b * d, (m + b) * d * 2 + (m + b) * 4, exps=(1 if nomax else 2) * m * b))
 
         def library():
             s = (nb @ cb.T).float()
@@ -570,18 +602,19 @@ def bwd_case(flush: torch.Tensor, b: int, eps: float = 0.0, runs: int = 0, shard
            "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
            "max_rel_err": rel, "tolerance_rel": CE_BWD_RTOL}
     if runs:
-        nb, cb = n.to(torch.bfloat16), c.to(torch.bfloat16)
-        # the function's work: products 6 B^2 D (S, A C, A^T N); two exponentials
+        nb, cb, rl_m, off = args[0].to(torch.bfloat16), c.to(torch.bfloat16), args[2], args[5]
+        m = nb.shape[0]
+        # the function's work: products 6 m B D (S, A C, A^T N); two exponentials
         # per entry (its row- and column-softmax terms), though the kernel's dn and
-        # dc sweeps each form S and take both (8 B^2 D and 4 B^2)
-        row.update(bound(6 * b * b * d, 2 * b * d * 2 + 2 * b * 4 + 2 * b * d * 4, exps=2 * b * b))
+        # dc sweeps each form S and take both (8 m B D and 4 m B)
+        row.update(bound(6 * m * b * d, (m + b) * d * 2 + (m + b) * 4 + (m + b) * d * 4, exps=2 * m * b))
         inv2b, _, _ = _bwd_constants(b, 0.0)
-        eye = torch.arange(b, device="cuda")
+        eye = torch.arange(m, device="cuda")
 
         def library():
             s = (nb @ cb.T).float()
-            x = torch.exp(s - rl[:, None]) + torch.exp(s - cl[None, :])
-            x[eye, eye] -= 2.0
+            x = torch.exp(s - rl_m[:, None]) + torch.exp(s - cl[None, :])
+            x[eye, eye + off] -= 2.0
             a = (inv2b * x).to(torch.bfloat16)
             return a @ cb, a.T @ nb
 
@@ -601,8 +634,10 @@ def ce_phase(flush: torch.Tensor) -> dict:
     return {
         "fused_ce_fwd": [lean_case(flush, CE_BATCH, True, TIMED_RUNS), lean_case(flush, CE_BATCH, False, TIMED_RUNS),
                          lean_case(flush, GRAD_CHECK_BATCH, True), lean_case(flush, GRAD_CHECK_BATCH, False),
-                         lean_case(flush, CE_BATCH, False, tau=LARGE_LOGIT_TAU)],
-        "fused_ce_bwd": [bwd_case(flush, CE_BATCH, runs=TIMED_RUNS), bwd_case(flush, CE_BATCH, shard=True),
+                         lean_case(flush, CE_BATCH, False, tau=LARGE_LOGIT_TAU),
+                         lean_case(flush, CE_BATCH, True, TIMED_RUNS, rows=CE_BATCH // MESH_RANKS)],
+        "fused_ce_bwd": [bwd_case(flush, CE_BATCH, runs=TIMED_RUNS), bwd_case(flush, CE_BATCH, shard=True,
+                                                                              runs=TIMED_RUNS),
                          bwd_case(flush, GRAD_CHECK_BATCH)],
         "fused_ce_fwd_blocked": [lean_case(flush, b, True, LARGE_TIMED_RUNS, "fused_ce_fwd_blocked") for b in big]
         + [lean_case(flush, big[0], False, label="fused_ce_fwd_blocked"),
@@ -725,10 +760,12 @@ def stats_phase(flush: torch.Tensor) -> dict:
     B=16384 and 32768 (timed). K8's record leads with B=16384, the shape
     the col-blocked eval runs it at."""
     k5 = [stats_case(flush, CE_BATCH, TIMED_RUNS), stats_case(flush, GRAD_CHECK_BATCH, TIMED_RUNS),
-          stats_case(flush, CE_BATCH, row_offset=CE_BATCH // 2, rows=CE_BATCH // 4)]
+          stats_case(flush, CE_BATCH, row_offset=CE_BATCH // 2, rows=CE_BATCH // 4),
+          # a mesh rank's block: rank 1 of 2 at B=8192
+          stats_case(flush, CE_BATCH, TIMED_RUNS, row_offset=CE_BATCH // MESH_RANKS, rows=CE_BATCH // MESH_RANKS)]
     k9 = [stats_case(flush, b, LARGE_TIMED_RUNS) for b in BLOCKED_BATCHES]
     return {
-        "same_tile_diag": [k9[0][0], k5[0][0], k5[1][0], k5[2][0], k9[1][0]],
+        "same_tile_diag": [k9[0][0], k5[0][0], k5[1][0], k5[2][0], k5[3][0], k9[1][0]],
         "fused_stats": [r for _, r in k5],
         "fused_stats_blocked": [r for _, r in k9],
     }
@@ -2669,6 +2706,293 @@ def step_grad_check() -> dict:
     return row
 
 
+# -- the mesh: two gloo ranks on the card, one NCCL rank through the CLIs ---------
+
+
+def ranks_equal(mesh, tensors) -> bool:
+    """Whether every rank holds the same bits of ``tensors`` (one all-gather)."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])[None]
+    every = mesh.all_gather_rows(flat)
+    return all(torch.equal(every[0], every[r]) for r in range(1, mesh.size))
+
+
+def mesh_config(batch: int, **loss) -> TrainConfig:
+    base = TrainConfig()
+    return base.replace(data=dataclasses.replace(base.data, batch_size=batch, sample_on_device=True),
+                        loss=dataclasses.replace(base.loss, **loss), results_csv="")
+
+
+def mesh_trainer(mesh, schema, ds) -> dict:
+    """``Trainer(mesh=...).train`` at B=8192 on the bench's data, sampled on
+    the card, MESH_EPOCHS epoch(s) in dispatches of MESH_N_INNER steps,
+    validation after the epoch and at the end, the sharded corpus eval.
+    Launches per rank exact (``trainer_launches``: each rank runs every
+    step's kernels on its 4096 rows, every validation batch's on its
+    block, and one encode per chunk of the corpus, on its half of it); the
+    ranks' final states bit-equal; the sharded corpus eval equal to the
+    single-device eval of the same embeddings, exactly."""
+    cfg = mesh_config(CE_BATCH)
+    cfg = cfg.replace(optimizer=dataclasses.replace(cfg.optimizer, num_epochs=MESH_EPOCHS))
+    train_pairs, val_pairs = split_pairs(ds.pairs, cfg)
+    logs: list[str] = []
+    trainer = Trainer(cfg, schema, ds.notice_store, ds.company_store, mesh=mesh, log_fn=logs.append)
+    # -- the main path: counters from 0, read right after ----------------------
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.train(train_pairs, val_pairs, n_inner=MESH_N_INNER)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    print(f"mesh rank {mesh.rank} trainer main path launches", json.dumps(launches), flush=True)
+    check_launches(launches, trainer_launches(MESH_EPOCHS, len(train_pairs), len(val_pairs), len(ds.company_store)),
+                   f"mesh rank {mesh.rank} trainer")
+    losses = [res.history[-1]["train_loss"], res.history[-1]["val_loss"], res.final_val["loss"]]
+    check(bool(np.isfinite(losses).all()), f"mesh trainer: non-finite loss {losses}")
+    check(ranks_equal(mesh, [*res.state.params.values(), *res.state.batch_stats.values()]),
+          "mesh trainer: the ranks' final states differ")
+    view = Trainer._eval_view(res.state)
+    corpus_emb = trainer.evaluator.encode_corpus_device(view, trainer._dev_stores[1], len(ds.company_store))
+    q_rows = val_pairs[:, 0]
+    query_emb = trainer.evaluator.encode_corpus(view, ds.notice_store.dense[q_rows], ds.notice_store.cat_ids[q_rows],
+                                                side="notice")
+    sharded = sharded_corpus_retrieval_eval(query_emb, corpus_emb, val_pairs[:, 1], mesh)
+    single = corpus_retrieval_eval(query_emb, corpus_emb, val_pairs[:, 1])
+    check(sharded.recall == single.recall == res.corpus.recall and sharded.mrr == single.mrr == res.corpus.mrr,
+          f"mesh corpus eval {sharded} != single-device {single} (trainer's {res.corpus})")
+    return {"batch": CE_BATCH, "ranks": mesh.size, "epochs": MESH_EPOCHS, "n_inner": MESH_N_INNER,
+            "steps": res.state.step, "train_loss": losses[0], "val_loss": losses[1],
+            "val_recall@10": res.final_val["recall@10"], "corpus_recall@100": res.corpus.recall[100],
+            "corpus_mrr": res.corpus.mrr, "examples_per_sec": res.history[-1]["examples_per_sec"],
+            "wall_s": wall_s, "launches": launches}
+
+
+def mesh_step_check(mesh, schema, ds) -> dict:
+    """One step from one state at B=8192, dropout 0: the mesh step's loss
+    and summed gradients against the port's single-device step on the whole
+    batch, on the same card. The loss within MESH_LOSS_RTOL; each gradient
+    leaf within the step check's gate (STEP_GRAD_NOISE_FACTOR times the
+    leaf's own bf16 noise, the single-device bf16 gradient against a float32
+    one on the card, plus STEP_GRAD_SLACK; relative norms)."""
+    cfg = mesh_config(CE_BATCH)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_rate=0.0))
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32", embedding_lookup="gather"),
+                        loss=dataclasses.replace(cfg.loss, use_fused_logits=False))
+    stores = [device_store(st, dtype=resolve_store_dtype(cfg), device=mesh.device)
+              for st in (ds.notice_store, ds.company_store)]
+    idx = torch.from_numpy(ds.pairs[:CE_BATCH].astype(np.int64)).to(mesh.device)
+
+    def batch(rows):
+        return PairBatch(default_tower_gather(stores[0], rows[:, 0]), default_tower_gather(stores[1], rows[:, 1]))
+
+    model = build_model(schema, cfg, mesh).init_flax(torch.Generator().manual_seed(SEED))
+    state, _ = create_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device=mesh.device)
+    loss, _, grads = loss_and_grads(model, cfg, state, batch(idx[mesh.block(CE_BATCH)]), mesh=mesh,
+                                    sharded_ce=make_sharded_ce(cfg, mesh))
+    results = {}
+    for run, c in (("single", cfg), ("f32", cfg32)):
+        m = build_model(schema, c)
+        m.load_state_dict(model.state_dict())
+        st, _ = create_train_state(m, c, SEED, bench.TOTAL_STEPS, device=mesh.device)
+        results[run] = loss_and_grads(m, c, st, batch(idx))
+
+    def rel(a, b):
+        return {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30)) for k in b}
+
+    mesh_vs_single, noise = rel(grads, results["single"][2]), rel(results["single"][2], results["f32"][2])
+    tolerance = {k: STEP_GRAD_NOISE_FACTOR * v + STEP_GRAD_SLACK for k, v in noise.items()}
+    share = {k: mesh_vs_single[k] / tolerance[k] for k in tolerance}
+    worst = max(share, key=share.get)
+    loss_rel = abs(float(loss) - float(results["single"][0])) / abs(float(results["single"][0]))
+    check(loss_rel <= MESH_LOSS_RTOL, f"mesh step loss {float(loss)} vs single {float(results['single'][0])}")
+    check(share[worst] <= 1.0, f"mesh step gradient {worst}: {mesh_vs_single[worst]} > {tolerance[worst]}")
+    return {"batch": CE_BATCH, "loss_mesh": float(loss), "loss_single": float(results["single"][0]),
+            "loss_rel_err": loss_rel, "loss_tolerance_rel": MESH_LOSS_RTOL,
+            "max_grad_rel_err": max(mesh_vs_single.values()), "worst_leaf": worst,
+            "worst_share_of_tolerance": share[worst]}
+
+
+def mesh_steps(mesh, schema, ds, batch_size: int, eps: float) -> dict:
+    """MESH_EXTRA_STEPS mesh steps at global B = ``batch_size`` with label
+    smoothing ``eps`` from a fresh state, each on a seeded global batch:
+    launches per rank exact (B=16384: K7 and K10 at 8192 rows against
+    16384; eps=0.1: K8, K5 and K11 at row offset 4096 on rank 1), every loss
+    finite, and the ranks' states bit-equal after every step."""
+    cfg = mesh_config(batch_size, label_smoothing=eps)
+    model = build_model(schema, cfg, mesh).init_flax(torch.Generator().manual_seed(SEED))
+    state, _, _, step, put_idx, _ = make_sharded_indexed_train(model, cfg, mesh, batch_size, bench.TOTAL_STEPS,
+                                                               n_inner=1)
+    stores = [device_store(st, dtype=resolve_store_dtype(cfg), device=mesh.device)
+              for st in (ds.notice_store, ds.company_store)]
+    rng = np.random.default_rng(SEED + 11)
+    idx = [ds.pairs[rng.integers(0, len(ds.pairs), size=batch_size)] for _ in range(MESH_EXTRA_STEPS)]
+    equal, losses = [], []
+    # -- the main path: counters from 0, read right after ----------------------
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in idx:
+        state, m = step(state, put_idx(i), *stores)
+        losses.append(float(m["loss"]))
+        equal.append(ranks_equal(mesh, [*state.params.values(), *state.batch_stats.values()]))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    n = MESH_EXTRA_STEPS
+    expected = step_launches(n) if eps == 0 else {**step_launches(n), "fused_lean_lse": 0, "same_tile_diag": n,
+                                                   "fused_stats_sweep": n}
+    check_launches(launches, expected, f"mesh rank {mesh.rank} B={batch_size} eps={eps}")
+    check(all(equal), f"mesh B={batch_size} eps={eps}: the ranks' states differ after a step ({equal})")
+    check(bool(np.isfinite(losses).all()), f"mesh B={batch_size} eps={eps}: non-finite loss {losses}")
+    return {"batch": batch_size, "rows_per_rank": batch_size // mesh.size, "label_smoothing": eps,
+            "steps": n, "losses": losses, "ranks_equal_every_step": all(equal), "wall_s": wall_s,
+            "launches": launches}
+
+
+def mesh_index(mesh) -> dict:
+    """``ShardedIndex`` over N_COMPANIES unit rows (rank 0's, broadcast), each
+    rank holding half, exact and int8: QUERY_BATCH queries at k = TOP_K
+    against the single-device index of the whole corpus on the same card,
+    the sets equal except at ties (``rows_tied_at_k``), scores within 1e-5."""
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 5)
+    corpus = put_replicated(unit_rows(gen, N_COMPANIES, CE_DIM, mesh.device), mesh)
+    queries = put_replicated(unit_rows(gen, QUERY_BATCH, CE_DIM, mesh.device), mesh)
+    out = {"companies": N_COMPANIES, "queries": QUERY_BATCH, "k": TOP_K}
+    for kind, single_cls in (("exact", BruteForceIndex), ("int8", Int8Index)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = ShardedIndex(corpus, mesh, kind=kind)
+        got = index.search(queries, TOP_K)
+        search_s = time.perf_counter() - t0
+        want = single_cls(corpus, device=mesh.device).search(queries, TOP_K)
+        check(bool(np.abs(got.scores - want.scores).max() <= 1e-5),
+              f"ShardedIndex {kind}: scores differ by {np.abs(got.scores - want.scores).max()}")
+        score = None
+        if kind == "int8":
+            ref = Int8Index(corpus, device=mesh.device)
+            values, scales = ref.values, ref.scales
+
+            def score(r, rows, values=values, scales=scales):
+                q = queries[r].to(torch.bfloat16).float()
+                return (values[rows].float() @ q) * scales[rows, 0]
+        ties = rows_tied_at_k(got.indices, want.indices, want.scores[:, -1], queries, corpus,
+                              f"ShardedIndex {kind} vs single-device", score)
+        out[kind] = {"build_and_search_s": search_s, "rows_tied_at_k": ties, "shard_rows": index.shard_rows}
+    return out
+
+
+def mesh_rank(devices: list) -> dict:
+    """One rank of the mesh phase's (a) half: the bench's data built from
+    its seed, then the trainer, the step check, B=16384, label smoothing and
+    the sharded index. Any failed check raises, which fails the launch."""
+    mesh = make_mesh(devices)
+    torch.cuda.set_device(mesh.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    schema = reference_shaped_schema()
+    t0 = time.perf_counter()
+    ds = make_synthetic_dataset(schema, n_notices=bench.N_NOTICES, n_companies=bench.N_COMPANIES,
+                                n_pairs=bench.N_PAIRS, n_clusters=bench.N_CLUSTERS, seed=SEED)
+    out = {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device),
+           "data_s": time.perf_counter() - t0}
+    out["trainer"] = mesh_trainer(mesh, schema, ds)
+    out["step_check"] = mesh_step_check(mesh, schema, ds)
+    out["b16384"] = mesh_steps(mesh, schema, ds, BLOCKED_BATCHES[0], 0.0)
+    out["ls0.1"] = mesh_steps(mesh, schema, ds, CE_BATCH, 0.1)
+    out["index"] = mesh_index(mesh)
+    return out
+
+
+def mesh_cli_check(out_dir: Path) -> tuple[dict, dict]:
+    """(b): the three CLIs in-process with ``--mesh-devices 1`` (one rank
+    over NCCL: its gradient all-reduce, broadcasts, gathers and barriers
+    launch on the card) beside the same runs without it, at the tiny
+    synthetic scale, B=1024 sampled on the card for one epoch. A one-rank
+    mesh runs the single-device CE, so the train losses, validation metrics
+    and final weights must be bit-equal, the launches equal, the eval
+    reports and the serve answers equal."""
+    train_args = ["--synthetic", "--synthetic-scale", "tiny", "--epochs", "1", "--batch-size", "1024",
+                  "--sample-on-device"]
+    runs, launches = {}, {}
+    for tag, extra in (("plain", []), ("mesh1", ["--mesh-devices", "1"])):
+        d = out_dir / tag
+        # -- the main path: counters from 0, read right after ----------------------
+        reset_counters()
+        stdout, _ = run_cli(train.main, train_args + extra + ["--output-dir", d, "--results-csv", d / "results.csv",
+                                                              "--metrics-jsonl", d / "metrics.jsonl"])
+        launches[f"{tag}_train"] = read_counters()
+        runs[tag] = {"stdout": stdout, "metrics": [json.loads(x) for x in (d / "metrics.jsonl").read_text().splitlines()],
+                     "weights": torch.load(d / "weights" / "state.pt", weights_only=True)}
+        for cli, argv in (("eval", [eval_cli.main, ["--model-dir", out_dir / "plain", "--output", d / "eval.json"]]),
+                          ("serve", [serve.main, ["--model-dir", out_dir / "plain", "--queries", "1024", "--k",
+                                                  str(TOP_K), "--output", d / "serve.jsonl"]])):
+            reset_counters()
+            run_cli(argv[0], argv[1] + extra)
+            launches[f"{tag}_{cli}"] = read_counters()
+    check("over nccl" in runs["mesh1"]["stdout"], "mesh1: the training CLI did not run over NCCL")
+    clocks = ("examples_per_sec", "time")  # each run's own clock
+
+    def strip(tag):
+        return [{k: v for k, v in m.items() if k not in clocks} for m in runs[tag]["metrics"]]
+
+    check(strip("plain") == strip("mesh1"), f"mesh1 metrics differ: {runs['mesh1']['metrics']} vs {runs['plain']['metrics']}")
+    for part in ("params", "batch_stats"):
+        for k, v in runs["plain"]["weights"][part].items():
+            check(torch.equal(v, runs["mesh1"]["weights"][part][k]), f"mesh1 weights differ at {k}")
+    for cli in ("train", "eval", "serve"):
+        check(launches[f"plain_{cli}"] == launches[f"mesh1_{cli}"],
+              f"mesh1 {cli} launches {launches[f'mesh1_{cli}']} != {launches[f'plain_{cli}']}")
+    a, b = (json.loads((out_dir / t / "eval.json").read_text()) for t in ("plain", "mesh1"))
+    check({k: v for k, v in a.items() if k != "model_dir"} == {k: v for k, v in b.items() if k != "model_dir"},
+          "mesh1 eval report differs")
+    ties = 0
+    for x, y in zip(*(map(json.loads, (out_dir / t / "serve.jsonl").read_text().splitlines())
+                      for t in ("plain", "mesh1"))):
+        # the same scores in the same places; the same companies but where
+        # scores tie (the merge of the shards' candidates orders ties anew)
+        hx, hy = ([(h["score"], h["company"]) for h in row["top_k"]] for row in (x, y))
+        check(x["notice"] == y["notice"] and [s for s, _ in hx] == [s for s, _ in hy],
+              f"mesh1 serve scores differ for notice {x['notice']}")
+        tied = {s for s, _ in hx if [t for t, _ in hx].count(s) > 1}
+        check(sorted(h for h in hx if h[0] not in tied) == sorted(h for h in hy if h[0] not in tied),
+              f"mesh1 serve answers differ beyond ties for notice {x['notice']}")
+        ties += hx != hy
+    row = {"train_loss": runs["mesh1"]["metrics"][-1]["train_loss"], "val_loss": runs["mesh1"]["metrics"][-1]["val_loss"],
+           "bit_equal": True, "serve_rows_ordered_apart_at_ties": ties, "launches": launches}
+    return row, {"mesh1_train": launches["mesh1_train"]}
+
+
+def mesh_phase() -> tuple[dict, dict]:
+    """(a) MESH_RANKS ranks over gloo on the one card (``mesh_rank``; NCCL
+    refuses two ranks on one device), through the port's launcher with a
+    process-group timeout and a deadline; then (b) ``mesh_cli_check``.
+    Times in (a) are gloo's, whose collectives stage CUDA tensors through
+    the host. Returns the record and rank 0's launch counts per path."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, MESH_RANKS, args=(["cuda:0"] * MESH_RANKS,), backend="gloo",
+                   devices=["cuda:0"] * MESH_RANKS, timeout_s=MESH_PG_S, join_timeout_s=MESH_JOIN_S)
+    ranks_s = time.perf_counter() - t0
+    for r in ranks:
+        print(f"mesh rank {r['rank']} " + json.dumps(r), flush=True)
+    check(ranks[0]["trainer"]["train_loss"] == ranks[1]["trainer"]["train_loss"], "mesh: the ranks' losses differ")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        t1 = time.perf_counter()
+        cli, cli_launches = mesh_cli_check(tmp)
+        cli_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    row = {"ranks": MESH_RANKS, "backend": r0["backend"], "trainer": r0["trainer"], "step_check": r0["step_check"],
+           "b16384": r0["b16384"], "ls0.1": r0["ls0.1"], "index": r0["index"],
+           "per_rank_data_s": [r["data_s"] for r in ranks], "ranks_s": ranks_s, "nccl_one_rank": cli,
+           "cli_s": cli_s}
+    print("mesh " + json.dumps(row), flush=True)
+    launches = {"mesh_trainer": r0["trainer"]["launches"], "mesh_b16384": r0["b16384"]["launches"],
+                "mesh_ls0.1": r0["ls0.1"]["launches"], **cli_launches}
+    return row, launches
+
+
 def kernel_record(name: str, tpu_kernel: str, source: str, replaces: str, rows: list[dict], launches: dict,
                   counter: str, path: str) -> dict:
     """The record of one TPU kernel's port: ``launches`` counts the wrapper
@@ -2752,10 +3076,12 @@ def main() -> int:
     print("scaled " + json.dumps(scaled), flush=True)
     torch.cuda.empty_cache()
     step_check = step_grad_check()
+    mesh, mesh_launches = mesh_phase()
+    mesh["card"] = card
 
     launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches,
                 **headline_counts, **serve_launches, **resume_launches, **profile_launches, **hostfed_launches_by_path,
-                **etl_launches, **scaled_launches}
+                **etl_launches, **scaled_launches, **mesh_launches}
     record = {"kernels": [
         kernel_record("onehot_lookup", "K1", "onehot_lookup.cu", "embedding_grad.py:358",
                       kernels["onehot_lookup"], launches, "dense_table_lookup", "training"),
@@ -2832,6 +3158,13 @@ def main() -> int:
         "fused_stats_build": stats_build,
         "onehot_lookup_build": lookup_build,
         "step_check": {k: step_check[k] for k in ("loss_abs_err", "max_grad_rel_err", "worst_share_of_tolerance")},
+        "mesh": {"ranks": mesh["ranks"], "backend": mesh["backend"], "ranks_s": mesh["ranks_s"], "cli_s": mesh["cli_s"],
+                 "trainer": {k: mesh["trainer"][k] for k in ("steps", "train_loss", "val_loss", "corpus_recall@100",
+                                                             "examples_per_sec", "wall_s")},
+                 "step_check": {k: mesh["step_check"][k] for k in ("loss_rel_err", "max_grad_rel_err",
+                                                                   "worst_share_of_tolerance")},
+                 "b16384_wall_s": mesh["b16384"]["wall_s"], "ls0.1_wall_s": mesh["ls0.1"]["wall_s"],
+                 "index": mesh["index"], "nccl_one_rank_bit_equal": mesh["nccl_one_rank"]["bit_equal"]},
         "card": card}
     by_kernel = {rec["tpu_kernel"]: rec for rec in record["kernels"]}
     by_kernel["K6"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"

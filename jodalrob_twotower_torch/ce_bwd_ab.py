@@ -10,6 +10,12 @@ parent's code times the parent:
   B = 8192) through its ``chip_smoke.bwd_case`` at B = 8192 and 16384, D =
   128, 256 and 512 (each against its plain version, two calls bit-equal,
   timed beside its bound and the library call);
+* ``--kernel ce_bwd_shard``: the CE backward (K11) at D = 128 on a row
+  shard of N (its last m rows, at row offset B - m) against all of C, m
+  from 1,024 to B, at B = 4096 and 8192 (each against its plain version,
+  timed beside its bound, with its grid: the dn sweep's blocks of 128 rows
+  each sweep all B columns, the dc sweep's blocks of 128 rows of C each
+  sweep the m rows of N);
 * ``--kernel ce_fwd``: the lean CE forward (K6, and K7 past B = 8192)
   through its ``chip_smoke.lean_case``, unshifted and shifted, at B = 8192
   and 16384, D = 128, 256 and 512, and at B = 32768, D = 128 (each against
@@ -52,6 +58,28 @@ for b, d in {cases}:
     label = "fused_ce_bwd" if b <= cs.CE_BATCH else "fused_ce_bwd_blocked"
     runs = cs.TIMED_RUNS if (b, d) == (cs.CE_BATCH, cs.CE_DIM) else cs.LARGE_TIMED_RUNS
     cs.bwd_case(f, b, runs=runs, label=label, d=d)
+"""
+
+SHARD_CASES = [(8192, 8192), (4096, 8192), (2048, 8192), (1024, 8192), (4096, 4096), (2048, 4096)]
+
+_CE_BWD_SHARD_RUN = """
+from jodalrob_twotower_torch.ops import fused_logits as fl
+d = cs.CE_DIM
+for m, b in {cases}:
+    n, c = cs.ce_inputs(b, d, "cuda")
+    rl, cl = cs.fused_lean_lse_plain(n, c, nomax=True)
+    off = b - m
+    args = (n[off:], c, rl[off:], cl, 0.0, off)
+    got, want = fl.fused_ce_bwd(*args), cs.fused_ce_bwd_plain(*args)
+    rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+    if rel > cs.CE_BWD_RTOL:
+        raise SystemExit(f"fused_ce_bwd rows {{off}}..{{b}} of B={{b}} vs plain: {{rel}} > {{cs.CE_BWD_RTOL}}")
+    nb, cb = n[off:].to(torch.bfloat16).contiguous(), c.to(torch.bfloat16).contiguous()
+    row = {{"case": f"rows {{off}}..{{b}} of B={{b}} D={{d}}", "max_rel_err": rel,
+           "dn_blocks": m // 128, "dn_tiles_per_block": b // 64, "dc_blocks": b // 128, "dc_tiles_per_block": m // 64,
+           "ms": cs.median_ms(lambda: fl.fused_ce_bwd(nb, cb, rl[off:], cl, 0.0, off), f)}}
+    row.update(cs.bound(6 * m * b * d, (m + b) * d * 2 + (m + b) * 4 + (m + b) * d * 4, exps=2 * m * b))
+    print("ab ce_bwd_shard", json.dumps(row), flush=True)
 """
 
 STATS_CASES = [(8192, 128), (8192, 256), (8192, 512), (16384, 128), (32768, 128)]
@@ -118,13 +146,14 @@ if {evaluation}:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="+", help="repository roots, in the order to run them")
-    parser.add_argument("--kernel", choices=("ce_bwd", "ce_fwd", "table_grad", "stats", "lookup"), default="ce_bwd",
+    parser.add_argument("--kernel", choices=("ce_bwd", "ce_bwd_shard", "ce_fwd", "table_grad", "stats", "lookup"), default="ce_bwd",
                         help="the kernel to time")
     parser.add_argument("--training", action="store_true", help="also run each tree's training phase")
     parser.add_argument("--evaluation", action="store_true",
                         help="also run each tree's training and evaluation phases (device ms per eval batch)")
     args = parser.parse_args(argv)
-    kernel_run = {"ce_bwd": lambda: _CE_BWD_RUN.format(cases=CASES), "ce_fwd": lambda: _CE_FWD_RUN.format(cases=FWD_CASES),
+    kernel_run = {"ce_bwd": lambda: _CE_BWD_RUN.format(cases=CASES),
+                  "ce_bwd_shard": lambda: _CE_BWD_SHARD_RUN.format(cases=SHARD_CASES), "ce_fwd": lambda: _CE_FWD_RUN.format(cases=FWD_CASES),
                   "table_grad": _TABLE_GRAD_RUN.format, "stats": lambda: _STATS_RUN.format(cases=STATS_CASES),
                   "lookup": lambda: _LOOKUP_RUN}[args.kernel]()
     code = _TREE_RUN.format(kernel_run=kernel_run, training=args.training, evaluation=args.evaluation)

@@ -11,8 +11,9 @@ Sharding across hosts is lockstep: every host reads and joins every chunk
 alike, trims it to a multiple of ``host_count`` and takes the strided rows
 ``[host_index::host_count]``, so every host gets the same row count of each
 chunk and yields the same number of batches. ``host_index`` and
-``host_count`` are arguments (the reference reads them from JAX's process
-index; the port's processes wait for the mesh, ROADMAP A12). pyarrow is
+``host_count`` are arguments; on a mesh ``Trainer.train_streaming`` sets
+them to the rank and the mesh size (the reference reads them from JAX's
+process index), so every rank streams its own share. pyarrow is
 imported inside ``stream_pair_chunks`` only (the card machine has none).
 """
 
@@ -61,15 +62,25 @@ def stream_pair_chunks(
     Files hold (notice_key, company_key) columns (``parquet_dataset``).
     Keys join to store rows chunk by chunk; a pair with a missing key drops
     or, with ``on_missing="error"``, raises ``KeyError``. Every host gets
-    exactly ``kept // host_count`` rows of each chunk."""
+    exactly ``kept // host_count`` rows of each chunk.
+
+    pyarrow is imported and the files opened here, on the calling thread;
+    the chunks may then be read on another (``streaming_index_batches``'
+    reader). Opened first on that reader thread, a file crashed a mesh rank
+    with a segmentation fault inside ``ParquetFile`` (a training process,
+    gloo up; tests/test_torch_mesh_train.py)."""
     import pyarrow.parquet as pq
 
     if isinstance(paths, (str, Path)):
         paths = [paths]
-    n_idx = _KeyIndex(notice_store)
-    c_idx = _KeyIndex(company_store)
-    for path in paths:
-        pf = pq.ParquetFile(str(path))
+    files = [pq.ParquetFile(str(path)) for path in paths]
+    return _chunks(files, _KeyIndex(notice_store), _KeyIndex(company_store), chunk_rows, host_index, host_count,
+                   on_missing)
+
+
+def _chunks(files, n_idx: _KeyIndex, c_idx: _KeyIndex, chunk_rows: int, host_index: int, host_count: int,
+            on_missing: str) -> Iterator[np.ndarray]:
+    for pf in files:
         for batch in pf.iter_batches(batch_size=chunk_rows, columns=["notice_key", "company_key"]):
             n_rows = n_idx.lookup(batch.column(0).to_numpy(zero_copy_only=False))
             c_rows = c_idx.lookup(batch.column(1).to_numpy(zero_copy_only=False))

@@ -1,5 +1,5 @@
 """Batch pipeline: pair indices -> batches on the device (port of
-``jodalrob_twotower_tpu/data/pipeline.py``, one device).
+``jodalrob_twotower_tpu/data/pipeline.py``).
 
 Host side: ``epoch_batches`` yields shuffled [B, 2] index batches with the
 reference's numpy permutation, so both packages see the same batches for
@@ -20,8 +20,11 @@ still reads it. ``index_batches`` and ``index_stacks`` stream [B, 2] and
 ``train_batches`` chains shuffle -> gather (worker) -> prefetch.
 
 Indices are int64, the port's convention (the reference streams int32).
-The reference's ``sharding`` argument waits for the mesh (ROADMAP A12): the
-port takes a ``device`` (None means the card).
+The port takes a ``device`` (None means the card); the reference's
+``sharding`` argument of ``prefetch_to_device`` and ``train_batches`` takes
+a mesh (``parallel/mesh.py``): each rank then gets its block of every global
+batch (the rows the reference's ``P("data")`` gives its device), on its
+device.
 """
 
 from __future__ import annotations
@@ -223,11 +226,17 @@ def prefetch_to_device(
     *,
     size: int = 2,
     device=None,
+    sharding=None,
 ) -> Iterator[PairBatch]:
     """Keep ``size`` batches in flight on ``device`` (None means the card)
     ahead of the consumer: the copy of batch k+1 overlaps the step on batch
     k. Host batches that are not page-locked are pinned first, on this
-    thread."""
+    thread. With ``sharding`` (a mesh) each global batch is cut to the
+    rank's block and placed on the rank's device."""
+    if sharding is not None:
+        device = sharding.device
+        host_batches = (_map(lambda t, r=sharding.block(b.batch_size): torch.as_tensor(t)[r], b)
+                        for b in host_batches)
     return _in_flight(_Uploader(resolve_device(device)), host_batches, size)
 
 
@@ -301,14 +310,18 @@ def train_batches(
     prefetch: int = 2,
     background: bool = True,
     device=None,
+    sharding=None,
 ) -> Iterator[PairBatch]:
     """Full pipeline: shuffle -> gather (on a worker thread with
     ``background``) -> ``prefetch`` batches in flight on ``device`` (None
     means the card). ``prefetch <= 0`` uploads each batch with a plain
-    blocking copy on the consumer's stream."""
-    dev = resolve_device(device)
+    blocking copy on the consumer's stream. With ``sharding`` (a mesh) the
+    rank gathers only its block of each global batch, onto its device."""
+    dev = resolve_device(sharding.device if sharding is not None else device)
     pin = dev.type == "cuda" and prefetch > 0
     idx = epoch_batches(pairs, batch_size, shuffle=shuffle, seed=seed, drop_remainder=drop_remainder)
+    if sharding is not None:
+        idx = (b[sharding.block(len(b))] for b in idx)
     if background:
         host: Iterable[PairBatch] = BackgroundAssembler(notice_store, company_store, idx, pin_memory=pin)
     else:

@@ -1,6 +1,5 @@
 """Evaluation CLI of the PyTorch port, ``python -m jodalrob_twotower_torch.eval``
-(port of ``scripts/eval.py``, one device): restore a trained model and score
-it.
+(port of ``scripts/eval.py``): restore a trained model and score it.
 
 It restores the weights-only export (``weights/``) of a training run into a
 FrozenState, carves the run's validation pairs again (the same pair limit and
@@ -12,7 +11,10 @@ and MRR over ``--ks``, and with ``--demo-queries`` the top-10 predictions of
 the first queries. The keys are the reference CLI's. The data is the
 synthetic dataset, or with ``--data-dir`` a parquet dataset directory (the
 training CLI's; its readers need pyarrow). Runs on the card; ``--force-cpu``
-asks for the CPU.
+asks for the CPU. ``--mesh-devices N`` evaluates over an N-rank mesh
+(``parallel/``; N cards over NCCL, or N gloo ranks with ``--force-cpu``):
+each rank scores its block of every batch and the corpus is row-sharded
+(``sharded_corpus_retrieval_eval``); the report is rank 0's.
 
   python -m jodalrob_twotower_torch.eval --model-dir runs/exp1 --output eval.json
   python -m jodalrob_twotower_torch.eval --model-dir runs/ds --data-dir ds/ --output eval.json
@@ -44,18 +46,27 @@ def parse_args(argv=None):
     p.add_argument("--host-eval", action="store_true",
                    help="assemble eval batches on the host instead of placing the stores on the device")
     p.add_argument("--force-cpu", action="store_true", help="run on the CPU instead of the card")
-    p.add_argument("--mesh-devices", type=int, help="evaluate over an N-device mesh (not ported yet)")
-    p.add_argument("--store-sharding", choices=["replicated", "rows"], help="(not ported yet)")
+    p.add_argument("--mesh-devices", type=int,
+                   help="evaluate over an N-device mesh (state replicated, batches and corpus sharded)")
+    p.add_argument("--store-sharding", choices=["replicated", "rows"],
+                   help="feature-store placement under --mesh-devices ('rows' is not ported yet)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
+    from jodalrob_twotower_torch.parallel.distributed import launch_cli, refuse_unported
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    for flag in ("mesh_devices", "store_sharding"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to the PyTorch package yet (ROADMAP A12)"
-            )
+    refuse_unported(args)
+    if args.mesh_devices:
+        return launch_cli(run, argv, args.mesh_devices, args.force_cpu)
+    return run(argv)
+
+
+def run(argv: list[str], devices: list | None = None) -> int:
+    """The evaluation of ``argv``, on one device or, with ``devices`` (one
+    per rank of the process group), as this rank of the mesh."""
     from jodalrob_twotower_torch.config import TrainConfig
     from jodalrob_twotower_torch.data.pipeline import assemble_pair_batch
     from jodalrob_twotower_torch.device import resolve_device
@@ -64,15 +75,19 @@ def main(argv=None) -> int:
         corpus_retrieval_eval,
         demonstrate_predictions,
         qualitative_assessment,
+        sharded_corpus_retrieval_eval,
     )
     from jodalrob_twotower_torch.models import build_model
+    from jodalrob_twotower_torch.parallel.mesh import make_mesh
     from jodalrob_twotower_torch.serving.service import FrozenState
     from jodalrob_twotower_torch.train.checkpoint import CheckpointManager
     from jodalrob_twotower_torch.train.cli import split_pairs, synthetic_data
     from jodalrob_twotower_torch.train.metrics import random_baselines
     from jodalrob_twotower_torch.train.train_step import device_store, resolve_store_dtype
 
-    device = resolve_device("cpu" if args.force_cpu else None)
+    args = parse_args(argv)
+    mesh = make_mesh(devices) if devices else None
+    device = mesh.device if mesh is not None else resolve_device("cpu" if args.force_cpu else None)
     cfg = TrainConfig.from_json(args.model_dir / "config.json")
     if args.data_dir and not args.synthetic:
         from jodalrob_twotower_torch.data.parquet_dataset import load_dataset
@@ -88,12 +103,14 @@ def main(argv=None) -> int:
     if args.pair_limit:
         val_pairs = val_pairs[: args.pair_limit]
     b = args.batch_size or cfg.data.batch_size
-    print(f"eval: {len(val_pairs):,} validation pairs, batch {b}", file=sys.stderr)
+    writes = mesh is None or mesh.is_main  # the rank that reports
+    if writes:
+        print(f"eval: {len(val_pairs):,} validation pairs, batch {b}", file=sys.stderr)
 
-    model = build_model(schema, cfg)
+    model = build_model(schema, cfg, mesh)
     restored = CheckpointManager(args.model_dir, cfg.checkpoint).restore_weights(model.state_dict(), device=device)
     state = FrozenState({**restored["params"], **restored["batch_stats"]})
-    evaluator = Evaluator(model, cfg)
+    evaluator = Evaluator(model, cfg, mesh=mesh)
 
     dev_stores = None
     if not args.host_eval:
@@ -123,7 +140,10 @@ def main(argv=None) -> int:
         query_emb = evaluator.encode_corpus(
             state, notice_store.dense[val_pairs[:, 0]], notice_store.cat_ids[val_pairs[:, 0]], side="notice"
         )
-        res = corpus_retrieval_eval(query_emb, corpus_emb, val_pairs[:, 1], ks=ks)
+        if mesh is not None and mesh.size > 1:
+            res = sharded_corpus_retrieval_eval(query_emb, corpus_emb, val_pairs[:, 1], mesh, ks=ks)
+        else:
+            res = corpus_retrieval_eval(query_emb, corpus_emb, val_pairs[:, 1], ks=ks)
         report["corpus"] = {
             "corpus_size": res.corpus_size,
             "num_queries": res.num_queries,
@@ -137,6 +157,8 @@ def main(argv=None) -> int:
                 query_keys=notice_store.keys[val_pairs[:n, 0]], corpus_keys=company_store.keys,
             )
 
+    if not writes:
+        return 0
     text = json.dumps(report, indent=2)
     if args.output:
         args.output.write_text(text)

@@ -1,5 +1,5 @@
 """Evaluation: in-batch metrics, corpus-level retrieval, prediction demo
-(port of ``jodalrob_twotower_tpu/evaluation/evaluator.py``, one device).
+(port of ``jodalrob_twotower_tpu/evaluation/evaluator.py``).
 
 Per-batch recall@k / MRR / accuracy / similarity means over in-batch
 candidates (on the card from the statistics kernels, through the eval step),
@@ -7,7 +7,10 @@ random baselines, a qualitative assessment and a top-k prediction demo; and
 corpus-level retrieval metrics, where each query ranks against the whole
 company corpus. The ranking math is vectorized on the device; the corpus
 ranks are plain float32 products and counts, as the reference computes them
-outside any kernel.
+outside any kernel. On a mesh (``parallel/mesh.py``) the evaluator's steps
+run on each rank's block of every batch and return the global batch's
+metrics on every rank, and :func:`sharded_corpus_retrieval_eval` ranks
+against a row-sharded corpus.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from jodalrob_twotower_torch.config import TrainConfig
 from jodalrob_twotower_torch.data.types import PairBatch, TowerBatch
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel
+from jodalrob_twotower_torch.parallel.mesh import row_sharding, shard_batch
 from jodalrob_twotower_torch.train.metrics import random_baselines
 from jodalrob_twotower_torch.train.train_step import (
     make_device_encode_fn,
@@ -59,15 +63,17 @@ def _fetch(metrics: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
 
 
 class Evaluator:
-    """Runs eval over batches and aggregates the reference's metric surface."""
+    """Runs eval over batches and aggregates the reference's metric surface
+    (with ``mesh``, over the mesh: every rank calls alike)."""
 
-    def __init__(self, model: TwoTowerModel, cfg: TrainConfig) -> None:
+    def __init__(self, model: TwoTowerModel, cfg: TrainConfig, *, mesh=None) -> None:
         self.model = model
         self.cfg = cfg
-        self._eval_step = make_eval_step(model, cfg)
+        self.mesh = mesh
+        self._eval_step = make_eval_step(model, cfg, mesh=mesh)
         self._encode_notice = make_encode_fn(model, "notice")
         self._encode_company = make_encode_fn(model, "company")
-        self._indexed_eval = make_indexed_eval_steps(model, cfg)
+        self._indexed_eval = make_indexed_eval_steps(model, cfg, mesh=mesh)
 
     def evaluate(self, state, batches: Iterable[PairBatch]) -> dict[str, float]:
         """The in-batch metrics averaged over ``batches`` (host or device
@@ -77,9 +83,11 @@ class Evaluator:
         n = 0
         batch_size = 0
         for batch in batches:
+            batch_size = batch.batch_size  # the global batch's, also on a mesh
+            if self.mesh is not None:  # the rank's block of the global batch
+                batch = shard_batch(batch, self.mesh)
             batch = PairBatch(batch.notice.to(state.device), batch.company.to(state.device))
             m = _fetch(self._eval_step(state, batch))
-            batch_size = batch.batch_size
             for k, v in m.items():
                 total[k] = total.get(k, 0.0) + float(v)
             n += 1
@@ -138,10 +146,14 @@ class Evaluator:
         store: [n_rows, D] float32 on the store's device. The store may hold
         more rows than ``n_rows`` (padding). Chunks are of one size; when
         they do not tile the store, the final chunk starts early and its
-        overlapping head is dropped (reference ``encode_corpus_device``)."""
+        overlapping head is dropped (reference ``encode_corpus_device``). On
+        a mesh each rank encodes its block of every chunk (the chunk cut to
+        a multiple of the mesh size) and every rank returns the whole."""
         store_rows = store[0].shape[0]
         chunk = min(chunk, store_rows)
-        encode = make_device_encode_fn(self.model, side, chunk)
+        if self.mesh is not None:
+            chunk -= chunk % self.mesh.size
+        encode = make_device_encode_fn(self.model, side, chunk, mesh=self.mesh)
         pieces = []
         covered = 0
         while covered < store_rows:
@@ -248,6 +260,56 @@ def corpus_retrieval_eval(
             rows = torch.arange(c0, c0 + part.shape[0], device=q.device)
             count += ((q @ part.T > pos_sim) & (rows[None, :] != p[:, None])).sum(1)
         ranks.append(count)
+    ranks = torch.cat(ranks).cpu().numpy()
+    return CorpusEvalResult(
+        recall={k: float((ranks < k).mean()) for k in ks},
+        mrr=float((1.0 / (ranks + 1.0)).mean()),
+        num_queries=query.shape[0],
+        corpus_size=n_valid,
+    )
+
+
+def sharded_corpus_retrieval_eval(
+    query_emb,
+    corpus_emb,
+    positive_rows: np.ndarray,
+    mesh,
+    *,
+    ks: tuple[int, ...] = (10, 100),
+    query_chunk: int = 1024,
+) -> CorpusEvalResult:
+    """:func:`corpus_retrieval_eval` with the corpus row-sharded over a mesh
+    (reference ``sharded_corpus_retrieval_eval``, evaluator.py:365-430),
+    called alike on every rank with the whole corpus and the queries.
+
+    Each rank keeps its block of the corpus, padded to a multiple of the
+    mesh size (``parallel/mesh.row_sharding``), and scores the queries
+    against it alone. The positive row is picked by the rank that owns it
+    and all-reduced, so every rank scores it from its gathered row; each
+    rank counts its live rows strictly above it (the positive's own row left
+    out by index) and one all-reduce of the integer counts merges them, so
+    recall and MRR equal the single-device eval's exactly. Traffic per query
+    block: the [Q, D] positive rows and the [Q] counts."""
+    query = _as_tensor(query_emb, mesh.device).to(mesh.device)
+    corpus = _as_tensor(corpus_emb, mesh.device)
+    n_valid = corpus.shape[0]
+    block = row_sharding(mesh, n_valid)
+    shard = corpus[block.start : min(block.stop, n_valid)].to(mesh.device)
+    offset = block.start
+    pos = torch.as_tensor(np.asarray(positive_rows), dtype=torch.int64, device=mesh.device)
+    rows = offset + torch.arange(shard.shape[0], device=mesh.device)
+    ranks = []
+    for start in range(0, query.shape[0], query_chunk):
+        q = query[start : start + query_chunk]
+        p = pos[start : start + query_chunk]
+        local = p - offset
+        mine = (local >= 0) & (local < shard.shape[0])
+        picked = shard.index_select(0, local.clamp(0, max(shard.shape[0] - 1, 0))) if shard.shape[0] else \
+            q.new_zeros(q.shape)
+        pos_vec = mesh.all_reduce_(torch.where(mine[:, None], picked, torch.zeros((), device=q.device)))
+        pos_sim = (q * pos_vec).sum(1, keepdim=True)
+        count = ((q @ shard.T > pos_sim) & (rows[None, :] != p[:, None])).sum(1)
+        ranks.append(mesh.all_reduce_(count))
     ranks = torch.cat(ranks).cpu().numpy()
     return CorpusEvalResult(
         recall={k: float((ranks < k).mean()) for k in ks},

@@ -3,12 +3,37 @@ from jodalrob_twotower_torch.models.tower import Tower  # noqa: F401
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel
 
 
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP A12b)")
+
+
 def build_model(schema, cfg, mesh=None) -> TwoTowerModel:
-    """Construct the model the config asks for, on one device, with the
-    row-gather kernel where ``MeshConfig.use_pallas_lookup`` asks for the
-    reference's Pallas gather. Meshes wait for the parallel slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port runs on one device; mesh-sharded models arrive with the parallel slice"
-        )
-    return TwoTowerModel(schema, cfg.model, cfg.mesh.use_pallas_lookup)
+    """Construct the model the config asks for (reference
+    ``models.build_model``): the row-gather kernel where
+    ``MeshConfig.use_pallas_lookup`` asks for the reference's Pallas gather,
+    and on a mesh of more than one rank (``parallel/mesh.py``) the towers of
+    the rank's batch block, with global BatchNorm statistics. Their tables
+    are replicated ("auto" resolves to that up to 65,536 rows), and each
+    rank's unchanged lookup chooses its kernels as one device does
+    (``parallel/sharded_embedding.py``). Row-sharded tables and the
+    compressed gradient sync raise NotImplementedError (ROADMAP A12b)."""
+    if mesh is not None and mesh.size > 1:
+        from jodalrob_twotower_torch.parallel.mesh import resolve_embedding_sharding
+
+        if cfg.mesh.grad_compression != "none":
+            raise _not_ported("the compressed gradient sync (grad_compression)")
+        mode = resolve_embedding_sharding(cfg.mesh, schema)
+        if cfg.model.embedding_lookup == "onehot" and mode == "shard_map":
+            raise ValueError(
+                "embedding_lookup='onehot' forced, but the configured embedding sharding ('shard_map') "
+                "installs a lookup that does not carry the one-hot kernel - use "
+                "embedding_sharding='replicated' (the kernel runs per rank) or embedding_lookup='auto'"
+            )
+        if cfg.model.embedding_lookup == "onehot" and mode == "gspmd_rows":
+            raise ValueError(
+                "embedding_lookup='onehot' cannot run under embedding_sharding='gspmd_rows' on a "
+                "multi-device mesh - use 'replicated' (the kernel runs per rank) or embedding_lookup='auto'"
+            )
+        if mode != "replicated":
+            raise _not_ported(f"embedding_sharding={mode!r} (row-sharded tables)")
+    return TwoTowerModel(schema, cfg.model, cfg.mesh.use_pallas_lookup, mesh=mesh)

@@ -10,7 +10,10 @@ Numerics follow flax ``Dense(dtype=compute_dtype)``: inputs, weights and
 biases are cast to the compute dtype. In training form (``train=True``)
 BatchNorm normalises with the batch's own statistics and updates its running
 statistics as flax does, and dropout follows each BatchNorm, drawn from the
-``torch.Generator`` the caller passes.
+``torch.Generator`` the caller passes. On a mesh (``parallel/mesh.py``) the
+tower runs on the rank's block of the global batch: BatchNorm's statistics
+are the global batch's and dropout keeps the rank's block of the global
+batch's masks, as one device's step on the whole batch has them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from torch import nn
 from jodalrob_twotower_torch.config import ModelConfig
 from jodalrob_twotower_torch.data.types import TowerBatch
 from jodalrob_twotower_torch.models.embedding import EmbeddingCollection, resolve_lookup_mode
+from jodalrob_twotower_torch.parallel.mesh import all_reduce_sum
 from jodalrob_twotower_torch.schema import SideSchema
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -42,8 +46,9 @@ class BatchNorm(nn.Module):
     eps = 1e-5
     momentum = 0.99
 
-    def __init__(self, width: int) -> None:
+    def __init__(self, width: int, mesh=None) -> None:
         super().__init__()
+        self.mesh = mesh
         self.weight = nn.Parameter(torch.ones(width))
         self.bias = nn.Parameter(torch.zeros(width))
         self.register_buffer("running_mean", torch.zeros(width))
@@ -51,9 +56,12 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x32 = x.float()
-        if train:
+        if train and self.mesh is not None:
+            mean, var = self._global_stats(x32)
+        elif train:
             mean = x32.mean(0)
             var = torch.clamp((x32 * x32).mean(0) - mean * mean, min=0.0)
+        if train:
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean + (1 - self.momentum) * mean)
                 self.running_var.copy_(self.momentum * self.running_var + (1 - self.momentum) * var)
@@ -63,13 +71,34 @@ class BatchNorm(nn.Module):
         y = (x32 - mean) * mul + self.bias
         return y.to(x.dtype)
 
+    def _global_stats(self, x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Mean and biased variance over the global batch of a mesh, as the
+        reference's BatchNorm takes them under GSPMD (its mean over the
+        sharded batch dim covers every device's rows): [sum x, sum x^2,
+        rows] all-reduced once, differentiably, so the backward sums each
+        rank's share of the statistics' gradient across ranks too."""
+        w = x32.shape[1]
+        local = torch.cat([x32.sum(0), (x32 * x32).sum(0), x32.new_full((1,), x32.shape[0])])
+        total = all_reduce_sum(local, self.mesh)
+        count = total[2 * w]
+        mean = total[:w] / count
+        return mean, torch.clamp(total[w : 2 * w] / count - mean * mean, min=0.0)
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator, mesh=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate,
     scaled by 1/(1 - rate) in x's dtype, else 0. The mask comes from
-    ``generator`` (on x's device), so a run is replayable from its seed."""
+    ``generator`` (on x's device), so a run is replayable from its seed. On
+    a mesh x is the rank's block of the global batch: every rank draws the
+    global batch's mask and keeps its block, so the masks are those of one
+    device's step on the whole batch."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if mesh is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        u = torch.rand((x.shape[0] * mesh.size, *x.shape[1:]), generator=generator, device=x.device)
+        u = u[mesh.block(u.shape[0])]
+    mask = u < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -82,10 +111,14 @@ class Tower(nn.Module):
     """Encode a :class:`TowerBatch` of tensors into an L2-normalized
     [B, final_dim] float32 embedding."""
 
-    def __init__(self, schema: SideSchema, config: ModelConfig, use_pallas_lookup: bool = False) -> None:
+    def __init__(self, schema: SideSchema, config: ModelConfig, use_pallas_lookup: bool = False, *,
+                 mesh=None) -> None:
         super().__init__()
         self.schema = schema
         self.config = config
+        # a mesh of more than one rank: the training form's BatchNorm takes
+        # global statistics and dropout the global batch's masks
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.compute_dtype = _DTYPES[config.compute_dtype]
         proj = config.dense_projection_dim
         self.blocks: list[tuple[str, int, int]] = []  # (layer name, start, width) in dense
@@ -116,7 +149,7 @@ class Tower(nn.Module):
         for i, out in enumerate(config.tower_hidden_dims[1:]):
             self.add_module(f"mlp_{i}", nn.Linear(width, out))
             if config.use_batch_norm:
-                self.add_module(f"bn_{i}", BatchNorm(out))
+                self.add_module(f"bn_{i}", BatchNorm(out, self.mesh))
             width = out
         self.head = nn.Linear(width, config.final_embedding_dim)
 
@@ -160,6 +193,6 @@ class Tower(nn.Module):
             if cfg.use_batch_norm:
                 x = getattr(self, f"bn_{i}")(x, train)
             if train and cfg.dropout_rate > 0:
-                x = dropout(x, cfg.dropout_rate, generator)
+                x = dropout(x, cfg.dropout_rate, generator, self.mesh)
         x = _dense(self.head, x).float()
         return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)

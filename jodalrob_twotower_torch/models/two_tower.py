@@ -22,14 +22,17 @@ class TwoTowerModel(nn.Module):
     Constructed in eval mode; the train step asks for the training form per
     call (``train=True``), so the module's flag stays as the caller set it.
     ``use_pallas_lookup`` lets the towers' gathers take the row-gather
-    kernel (models/embedding.EmbeddingCollection)."""
+    kernel (models/embedding.EmbeddingCollection). ``mesh`` is the mesh
+    model's (``models.build_model``): the towers then run on the rank's
+    block of each global batch."""
 
-    def __init__(self, schema: TwoTowerSchema, config: ModelConfig, use_pallas_lookup: bool = False) -> None:
+    def __init__(self, schema: TwoTowerSchema, config: ModelConfig, use_pallas_lookup: bool = False, *,
+                 mesh=None) -> None:
         super().__init__()
         self.schema = schema
         self.config = config
-        self.notice_tower = Tower(schema.notice, config, use_pallas_lookup)
-        self.company_tower = Tower(schema.company, config, use_pallas_lookup)
+        self.notice_tower = Tower(schema.notice, config, use_pallas_lookup, mesh=mesh)
+        self.company_tower = Tower(schema.company, config, use_pallas_lookup, mesh=mesh)
         self.eval()
 
     def forward(

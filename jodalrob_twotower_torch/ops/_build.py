@@ -57,6 +57,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def kernel_sources() -> list[str]:
+    """The names of every CUDA kernel source, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def build(names) -> dict[str, str]:
     """Compile every named kernel source whose library is missing, with one
     nvcc process each, all started together. Returns each compiled name's

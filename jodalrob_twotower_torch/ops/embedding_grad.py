@@ -329,7 +329,10 @@ def _layout_lookup(fn, total_rows: int, tile_feature):
     def lookup(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         t = on_device.get(table.device)
         if t is None:
-            t = on_device[table.device] = torch.from_numpy(tf).to(table.device)
+            # a normal tensor even when the first call is an evaluation's:
+            # an inference tensor cannot be saved for a later step's backward
+            with torch.inference_mode(False):
+                t = on_device[table.device] = torch.from_numpy(tf).to(table.device, copy=True)
         return fn.apply(table, rows.to(torch.int32).contiguous(), t)
 
     return lookup

@@ -77,6 +77,18 @@ def _in_kernel_envelope(b: int, d: int) -> bool:
     return _supported(b, d) or _blocked_supported(b, d)
 
 
+def _shard_in_kernel_envelope(rows: int, b: int, d: int) -> bool:
+    """Whether a block of ``rows`` rows against B columns of width D takes
+    the kernels (the reference's ``_sharded_supported`` and, past B = 8192,
+    its ``_blocked_supported``): the batch's envelope, with rows a multiple
+    of 128 or at most 128. The CUDA kernels add their row block: rows (and
+    so a mesh rank's row offset, rank x rows) a multiple of 64, which K8
+    and the sweep need to find the diagonal in one tile. A block of 32 or
+    96 rows, which the reference's kernels take, takes the materialized
+    route here, on every device alike."""
+    return _in_kernel_envelope(b, d) and (rows % _BM == 0 or rows <= _BM) and rows % _KERNEL_ROWS == 0
+
+
 def ce_route(b: int, d: int, label_smoothing: float) -> str:
     """How the fused CE runs for a [B, D] batch: "kernel" (the lean forward
     and the backward), "stats" (the statistics forward, which label smoothing
@@ -505,29 +517,31 @@ def _unpack(row_stats: torch.Tensor, col_stats: torch.Tensor) -> FusedStats:
     return FusedStats(row_stats[:, 0], row_stats[:, 1], row_stats[:, 2], row_stats[:, 3], col_stats[0], col_stats[1])
 
 
-def fused_stats_plain(n_scaled: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """What :func:`same_tile_diag` followed by :func:`fused_stats_sweep`
-    computes for the square in-batch case, with the diagonal taken from the
-    same S the sweep's plain version makes (so rank compares like with like
-    on the CPU)."""
-    return _stats_from_scores(_bf16_scores(n_scaled, c), 0)
-
-
 def fused_stats(n: torch.Tensor, c: torch.Tensor, *, temperature: float = 1.0) -> FusedStats:
     """Every statistic of S = (n/tau) c^T for aligned [B, D] pairs without
     materializing S (reference ``fused_stats``, fused_logits.py:201-233).
     Inside the kernels' envelope: on CUDA, K8 then the sweep (K5, or K9 past
     B = 8192); on the CPU their plain version. Outside it: the materialized
     float32 statistics."""
-    n_scaled = n.float() / temperature
-    c32 = c.float()
-    b, d = n_scaled.shape
-    if not _in_kernel_envelope(b, d):
-        return _unpack(*_stats_from_scores(n_scaled @ c32.T, 0))
-    if not n.is_cuda:
-        return _unpack(*fused_stats_plain(n_scaled, c32))
-    nb, cb = n_scaled.to(torch.bfloat16), c32.to(torch.bfloat16)
-    return _unpack(*fused_stats_sweep(nb, cb, same_tile_diag(nb, cb)))
+    return _unpack(*fused_stats_rows(n.float() / temperature, c.float(), 0))
+
+
+def fused_stats_rows(n_scaled: torch.Tensor, c: torch.Tensor, row_offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(row_stats [rows, 4], col_stats [2, B]) of S = n_scaled c^T for a
+    block of rows whose diagonal sits at column row + ``row_offset`` (the
+    whole batch at 0, a mesh rank's block against the gathered batch
+    otherwise). Inside the kernels' envelope: K8 then the sweep on CUDA,
+    their plain version on the CPU; outside it, float32 statistics of the
+    materialized block."""
+    rows, b, d = n_scaled.shape[0], c.shape[0], c.shape[1]
+    if not _shard_in_kernel_envelope(rows, b, d):
+        return _stats_from_scores(n_scaled @ c.T, row_offset)
+    if not n_scaled.is_cuda:
+        # the diagonal from the same S the sweep's plain version makes, so
+        # that rank compares like with like on the CPU
+        return _stats_from_scores(_bf16_scores(n_scaled, c), row_offset)
+    nb, cb = n_scaled.to(torch.bfloat16), c.to(torch.bfloat16)
+    return fused_stats_sweep(nb, cb, same_tile_diag(nb, cb, row_offset), row_offset)
 
 
 def fused_in_batch_metrics(
@@ -571,10 +585,14 @@ def _loss_from_stats(stats: FusedStats, label_smoothing: float) -> torch.Tensor:
     return 0.5 * (side(stats.row_lse, stats.row_sum) + side(stats.col_lse, stats.col_sum))
 
 
-def _bwd_materialized(n_scaled, c32, row_lse, col_lse, eps):
-    b = n_scaled.shape[0]
+def _bwd_materialized(n_scaled, c32, row_lse, col_lse, eps, row_offset: int = 0):
+    """(dn, dc) of the float32 [rows, B] block whose diagonal sits at column
+    row + ``row_offset``; dc sums over the block's rows only."""
+    rows, b = n_scaled.shape[0], c32.shape[0]
     s = n_scaled @ c32.T
-    eye = torch.eye(b, dtype=torch.float32, device=s.device)
+    eye = torch.zeros((rows, b), dtype=torch.float32, device=s.device)
+    idx = torch.arange(rows, device=s.device)
+    eye[idx, idx + row_offset] = 1.0
     a = (0.5 / b) * (
         torch.exp(s - row_lse[:, None]) + torch.exp(s - col_lse[None, :])
         - 2.0 * (1.0 - eps) * eye - 2.0 * eps / b
@@ -639,3 +657,138 @@ def fused_bidirectional_ce(
     the f32 no-overflow margin the forward skips its max shift. ``None``
     always takes the shifted kernel."""
     return _FusedCE.apply(n, c, float(temperature), float(label_smoothing), max_abs_logit)
+
+
+# -- the mesh-sharded CE ------------------------------------------------------------
+#
+# The reference's ``make_sharded_fused_ce`` (fused_logits.py:1066-1323): each
+# mesh rank holds a block of b = B/n rows of both sides. The forward gathers
+# the company side to [B, D] f32, runs the kernels on the rank's [b, D]
+# notice rows against it (the diagonal at column row + r b), and merges the
+# column logsumexp across ranks; the backward runs K11/K10 with the same row
+# offset and reduce-scatters the column side's [B, D] partials back to each
+# rank's rows. The loss is the global batch's, the same value on every rank:
+# global in-batch negatives at any mesh size.
+
+
+def _merge_col_lse(partial_lse: torch.Tensor, extra: torch.Tensor, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(global column lse, the sum over ranks of ``extra``) from per-rank
+    partial lse over each rank's rows: one max-shifted merge (the
+    reference's ``_merge_col_lse``), its sum of exponentials riding one
+    all-reduce with ``extra``."""
+    m = mesh.all_reduce_(partial_lse.clone(), "max")
+    b = partial_lse.shape[0]
+    summed = mesh.all_reduce_(torch.cat([torch.exp(partial_lse - m), extra.reshape(-1)]))
+    return torch.log(summed[:b]) + m, summed[b:]
+
+
+def _sharded_ce_primal(n, c_full, mesh, temperature, label_smoothing, max_abs_logit):
+    """(loss, row_lse [b], col_lse [B]) of the rank's [b, D] notice rows
+    against the gathered [B, D] company side (the reference's
+    ``_sharded_ce_primal``)."""
+    n_scaled = n.float() / temperature
+    bl, d = n_scaled.shape
+    b = c_full.shape[0]
+    row0 = mesh.rank * bl
+    eps = label_smoothing
+    if eps == 0.0 and _shard_in_kernel_envelope(bl, b, d):
+        nomax = max_abs_logit is not None and max_abs_logit <= _NOMAX_MAX_ABS
+        row_lse, col_part = fused_lean_lse(n_scaled, c_full, nomax=nomax)
+        # S_ii as a rowsum of the rank's aligned rows, from the bf16-rounded
+        # operands the kernel's S is made of
+        nb = n_scaled.to(torch.bfloat16).float()
+        cb = c_full[row0 : row0 + bl].to(torch.bfloat16).float()
+        diag = (nb * cb).sum(1)
+        col_lse, sums = _merge_col_lse(col_part, torch.stack([(row_lse - diag).sum(), diag.sum()]), mesh)
+        loss = 0.5 * (sums[0] / b + (col_lse.sum() - sums[1]) / b)
+        return loss, row_lse, col_lse
+    row_stats, col_stats = fused_stats_rows(n_scaled, c_full, row0)
+    row_lse, row_sum, diag = row_stats[:, 0], row_stats[:, 1], row_stats[:, 2]
+    row_base = (1.0 - eps) * (row_lse - diag)
+    if eps:
+        row_base = row_base + (eps / b) * (b * row_lse - row_sum)
+    col_lse, merged = _merge_col_lse(col_stats[0], torch.cat([col_stats[1], torch.stack([row_base.sum(), diag.sum()])]),
+                                     mesh)
+    col_sum, row_total, diag_sum = merged[:b], merged[b], merged[b + 1]
+    col_total = (1.0 - eps) * (col_lse.sum() - diag_sum)
+    if eps:
+        col_total = col_total + (eps / b) * (b * col_lse.sum() - col_sum.sum())
+    return 0.5 * (row_total / b + col_total / b), row_lse, col_lse
+
+
+class _ShardedFusedCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, c, mesh, temperature, label_smoothing, max_abs_logit):
+        c_full = mesh.all_gather_rows(c.float())
+        loss, row_lse, col_lse = _sharded_ce_primal(n, c_full, mesh, temperature, label_smoothing, max_abs_logit)
+        ctx.save_for_backward(n, c_full, row_lse, col_lse)
+        ctx.mesh, ctx.temperature, ctx.label_smoothing, ctx.c_dtype = mesh, temperature, label_smoothing, c.dtype
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        """The reference's ``_sharded_ce_grads_local``: the rank's dn and
+        its block of dc, summed over every rank's rows."""
+        n, c_full, row_lse, col_lse = ctx.saved_tensors
+        mesh, tau, eps = ctx.mesh, ctx.temperature, ctx.label_smoothing
+        n_scaled = n.float() / tau
+        bl, d = n_scaled.shape
+        b = c_full.shape[0]
+        row0 = mesh.rank * bl
+        if _shard_in_kernel_envelope(bl, b, d):
+            dn_s, dc_part = fused_ce_bwd(n_scaled, c_full, row_lse, col_lse, eps, row0)
+        else:
+            dn_s, dc_part = _bwd_materialized(n_scaled, c_full, row_lse, col_lse, eps, row0)
+        dc = mesh.reduce_scatter_rows(dc_part)
+        return (g * dn_s / tau).to(n.dtype), (g * dc).to(ctx.c_dtype), None, None, None, None
+
+
+def sharded_fused_ce(n, c, mesh, temperature: float = 1.0, label_smoothing: float = 0.0,
+                     max_abs_logit: float | None = None) -> torch.Tensor:
+    """The global batch's bidirectional CE from this rank's blocks n, c
+    [B/n, D] (the reference's ``make_sharded_fused_ce``): the same loss on
+    every rank; gradients reach the rank's blocks."""
+    return _ShardedFusedCE.apply(n, c, mesh, float(temperature), float(label_smoothing), max_abs_logit)
+
+
+def make_sharded_fused_ce(mesh, *, temperature: float = 1.0, label_smoothing: float = 0.0,
+                          max_abs_logit: float | None = None):
+    """``loss(n_local, c_local)`` over ``mesh`` (see :func:`sharded_fused_ce`)."""
+
+    def loss(n, c):
+        return sharded_fused_ce(n, c, mesh, temperature, label_smoothing, max_abs_logit)
+
+    return loss
+
+
+def sharded_ce_loss(n, c, mesh, temperature: float = 1.0, label_smoothing: float = 0.0,
+                    max_abs_logit: float | None = None) -> torch.Tensor:
+    """:func:`sharded_fused_ce`'s value without its backward (evaluation)."""
+    with torch.no_grad():
+        return _sharded_ce_primal(n, mesh.all_gather_rows(c.float()), mesh, float(temperature),
+                                  float(label_smoothing), max_abs_logit)[0]
+
+
+def sharded_in_batch_metrics(
+    n: torch.Tensor, c: torch.Tensor, mesh, *, temperature: float = 1.0, recall_ks: tuple[int, ...] = (5, 10)
+) -> dict[str, torch.Tensor]:
+    """:func:`fused_in_batch_metrics` of the global batch from this rank's
+    blocks: the statistics of its rows against the gathered company side
+    (K8 and K5/K9 at the rank's row offset), each metric's sum over the
+    rank's rows all-reduced once. The same values on every rank."""
+    n_scaled = n.float() / temperature
+    c_full = mesh.all_gather_rows(c.float())
+    bl, b = n_scaled.shape[0], c_full.shape[0]
+    row_stats, _ = fused_stats_rows(n_scaled, c_full, mesh.rank * bl)
+    ranks, diag = row_stats[:, 3], row_stats[:, 2]
+    neg_mean = (row_stats[:, 1] - diag) / max(b - 1, 1)
+    names = ["accuracy", "mrr", "auc", "positive_similarity", "negative_similarity"] + [f"recall@{k}" for k in recall_ks]
+    per_row = [(ranks == 0).float(), 1.0 / (ranks + 1.0), 1.0 - ranks / max(b - 1, 1), diag, neg_mean]
+    per_row += [(ranks < k).float() for k in recall_ks]
+    means = dict(zip(names, mesh.all_reduce_(torch.stack([v.sum() for v in per_row])) / b))
+    metrics = {k: means[k] for k in names[:5]}
+    metrics["similarity_gap"] = metrics["positive_similarity"] - metrics["negative_similarity"]
+    metrics["z_gap"] = metrics["similarity_gap"] / (metrics["negative_similarity"].abs() + 1e-8)
+    for k in recall_ks:
+        metrics[f"recall@{k}"] = means[f"recall@{k}"]
+    return metrics

@@ -1,6 +1,6 @@
 """Serving CLI of the PyTorch port, ``python -m jodalrob_twotower_torch.serve``
-(port of ``scripts/serve.py``, one device): frozen towers -> corpus MIPS
-index -> top-k retrieval.
+(port of ``scripts/serve.py``): frozen towers -> corpus MIPS index -> top-k
+retrieval.
 
 It restores the weights-only export of a training run (``config.json`` and
 ``weights/``), encodes the company corpus, builds (or loads) an exact or int8
@@ -9,6 +9,9 @@ notice (``notice``, ``top_k: [{company, score}]``), and with ``--qps-bench``
 the ``serve_cli_qps`` line. ``--target-recall`` measures the candidate
 configurations on the corpus and picks the fastest that meets the target
 (serving/autoconfig.py). Runs on the card; ``--force-cpu`` asks for the CPU.
+``--mesh-devices N`` serves from a corpus row-sharded over an N-rank mesh
+(``serving/index.ShardedIndex``; N cards over NCCL, or N gloo ranks with
+``--force-cpu``); rank 0 writes the answers.
 
   python -m jodalrob_twotower_torch.train --output-dir runs/exp1
   python -m jodalrob_twotower_torch.serve --model-dir runs/exp1 --index int8 --k 10 \\
@@ -51,7 +54,8 @@ def parse_args(argv=None):
                    help="pick (index kind, approx-recall, rescore-depth) by measuring each candidate's "
                         "recall@k against the exact scan on this corpus (serving/autoconfig.py); "
                         "exclusive with the manual --index/--approx-recall/--rescore-depth knobs")
-    p.add_argument("--mesh-devices", type=int, help="serve over an N-device mesh (not ported yet)")
+    p.add_argument("--mesh-devices", type=int,
+                   help="serve over an N-device mesh (serving/index.ShardedIndex: the corpus row-sharded)")
     p.add_argument("--save-index", type=Path, help="persist the built index (npz)")
     p.add_argument("--load-index", type=Path, help="serve a persisted index")
     p.add_argument("--k", type=int, default=10)
@@ -105,9 +109,24 @@ def corpus_fits(corpus_emb, corpus_chunk: int | None) -> bool:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     if args.mesh_devices:
-        raise NotImplementedError("--mesh-devices is not ported to the PyTorch package yet (ROADMAP A12)")
+        incompatible = [
+            name for name, val in (
+                ("--corpus-chunk", args.corpus_chunk),
+                ("--load-index", args.load_index),
+                ("--save-index", args.save_index),
+                ("--target-recall", args.target_recall),
+            ) if val is not None
+        ]
+        if incompatible:
+            raise SystemExit(
+                f"--mesh-devices cannot be combined with {', '.join(incompatible)}: the sharded index "
+                "bounds per-device memory by the shard (not --corpus-chunk), is not persistable as a "
+                "single-host npz, and the measured auto-config calibrates single-device indexes - pick "
+                "the index knobs explicitly for mesh serving"
+            )
     if args.target_recall is not None:
         manual = [
             name for name, val, default in (
@@ -122,18 +141,32 @@ def main(argv=None) -> int:
                 "--target-recall picks the index configuration itself; drop "
                 + ", ".join(manual or ["--load-index"])
             )
+    if args.mesh_devices:
+        from jodalrob_twotower_torch.parallel.distributed import launch_cli
 
+        return launch_cli(run, argv, args.mesh_devices, args.force_cpu)
+    return run(argv)
+
+
+def run(argv: list[str], devices: list | None = None) -> int:
+    """The serving run of ``argv``, on one device or, with ``devices`` (one
+    per rank of the process group), as this rank of the mesh: every rank
+    searches alike and rank 0 writes."""
     from jodalrob_twotower_torch.config import TrainConfig
     from jodalrob_twotower_torch.device import resolve_device
     from jodalrob_twotower_torch.models import build_model
     from jodalrob_twotower_torch.serving.index import load_index, save_index
     from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
+    from jodalrob_twotower_torch.parallel.mesh import make_mesh
     from jodalrob_twotower_torch.train.checkpoint import CheckpointManager
 
-    device = resolve_device("cpu" if args.force_cpu else None)
+    args = parse_args(argv)
+    mesh = make_mesh(devices) if devices else None
+    writes = mesh is None or mesh.is_main  # the rank that writes
+    device = mesh.device if mesh is not None else resolve_device("cpu" if args.force_cpu else None)
     cfg = TrainConfig.from_json(args.model_dir / "config.json")
     schema, notice_store, company_store = load_data(args, cfg.seed)
-    model = build_model(schema, cfg)
+    model = build_model(schema, cfg, mesh)
     restored = CheckpointManager(args.model_dir, cfg.checkpoint).restore_weights(model.state_dict(), device=device)
     state = FrozenState({**restored["params"], **restored["batch_stats"]})
 
@@ -196,11 +229,13 @@ def main(argv=None) -> int:
         model, cfg, state, company_store,
         index_kind=args.index, corpus_chunk=args.corpus_chunk, approx_recall=args.approx_recall,
         rescore_depth=args.rescore_depth, rescore_dtype=args.rescore_dtype,
-        precomputed_corpus_emb=precomputed_emb, prebuilt_index=prebuilt, device=device,
+        precomputed_corpus_emb=precomputed_emb, prebuilt_index=prebuilt, mesh=mesh, device=device,
     )
     del precomputed_emb
-    print(f"index: {args.index if prebuilt is None else 'loaded'} over {len(svc.index):,} companies",
-          file=sys.stderr)
+    if writes:
+        where = f" row-sharded over {mesh.size} ranks" if mesh is not None else ""
+        print(f"index: {args.index if prebuilt is None else 'loaded'} over {len(svc.index):,} companies{where}",
+              file=sys.stderr)
 
     if args.save_index:
         save_index(svc.index, args.save_index)
@@ -208,26 +243,28 @@ def main(argv=None) -> int:
 
     if args.queries:
         n = min(args.queries, len(notice_store))
-        out = args.output.open("w") if args.output else sys.stdout
+        out = (args.output.open("w") if args.output else sys.stdout) if writes else None
         try:
             for start in range(0, n, QUERY_BATCH):
                 rows = np.arange(start, min(start + QUERY_BATCH, n))
-                for qi, hits in zip(rows, svc.search_keys(notice_store.gather(rows), k=args.k)):
+                hits_of = svc.search_keys(notice_store.gather(rows), k=args.k)  # every rank searches
+                for qi, hits in zip(rows, hits_of if writes else ()):
                     out.write(json.dumps({
                         "notice": str(notice_store.keys[qi]),
                         "top_k": [{"company": key, "score": round(s, 6)} for key, s in hits],
                     }) + "\n")
         finally:
-            if args.output:
+            if args.output and writes:
                 out.close()
-        if args.output:
+        if args.output and writes:
             print(f"results: {args.output} ({n} queries)", file=sys.stderr)
 
     if args.qps_bench:
         res = qps_bench(svc, notice_store, k=args.k, batch_size=QUERY_BATCH, n_batches=10)
-        print(json.dumps({"bench": "serve_cli_qps", **{
-            k: (round(v, 2) if isinstance(v, float) else v) for k, v in res.items()
-        }}))
+        if writes:
+            print(json.dumps({"bench": "serve_cli_qps", **{
+                k: (round(v, 2) if isinstance(v, float) else v) for k, v in res.items()
+            }}))
     return 0
 
 

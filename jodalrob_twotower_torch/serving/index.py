@@ -1,5 +1,5 @@
 """MIPS top-k indexes over a frozen corpus of tower embeddings (port of
-``jodalrob_twotower_tpu/serving/index.py``, single device).
+``jodalrob_twotower_tpu/serving/index.py``).
 
 * :class:`BruteForceIndex` - exact maximum-inner-product search: [Q, N]
   float32 matmul + top-k, corpus resident on the device.
@@ -18,8 +18,8 @@ accumulation. ``approx_recall`` is the reference's ``jax.lax.approx_max_k``
 recall target: it is checked against the range that function accepts,
 (0, 1], kept and saved, and the selection stays exact, as the reference's
 is everywhere but on a TPU (XLA's CPU and GPU backends lower
-``approx_max_k`` to an exact top-k). The mesh-sharded index arrives with the
-parallel slice. The npz format of ``save_index``/``load_index`` is the
+``approx_max_k`` to an exact top-k). :class:`ShardedIndex` row-shards the
+corpus over a mesh's ranks (``parallel/mesh.py``). The npz format of ``save_index``/``load_index`` is the
 reference's, so an index saved by either package loads in the other.
 """
 
@@ -325,6 +325,86 @@ class Int8Index:
         v = self.values.reshape(-1, self.values.shape[-1])[: self.n_valid]
         s = self.scales.reshape(-1, 1)[: self.n_valid]
         return v.cpu().numpy(), s.cpu().numpy()
+
+
+class ShardedIndex:
+    """MIPS over a corpus row-sharded across a mesh (reference
+    ``ShardedIndex``, serving/index.py:408-596): each rank keeps its block
+    of the corpus, padded to a multiple of the mesh size
+    (``parallel/mesh.row_sharding``), scores only those rows and takes a
+    local top-k; the k candidates and their global rows are all-gathered
+    and merged on every rank, so the traffic per query block is O(ranks k),
+    never the corpus. ``kind`` picks float32-exact or int8 shards; the
+    rescore options run on the rank's rows before the merge, so the merge
+    orders exact scores, and ``approx_recall`` is kept as the single-device
+    indexes keep it (the selection stays exact). Every rank calls
+    :meth:`search` with the same queries and gets the same answers."""
+
+    def __init__(self, corpus_emb, mesh, *, kind: str = "exact", query_chunk: int = 1024,
+                 approx_recall: float | None = None,
+                 rescore_depth: int | None = None,
+                 rescore_dtype: str = "int8") -> None:
+        from jodalrob_twotower_torch.parallel.mesh import row_sharding
+
+        if rescore_dtype not in ("int8", "bfloat16"):
+            raise ValueError(f"rescore_dtype must be 'int8' or 'bfloat16', got {rescore_dtype!r}")
+        if kind not in ("exact", "int8"):
+            raise ValueError(f"unknown kind: {kind}")
+        self.mesh = mesh
+        self.kind = kind
+        self.device = mesh.device
+        self.query_chunk = query_chunk
+        self.approx_recall = _check_approx(approx_recall)
+        self.rescore_depth = _check_rescore_depth(rescore_depth)
+        self.rescore_dtype = rescore_dtype
+        corpus = torch.as_tensor(corpus_emb).float()
+        self.n_valid = corpus.shape[0]
+        block = row_sharding(mesh, self.n_valid)
+        self.shard_rows = block.stop - block.start
+        self.row0 = block.start
+        mine = corpus[block.start : min(block.stop, self.n_valid)]
+        pad = self.shard_rows - mine.shape[0]
+        if pad:
+            mine = torch.cat([mine, mine.new_zeros((pad, mine.shape[1]))])
+        self.rescore_rows = None
+        if kind == "int8":
+            # quantized on the device the rows came from, as Int8Index does
+            self.values, self.scales = (t.to(self.device) for t in quantize_int8(mine))
+            if self.rescore_depth and rescore_dtype == "bfloat16":
+                self.rescore_rows = mine.to(torch.bfloat16).to(self.device)
+        else:
+            self.corpus = mine.to(self.device)
+
+    def __len__(self) -> int:
+        return self.n_valid
+
+    def topk_body(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Search of one query block, the same on every rank: (scores [Q, k]
+        f32, global rows [Q, k] int32)."""
+        kk = max(k, min(self.rescore_depth or 0, self.shard_rows))
+        if self.kind == "int8":
+            sims = (queries.to(torch.bfloat16).float() @ self.values.float().T).mul_(self.scales[:, 0][None, :])
+        else:
+            sims = queries.float() @ self.corpus.T
+        if self.row0 + self.shard_rows > self.n_valid:
+            cols = torch.arange(self.shard_rows, device=sims.device)
+            sims = torch.where(self.row0 + cols[None, :] < self.n_valid, sims, _NEG)
+        s, i = torch.topk(sims, kk, dim=1)
+        if self.rescore_depth:
+            if self.kind == "exact":  # fixes the selection only
+                s, i = _rescore_topk(queries.float(), s, i, k, self.corpus)
+            elif self.rescore_rows is not None:  # bf16 full-precision second pass
+                s, i = _rescore_topk(queries, s, i, k, self.rescore_rows)
+            else:  # dequantized int8
+                s, i = _rescore_topk(queries, s, i, k, self.values, self.scales)
+        i = i + self.row0
+        s_all = self.mesh.all_gather_rows(s.T.contiguous()).T  # [Q, ranks k]
+        i_all = self.mesh.all_gather_rows(i.T.contiguous()).T
+        s2, sel = torch.topk(s_all, k, dim=1)
+        return s2, torch.gather(i_all, 1, sel).to(torch.int32)
+
+    def search(self, queries, k: int = 10) -> SearchResult:
+        return _search(self, queries, k)
 
 
 def quantize_int8(corpus):

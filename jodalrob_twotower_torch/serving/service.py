@@ -1,5 +1,5 @@
 """Retrieval service: frozen towers + corpus index -> top-k companies (port of
-``jodalrob_twotower_tpu/serving/service.py``, single device).
+``jodalrob_twotower_tpu/serving/service.py``).
 
 Encode the company corpus once with the frozen company tower, build an exact
 or int8 index, then serve notice queries (raw features -> notice tower ->
@@ -27,6 +27,7 @@ from jodalrob_twotower_torch.serving.index import (
     HostCopy,
     Int8Index,
     SearchResult,
+    ShardedIndex,
 )
 
 
@@ -71,18 +72,29 @@ class RetrievalService:
         prebuilt_index=None,
         device=None,
     ) -> None:
-        """Serve on ``device`` (None means the card). ``state`` is moved
-        there; the corpus is encoded there unless ``prebuilt_index`` (e.g.
+        """Serve on ``device`` (None means the card), or with ``mesh`` on
+        the rank's device from a :class:`ShardedIndex` (every rank encodes
+        the corpus and keeps its block; every rank must search alike).
+        ``state`` is moved there; the corpus is encoded there unless ``prebuilt_index`` (e.g.
         from ``index.load_index``) or ``precomputed_corpus_emb`` (the corpus
         already encoded: a tensor, or host numpy that the index moves, int8
         rows quantized on the host) is given."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port serves on one device; the mesh-sharded index is not "
-                "ported yet (ROADMAP A12)"
-            )
         if index_kind not in ("exact", "int8"):
             raise ValueError(f"index_kind must be 'exact' or 'int8', got {index_kind!r}")
+        if mesh is not None:
+            if prebuilt_index is not None:
+                raise ValueError(
+                    "prebuilt_index cannot be combined with a mesh: persisted indexes are "
+                    "single-host - rebuild with mesh=... (ShardedIndex) instead"
+                )
+            if corpus_chunk is not None:
+                raise ValueError(
+                    "corpus_chunk is not supported with a mesh: ShardedIndex scores each shard "
+                    "whole - bound per-device memory by the shard size (more devices) instead"
+                )
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's device {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
@@ -101,7 +113,12 @@ class RetrievalService:
                 corpus_emb = self._evaluator.encode_corpus(
                     self.state, company_store.dense, company_store.cat_ids, side="company"
                 )
-            if index_kind == "int8":
+            if mesh is not None:
+                self.index = ShardedIndex(
+                    corpus_emb, mesh, kind=index_kind, query_chunk=query_chunk, approx_recall=approx_recall,
+                    rescore_depth=rescore_depth, rescore_dtype=rescore_dtype,
+                )
+            elif index_kind == "int8":
                 self.index = Int8Index(
                     corpus_emb, query_chunk=query_chunk, corpus_chunk=corpus_chunk,
                     approx_recall=approx_recall, rescore_depth=rescore_depth,

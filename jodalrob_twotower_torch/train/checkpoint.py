@@ -23,6 +23,9 @@ and their Adagrad accumulators) at its own dtype, and the step, optimizer
 count and dropout seed as ints, so a restored run continues bit for bit.
 Files load with ``torch.load(..., weights_only=True)`` onto the target's
 device: a checkpoint written on the CPU restores onto the card and back.
+
+On a mesh (``mesh=``) every rank holds the same state: rank 0 alone writes,
+each save ends in a barrier, and every rank restores from the files.
 """
 
 from __future__ import annotations
@@ -111,9 +114,11 @@ class CheckpointManager:
     """best/final/epoch/step checkpoint retention (layout in the module
     docstring)."""
 
-    def __init__(self, directory: str | Path, cfg: CheckpointConfig | None = None) -> None:
+    def __init__(self, directory: str | Path, cfg: CheckpointConfig | None = None, *, mesh=None) -> None:
         self.dir = Path(directory)
         self.cfg = cfg or CheckpointConfig()
+        self.mesh = mesh
+        self._writes = mesh is None or mesh.is_main
         self.dir.mkdir(parents=True, exist_ok=True)
         self._best_metric: float | None = None
         best_file = self.dir / "best.json"
@@ -121,14 +126,23 @@ class CheckpointManager:
             self._best_metric = json.loads(best_file.read_text()).get("metric")
 
     # -- save --------------------------------------------------------------
+    def _saved(self) -> None:
+        """The end of a save: on a mesh every rank waits until rank 0 has
+        written, so that a restore on any rank reads whole files."""
+        if self.mesh is not None:
+            self.mesh.barrier()
+
     def save_config(self, cfg: TrainConfig) -> None:
-        cfg.to_json(self.dir / "config.json")
+        if self._writes:
+            cfg.to_json(self.dir / "config.json")
+        self._saved()
 
     def save_epoch(self, state, epoch: int, metric: float | None = None) -> None:
         """Save an epoch checkpoint; update best/ when the metric improves."""
         if self.cfg.save_every_epoch:
             self._write(self.dir / f"epoch_{epoch}", state)
-            self._prune_epochs()
+            if self._writes:
+                self._prune_epochs()
         if (
             self.cfg.save_best
             and metric is not None
@@ -136,7 +150,9 @@ class CheckpointManager:
         ):
             self._best_metric = float(metric)
             self._write(self.dir / "best", state)
-            _write_json(self.dir / "best.json", {"epoch": epoch, "metric": float(metric)})
+            if self._writes:
+                _write_json(self.dir / "best.json", {"epoch": epoch, "metric": float(metric)})
+        self._saved()
 
     def save_step(self, state, epoch: int, batch_in_epoch: int) -> None:
         """Mid-epoch checkpoint for preemption recovery.
@@ -151,7 +167,9 @@ class CheckpointManager:
         prev = json.loads(ptr.read_text())["dir"] if ptr.exists() else "step_b"
         nxt = "step_a" if prev == "step_b" else "step_b"
         self._write(self.dir / nxt, state)
-        _write_json(ptr, {"dir": nxt, "epoch": int(epoch), "step": int(state.step), "batch": int(batch_in_epoch)})
+        if self._writes:
+            _write_json(ptr, {"dir": nxt, "epoch": int(epoch), "step": int(state.step), "batch": int(batch_in_epoch)})
+        self._saved()
 
     def restore_step(self, target) -> tuple[Any, int, int, int | None] | None:
         """The newest mid-epoch checkpoint as (state, epoch, step,
@@ -170,13 +188,16 @@ class CheckpointManager:
             self._write(self.dir / "final", state)
         # the weights-only export (the reference's model_weights.pt)
         self._write_params_only(self.dir / "weights", state)
+        self._saved()
 
     def _write(self, path: Path, state) -> None:
-        _write_file(path, state_payload(state))
+        if self._writes:
+            _write_file(path, state_payload(state))
 
     def _write_params_only(self, path: Path, state) -> None:
-        params = merged_params(state) if isinstance(state, SparseTrainState) else state.params
-        _write_file(path, {"params": params, "batch_stats": state.batch_stats})
+        if self._writes:
+            params = merged_params(state) if isinstance(state, SparseTrainState) else state.params
+            _write_file(path, {"params": params, "batch_stats": state.batch_stats})
 
     _EPOCH_RE = re.compile(r"^epoch_(\d+)$")
 

@@ -1,5 +1,5 @@
 """Training CLI of the PyTorch port, ``python -m jodalrob_twotower_torch.train``
-(port of ``scripts/train.py``, one device).
+(port of ``scripts/train.py``).
 
 Every hyperparameter lives in the typed TrainConfig (JSON-serializable); the
 flags override the common ones. The run writes checkpoints under
@@ -15,7 +15,10 @@ schema.json, notice/company.parquet, pairs.parquet), and with ``--stream``
 trains on pairs.parquet streamed in chunks of ``DataConfig.chunk_size``
 (``Trainer.train_streaming``; validation pairs are carved from the loaded
 set as without it). The parquet readers need pyarrow. The run goes on the
-card; ``--force-cpu`` asks for the CPU.
+card; ``--force-cpu`` asks for the CPU. ``--mesh-devices N`` trains over an
+N-rank data-parallel mesh (``parallel/``): N cards over NCCL, or with
+``--force-cpu`` N gloo ranks on the CPU; ``--batch-size`` is then the global
+batch. A run across hosts starts one process per card with ``torchrun``.
 
   python -m jodalrob_twotower_torch.train --synthetic --synthetic-scale bench \\
       --batch-size 8192 --epochs 8 --sample-on-device --epoch-corpus-eval \\
@@ -67,8 +70,10 @@ def parse_args(argv=None):
     p.add_argument("--dropout-rng", choices=["auto", "threefry", "rbg"],
                    help="ModelConfig.dropout_rng_impl (the port draws every mask from a seeded torch.Generator)")
     p.add_argument("--force-cpu", action="store_true", help="run on the CPU instead of the card")
-    p.add_argument("--mesh-devices", type=int, help="train over an N-device mesh (not ported yet)")
-    p.add_argument("--store-sharding", choices=["replicated", "rows"], help="(not ported yet)")
+    p.add_argument("--mesh-devices", type=int,
+                   help="train over an N-device data-parallel mesh (replicated tables, batch dim sharded)")
+    p.add_argument("--store-sharding", choices=["replicated", "rows"],
+                   help="feature-store placement under --mesh-devices ('rows' is not ported yet)")
     p.add_argument("--grad-compression", choices=["none", "int16", "bf16"], help="(not ported yet)")
     p.add_argument("--compressed-negatives", choices=["local", "global"], help="(not ported yet)")
     return p.parse_args(argv)
@@ -138,27 +143,41 @@ def split_pairs(pairs: np.ndarray, cfg) -> tuple[np.ndarray, np.ndarray]:
 
 
 def main(argv=None) -> int:
+    from jodalrob_twotower_torch.parallel.distributed import launch_cli, refuse_unported
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    for flag in ("mesh_devices", "store_sharding", "grad_compression", "compressed_negatives"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to the PyTorch package yet (ROADMAP A12)"
-            )
+    refuse_unported(args)
+    if args.mesh_devices:
+        return launch_cli(run, argv, args.mesh_devices, args.force_cpu)
+    return run(argv)
+
+
+def run(argv: list[str], devices: list | None = None) -> int:
+    """The training run of ``argv``, on one device or, with ``devices``
+    (one per rank of the process group), as this rank of the mesh."""
+    from jodalrob_twotower_torch.parallel.mesh import make_mesh
     from jodalrob_twotower_torch.train.trainer import Trainer
 
+    args = parse_args(argv)
+    mesh = make_mesh(devices) if devices else None
+    say = print if mesh is None or mesh.is_main else (lambda *_: None)
     cfg = configure(args)
     if args.data_dir and not args.synthetic:
         from jodalrob_twotower_torch.data.parquet_dataset import load_dataset
 
         schema, notice_store, company_store, pairs = load_dataset(args.data_dir)
-        print(f"data: {args.data_dir} ({len(pairs):,} pairs)")
+        say(f"data: {args.data_dir} ({len(pairs):,} pairs)")
     else:
-        print(f"data: synthetic planted-cluster dataset ({args.synthetic_scale} scale)")
+        say(f"data: synthetic planted-cluster dataset ({args.synthetic_scale} scale)")
         schema, notice_store, company_store, pairs = synthetic_data(args.synthetic_scale, cfg.seed)
     train_pairs, val_pairs = split_pairs(pairs, cfg)
-    print(f"pairs: {len(train_pairs):,} train / {len(val_pairs):,} val")
+    say(f"pairs: {len(train_pairs):,} train / {len(val_pairs):,} val")
+    if mesh is not None:
+        say(f"mesh: {mesh.size} devices over {mesh.backend} (tables replicated, batch dim sharded)")
 
-    trainer = Trainer(cfg, schema, notice_store, company_store, device="cpu" if args.force_cpu else None)
+    trainer = Trainer(cfg, schema, notice_store, company_store, mesh=mesh,
+                      device=None if mesh is not None else "cpu" if args.force_cpu else None, log_fn=say)
     common = dict(checkpoint_dir=args.output_dir, resume=args.resume, corpus_eval=not args.no_corpus_eval)
     if args.stream and args.data_dir:
         # the stream reads the whole pairs file each epoch: the split above
@@ -173,7 +192,7 @@ def main(argv=None) -> int:
         )
     else:
         result = trainer.train(train_pairs, val_pairs, epoch_corpus_eval=args.epoch_corpus_eval, **common)
-    print(f"done: {result.examples_per_sec:,.0f} examples/s, results appended to {cfg.results_csv}")
+    say(f"done: {result.examples_per_sec:,.0f} examples/s, results appended to {cfg.results_csv}")
     return 0
 
 

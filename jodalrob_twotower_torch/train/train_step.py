@@ -1,5 +1,5 @@
 """Train and eval steps, the train state and the encoders (port of
-``jodalrob_twotower_tpu/train/train_step.py``, one device).
+``jodalrob_twotower_tpu/train/train_step.py``).
 
 A step gathers its batch, runs both towers in training form, the loss, the
 backward pass and the optimizer update. The reference compiles that into one
@@ -21,6 +21,12 @@ dropout 0 and fixed pair indices.
 The state is updated in place: parameters and optimizer moments by the
 optimizer, BatchNorm running statistics by the towers. A step returns the
 same state object.
+
+On a mesh (``parallel/mesh.py``, the steps' ``mesh`` argument) each rank
+holds a copy of the state on its device and steps on its block of every
+global batch; the loss is the global batch's, the gradients are summed
+over the ranks before the update, and every rank applies the same update,
+so the copies stay equal.
 """
 
 from __future__ import annotations
@@ -35,7 +41,13 @@ from torch.func import functional_call
 from jodalrob_twotower_torch.data.types import PairBatch, TowerBatch, default_tower_gather
 from jodalrob_twotower_torch.device import resolve_device
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel
-from jodalrob_twotower_torch.ops.fused_logits import fused_in_batch_metrics
+from jodalrob_twotower_torch.ops.fused_logits import (
+    fused_in_batch_metrics,
+    make_sharded_fused_ce,
+    sharded_ce_loss,
+    sharded_in_batch_metrics,
+)
+from jodalrob_twotower_torch.parallel.mesh import gather_replicated, sync_grads
 from jodalrob_twotower_torch.train.loss import compute_loss, resolve_use_fused
 from jodalrob_twotower_torch.train.metrics import in_batch_metrics
 from jodalrob_twotower_torch.train.optimizer import Optimizer, build_optimizer
@@ -126,16 +138,41 @@ def device_store(feature_store, *, dtype=None, device=None) -> tuple[torch.Tenso
     return dense.to(dev), torch.from_numpy(np.ascontiguousarray(feature_store.cat_ids)).to(dev)
 
 
+def make_sharded_ce(cfg, mesh):
+    """The mesh's fused CE (``ops/fused_logits.make_sharded_fused_ce``) for a
+    train step, or None where the config or mesh does not call for it: no
+    mesh or a mesh of one rank, the fused loss off, or another loss
+    (reference ``make_sharded_ce``, train_step.py:107-131). A one-rank mesh
+    thus runs the single-device CE."""
+    if mesh is None or mesh.size <= 1 or cfg.loss.loss_type != "cross_entropy":
+        return None
+    if not resolve_use_fused(cfg.loss, mesh.device):
+        return None
+    return make_sharded_fused_ce(
+        mesh, temperature=cfg.loss.temperature, label_smoothing=cfg.loss.label_smoothing,
+        # tower outputs are L2-normalized (models/tower.py), proving the
+        # bound |logits| <= 1/temperature for the lean kernel
+        max_abs_logit=1.0 / cfg.loss.temperature,
+    )
+
+
 def _forward_loss(model, cfg, weights: Mapping[str, torch.Tensor], batch: PairBatch, generator, *, train: bool,
-                  emb_overrides=None):
+                  emb_overrides=None, mesh=None, sharded_ce=None):
     """(loss, similarity or None, notice embeddings, company embeddings) of
     one batch; the towers run on ``weights`` (the model's state_dict keys)
     through ``functional_call``, with the categorical activations
-    ``emb_overrides`` in place of the tables' where given."""
+    ``emb_overrides`` in place of the tables' where given. On a mesh of more
+    than one rank ``batch`` is the rank's block and the loss the global
+    batch's: ``sharded_ce``'s, or the loss of the embeddings gathered from
+    every rank (the similarity then the global [B, B] one)."""
     kwargs = {"train": train, "generator": generator}
     if emb_overrides is not None:
         kwargs["emb_overrides"] = emb_overrides
     n_emb, c_emb = functional_call(model, dict(weights), (batch,), kwargs, strict=True)
+    if sharded_ce is not None:
+        return sharded_ce(n_emb, c_emb), None, n_emb, c_emb
+    if mesh is not None and mesh.size > 1:
+        n_emb, c_emb = gather_replicated(n_emb, mesh), gather_replicated(c_emb, mesh)
     loss, sim = compute_loss(
         cfg.loss.loss_type,
         n_emb,
@@ -151,21 +188,28 @@ def _forward_loss(model, cfg, weights: Mapping[str, torch.Tensor], batch: PairBa
     return loss, sim, n_emb, c_emb
 
 
-def loss_and_grads(model, cfg, state: TrainState, batch: PairBatch):
+def loss_and_grads(model, cfg, state: TrainState, batch: PairBatch, *, mesh=None, sharded_ce=None):
     """(loss, similarity or None, grads keyed as ``state.params``) of one
     training-form step on ``batch``, without the update. BatchNorm running
-    statistics in ``state`` advance as in a step."""
+    statistics in ``state`` advance as in a step. On a mesh ``batch`` is the
+    rank's block, the loss the global batch's and the gradients summed over
+    the ranks (``parallel/mesh.sync_grads``): every rank holds the gradient
+    of one device's step on the whole batch."""
     generator = None
     if cfg.model.dropout_rate > 0:
         generator = step_generator(state.device, state.seed, state.step, DROPOUT_STREAM)
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-    loss, sim, _, _ = _forward_loss(model, cfg, {**params, **state.batch_stats}, batch, generator, train=True)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return loss.detach(), sim, dict(zip(params, grads))
+    loss, sim, _, _ = _forward_loss(model, cfg, {**params, **state.batch_stats}, batch, generator, train=True,
+                                    mesh=mesh, sharded_ce=sharded_ce)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    if mesh is not None:
+        grads = sync_grads(grads, mesh)
+    return loss.detach(), sim, grads
 
 
-def _train_on_batch(model, cfg, tx: Optimizer, state: TrainState, batch: PairBatch, with_metrics: bool):
-    loss, sim, grads = loss_and_grads(model, cfg, state, batch)
+def _train_on_batch(model, cfg, tx: Optimizer, state: TrainState, batch: PairBatch, with_metrics: bool,
+                    mesh=None, sharded_ce=None):
+    loss, sim, grads = loss_and_grads(model, cfg, state, batch, mesh=mesh, sharded_ce=sharded_ce)
     tx.update(state.params, grads, state.opt_state)
     state.step += 1
     metrics = {"loss": loss}
@@ -174,12 +218,17 @@ def _train_on_batch(model, cfg, tx: Optimizer, state: TrainState, batch: PairBat
     return state, metrics
 
 
-def make_train_step(model: TwoTowerModel, cfg, tx: Optimizer, *, with_metrics: bool = True):
+def make_train_step(model: TwoTowerModel, cfg, tx: Optimizer, *, with_metrics: bool = True, mesh=None):
     """``step(state, batch: PairBatch) -> (state, metrics)``: grads, update
-    and, on the materialized loss path, the in-batch metrics."""
+    and, on the materialized loss path, the in-batch metrics. With ``mesh``
+    (``parallel/mesh.py``) ``batch`` is the rank's block of the global batch
+    and the loss, metrics and update are the global batch's, the same on
+    every rank; with the fused loss the CE is the mesh's
+    (:func:`make_sharded_ce`)."""
+    sharded_ce = make_sharded_ce(cfg, mesh)
 
     def step(state: TrainState, batch: PairBatch):
-        return _train_on_batch(model, cfg, tx, state, batch, with_metrics)
+        return _train_on_batch(model, cfg, tx, state, batch, with_metrics, mesh, sharded_ce)
 
     return step
 
@@ -191,20 +240,23 @@ def make_indexed_train_step(
     *,
     with_metrics: bool = True,
     store_gather: Callable | None = None,
+    mesh=None,
 ):
     """Train step over device-resident stores:
     ``step(state, pair_idx [B, 2], notice_store, company_store)``, each
     store a (dense, cat_ids) tuple of tensors on the state's device; the
     batch is gathered on the device. ``store_gather(store, rows) ->
-    TowerBatch`` replaces the plain gather."""
+    TowerBatch`` replaces the plain gather. With ``mesh``, ``pair_idx`` is
+    the rank's block of the global batch's indices (:func:`make_train_step`)."""
     gather = store_gather or default_tower_gather
+    sharded_ce = make_sharded_ce(cfg, mesh)
 
     def step(state: TrainState, pair_idx: torch.Tensor, notice_store, company_store):
         batch = PairBatch(
             notice=gather(notice_store, pair_idx[:, 0]),
             company=gather(company_store, pair_idx[:, 1]),
         )
-        return _train_on_batch(model, cfg, tx, state, batch, with_metrics)
+        return _train_on_batch(model, cfg, tx, state, batch, with_metrics, mesh, sharded_ce)
 
     return step
 
@@ -232,26 +284,28 @@ def scanned_fn(inner, n_inner: int):
 
 
 def make_scanned_train_steps(
-    model: TwoTowerModel, cfg, tx: Optimizer, n_inner: int, *, with_metrics: bool = False
+    model: TwoTowerModel, cfg, tx: Optimizer, n_inner: int, *, with_metrics: bool = False, mesh=None
 ):
     """``steps(state, pair_idx_stack [n_inner, B, 2], notice_store,
     company_store) -> (state, metrics stacked [n_inner])``: n_inner indexed
-    steps per call."""
-    return scanned_fn(make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics), n_inner)
+    steps per call (with ``mesh``, the rank's [n_inner, B/n, 2] blocks)."""
+    return scanned_fn(make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics, mesh=mesh), n_inner)
 
 
-def sampled_scan_fn(inner, n_inner: int, batch_size: int):
+def sampled_scan_fn(inner, n_inner: int, batch_size: int, mesh=None):
     """The ``n_inner``-step body with on-device batch sampling: each step
     draws ``batch_size`` pairs IID with replacement from a generator seeded
     from (sample_seed, global step), so draws are replayable and
-    resume-exact."""
+    resume-exact. On a mesh every rank draws the global batch and keeps its
+    block (reference train_step.py:340-352, where GSPMD shards the draw)."""
+    block = mesh.block(batch_size) if mesh is not None else slice(None)
 
     def steps(state, sample_seed: int, pairs_dev: torch.Tensor, notice_store, company_store):
         n_pairs = pairs_dev.shape[0]
         out = []
         for _ in range(n_inner):
             gen = step_generator(pairs_dev.device, sample_seed, state.step, SAMPLE_STREAM)
-            rows = torch.randint(0, n_pairs, (batch_size,), generator=gen, device=pairs_dev.device)
+            rows = torch.randint(0, n_pairs, (batch_size,), generator=gen, device=pairs_dev.device)[block]
             state, m = inner(state, pairs_dev.index_select(0, rows), notice_store, company_store)
             out.append(m)
         return state, _stack(out)
@@ -267,27 +321,44 @@ def make_sampled_train_steps(
     batch_size: int,
     *,
     with_metrics: bool = False,
+    mesh=None,
 ):
     """``steps(state, sample_seed, pairs_dev [P, 2], notice_store,
     company_store) -> (state, metrics stacked [n_inner])``: n_inner train
     steps per call, each on a batch sampled on the device from the resident
-    pair set; the host sends one integer seed per call."""
-    inner = make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics)
-    return sampled_scan_fn(inner, n_inner, batch_size)
+    pair set; the host sends one integer seed per call. ``batch_size`` is
+    the global batch; with ``mesh`` each rank trains its block of it."""
+    inner = make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics, mesh=mesh)
+    return sampled_scan_fn(inner, n_inner, batch_size, mesh)
 
 
-def make_eval_step(model: TwoTowerModel, cfg):
+def make_eval_step(model: TwoTowerModel, cfg, *, mesh=None):
     """``eval_step(state, batch: PairBatch) -> metrics``: the forward in
     inference form (no dropout, running BatchNorm statistics), the loss and
     the in-batch metrics, as 0-dim tensors on the state's device (reference
     ``make_eval_step``, train_step.py:421-469). On the materialized loss path
     the metrics come from the similarity matrix; on the fused path (the
     default on CUDA) from :func:`fused_in_batch_metrics`, which never forms
-    it (the statistics kernels)."""
+    it (the statistics kernels).
+
+    With ``mesh`` the batch is sharded, the rank's block of the global
+    batch (the reference's ``sharded_batch``), and the metrics are the
+    global batch's on every rank: on the fused path the mesh's CE forward
+    and the statistics of the rank's rows against the gathered company side
+    (K8 and K5 at the rank's row offset, ``sharded_in_batch_metrics``);
+    otherwise the single-device step on the gathered embeddings."""
+    fused_mesh = (mesh is not None and mesh.size > 1 and cfg.loss.loss_type == "cross_entropy"
+                  and resolve_use_fused(cfg.loss, mesh.device))
 
     def eval_step(state, batch: PairBatch) -> dict[str, torch.Tensor]:
         with torch.inference_mode():
-            loss, sim, n_emb, c_emb = _forward_loss(model, cfg, state.state_dict, batch, None, train=False)
+            if fused_mesh:
+                n_emb, c_emb = functional_call(model, state.state_dict, (batch,), {"train": False}, strict=True)
+                tau = cfg.loss.temperature
+                return {"loss": sharded_ce_loss(n_emb, c_emb, mesh, tau, cfg.loss.label_smoothing, 1.0 / tau),
+                        **sharded_in_batch_metrics(n_emb, c_emb, mesh, temperature=tau)}
+            loss, sim, n_emb, c_emb = _forward_loss(model, cfg, state.state_dict, batch, None, train=False,
+                                                    mesh=mesh)
             metrics = {"loss": loss}
             if sim is not None:
                 metrics.update(in_batch_metrics(sim))
@@ -298,15 +369,19 @@ def make_eval_step(model: TwoTowerModel, cfg):
     return eval_step
 
 
-def make_indexed_eval_steps(model: TwoTowerModel, cfg):
+def make_indexed_eval_steps(model: TwoTowerModel, cfg, *, mesh=None):
     """Eval over device-resident stores: ``steps(state, idx_stack [n, B, 2],
     notice_store, company_store)`` gathers each batch on the device and
     returns the per-batch metrics stacked [n] (reference
     ``make_indexed_eval_steps``, train_step.py:472-519; a Python loop where
-    the reference scans). Only the indices cross to the device."""
-    eval_core = make_eval_step(model, cfg)
+    the reference scans). Only the indices cross to the device. With
+    ``mesh`` the stack is the global batches' (as the reference places it
+    replicated) and each rank evaluates its block of every batch."""
+    eval_core = make_eval_step(model, cfg, mesh=mesh)
 
     def steps(state, idx_stack: torch.Tensor, notice_store, company_store) -> dict[str, torch.Tensor]:
+        if mesh is not None:
+            idx_stack = idx_stack[:, mesh.block(idx_stack.shape[1])]
         out = []
         for pair_idx in idx_stack:
             batch = PairBatch(
@@ -319,19 +394,25 @@ def make_indexed_eval_steps(model: TwoTowerModel, cfg):
     return steps
 
 
-def make_device_encode_fn(model: TwoTowerModel, side: str, chunk: int):
+def make_device_encode_fn(model: TwoTowerModel, side: str, chunk: int, *, mesh=None):
     """Chunked single-side encoder over a device-resident (dense, cat_ids)
     store: ``encode(state, store, start)`` embeds rows [start, start +
     chunk) in inference form (reference ``make_device_encode_fn``,
     train_step.py:522-561). As the reference's dynamic slice does, a start
     past N - chunk is clamped to N - chunk (and one below 0 to 0), so a
-    chunk always has ``chunk`` rows of a store that holds as many."""
+    chunk always has ``chunk`` rows of a store that holds as many. With
+    ``mesh`` each rank encodes its block of the chunk and every rank gets
+    the whole chunk back (an all-gather), so ``chunk`` must divide the
+    mesh's data axis, as the reference requires (:542)."""
     encode = make_encode_fn(model, side)
+    block = mesh.block(chunk) if mesh is not None else slice(None)  # raises unless chunk divides
 
     def encode_chunk(state, store, start: int) -> torch.Tensor:
         dense, cat = store
         start = max(0, min(int(start), dense.shape[0] - chunk))
-        return encode(state, TowerBatch(dense[start : start + chunk], cat[start : start + chunk]))
+        rows = slice(start + (block.start or 0), start + (block.stop or chunk))
+        out = encode(state, TowerBatch(dense[rows], cat[rows]))
+        return mesh.all_gather_rows(out) if mesh is not None else out
 
     return encode_chunk
 

@@ -1,5 +1,4 @@
-"""The trainer (port of ``jodalrob_twotower_tpu/train/trainer.py``, one
-device).
+"""The trainer (port of ``jodalrob_twotower_tpu/train/trainer.py``).
 
 Orchestrates: stores on the device -> train steps -> per-epoch validation
 (and optionally the corpus eval) -> epoch, best and mid-epoch checkpoints ->
@@ -26,8 +25,16 @@ parquet pair files too large for host memory (``data/parquet_stream.py``).
 Mid-epoch resume is exact: the epoch iterator is seeded, the checkpoint
 records how many batches the epoch had consumed, and every random draw
 (dropout, sampling) is a function of (seed, global step); a streamed epoch
-is seeded too, and resume skips the batches it had consumed. Meshes and the
-compressed gradient sync (the parallel slice, ROADMAP A12) are not ported.
+is seeded too, and resume skips the batches it had consumed.
+
+On a mesh (``Trainer(mesh=...)``, ``parallel/mesh.py``) every rank runs the
+trainer alike on its device, the dense forms only: each step trains the
+rank's block of the global batch (``parallel/sharded_train.py``), and
+``cfg.data.batch_size`` is the global batch, which must divide the data
+axis. Validation and the corpus eval run on the mesh too, rank 0 alone
+writes checkpoints, the metrics, the results CSV and the log, and every
+rank restores. Sparse tables, row-sharded stores and the compressed
+gradient sync on a mesh wait for ROADMAP A12b.
 """
 
 from __future__ import annotations
@@ -49,7 +56,9 @@ from jodalrob_twotower_torch.evaluation.evaluator import (
     Evaluator,
     corpus_retrieval_eval,
     qualitative_assessment,
+    sharded_corpus_retrieval_eval,
 )
+from jodalrob_twotower_torch.parallel.sharded_train import make_sharded_indexed_train, make_sharded_sampled_steps
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.serving.service import FrozenState
 from jodalrob_twotower_torch.train import sparse_tables
@@ -86,7 +95,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 class Trainer:
     """End-to-end training over host FeatureStores + positive pairs, on one
-    device (``device``; None means the card, "cpu" must be asked for)."""
+    device (``device``; None means the card, "cpu" must be asked for) or on
+    this rank of ``mesh`` (its device)."""
 
     def __init__(
         self,
@@ -99,18 +109,22 @@ class Trainer:
         device=None,
         log_fn: Callable[[str], None] = print,
     ) -> None:
-        if mesh is not None:
-            raise _not_ported("training over a device mesh", "A12")
         self.cfg = cfg
         self.schema = schema
         self.notice_store = notice_store
         self.company_store = company_store
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's device {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
-        self.model = build_model(schema, cfg)
-        self.log = log_fn
-        self.evaluator = Evaluator(self.model, cfg)
+        self.model = build_model(schema, cfg, mesh)
+        main = mesh is None or mesh.is_main  # the rank that writes
+        self.log = log_fn if main else (lambda *_: None)
+        self.evaluator = Evaluator(self.model, cfg, mesh=mesh)
         self._dev_stores = None
-        self._metrics_logger = MetricsLogger(cfg.metrics_jsonl) if cfg.metrics_jsonl else None
+        self._metrics_logger = MetricsLogger(cfg.metrics_jsonl) if cfg.metrics_jsonl and main else None
 
     def _init_state(self, total_steps: int):
         """Fresh weights (``init_flax`` from ``cfg.seed``) and the train state
@@ -144,8 +158,11 @@ class Trainer:
         epoch then runs as many steps as its source yields, and
         ``steps_per_epoch`` sizes the schedule."""
         cfg = self.cfg
+        mesh = self.mesh
         if cfg.mesh.grad_compression != "none":
-            raise _not_ported("the compressed gradient sync", "A12")
+            raise _not_ported("the compressed gradient sync", "A12b")
+        if mesh is not None and cfg.sparse_tables:
+            raise _not_ported("sparse tables on a mesh", "A12b")
         if cfg.data.sample_on_device and batch_source is not None:
             raise ValueError(
                 "sample_on_device needs the whole pair set device-resident; "
@@ -159,14 +176,25 @@ class Trainer:
         dev = self.device
         model = self.model
 
-        state, tx = self._init_state(total_steps)
-        if cfg.sparse_tables:
+        put_idx = None
+        if mesh is not None:
+            # the rank's copy of the state (rank 0's weights) and the mesh
+            # steps on its block of each global batch
+            self.model.init_flax(torch.Generator().manual_seed(cfg.seed))
+            state, tx, scan_steps, single_step, put_idx, _ = make_sharded_indexed_train(
+                model, cfg, mesh, b, total_steps, n_inner=n_inner)
+            num_params = _count_params(state.params)
+            if batch_source is not None:
+                put_idx = None  # a streamed source yields the rank's own blocks
+        elif cfg.sparse_tables:
+            state, tx = self._init_state(total_steps)
             make_window = (sparse_tables.make_deferred_sparse_steps if cfg.sparse_defer_updates
                            else sparse_tables.make_scanned_sparse_steps)
             scan_steps = make_window(model, cfg, tx, total_steps, n_inner)
             single_step = sparse_tables.make_sparse_train_step(model, cfg, tx, total_steps, with_metrics=True)
             num_params = _count_params(sparse_tables.merged_params(state))
         else:
+            state, tx = self._init_state(total_steps)
             scan_steps = make_scanned_train_steps(model, cfg, tx, n_inner)
             single_step = make_indexed_train_step(model, cfg, tx, with_metrics=True)
             num_params = _count_params(state.params)
@@ -176,7 +204,9 @@ class Trainer:
             # batches drawn on the device, IID with replacement, by a
             # generator keyed with the global step: draws are a function of
             # the step counter, so mid-epoch resume replays them exactly
-            if not cfg.sparse_tables:
+            if mesh is not None:
+                make_sampled = lambda k: make_sharded_sampled_steps(model, cfg, tx, mesh, k, b)[0]  # noqa: E731
+            elif not cfg.sparse_tables:
                 make_sampled = lambda k: make_sampled_train_steps(model, cfg, tx, k, b)  # noqa: E731
             elif cfg.sparse_defer_updates:
                 make_sampled = lambda k: sparse_tables.make_sampled_deferred_sparse_steps(  # noqa: E731
@@ -197,7 +227,7 @@ class Trainer:
         start_epoch = 0
         skip_batches = 0  # mid-epoch resume: batches already trained this epoch
         if checkpoint_dir is not None:
-            ckpt = CheckpointManager(checkpoint_dir, cfg.checkpoint)
+            ckpt = CheckpointManager(checkpoint_dir, cfg.checkpoint, mesh=mesh)
             ckpt.save_config(cfg)
             if resume:
                 last_epoch = ckpt.latest_epoch()
@@ -232,8 +262,9 @@ class Trainer:
             pairs_dev = torch.from_numpy(np.asarray(train_pairs, np.int64)).to(dev)
             sample_seed = cfg.data.shuffle_seed
 
-        def put_idx(idx: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
+        if put_idx is None:
+            def put_idx(idx: np.ndarray) -> torch.Tensor:
+                return torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
 
         history: list[dict] = []
         examples_per_sec = 0.0
@@ -356,7 +387,7 @@ class Trainer:
 
         if ckpt is not None:
             ckpt.finalize(state)
-        if cfg.results_csv:
+        if cfg.results_csv and (mesh is None or mesh.is_main):
             val_out = dict(final_val)
             if corpus is not None:
                 val_out.update({f"corpus_recall@{k}": v for k, v in corpus.recall.items()})
@@ -398,14 +429,23 @@ class Trainer:
         in chunks of ``chunk_rows`` joined to the stores' keys, this host's
         lockstep shard of each (``host_index`` of ``host_count``), shuffled
         with the seed ``shuffle_seed + epoch``. ``steps_per_epoch`` sizes
-        the schedule; ``train_kwargs`` go to :meth:`train`."""
+        the schedule; ``train_kwargs`` go to :meth:`train`.
+
+        On a mesh ``batch_size`` is the global batch: rank r streams
+        ``host_index=r`` of ``host_count`` = the mesh size and trains
+        batch_size / n rows of its own per step (reference trainer.py:637-648)."""
         from jodalrob_twotower_torch.data.parquet_stream import stream_pair_chunks, streaming_index_batches
+
+        local_b = self.cfg.data.batch_size
+        if self.mesh is not None:
+            local_b = self.mesh.block(local_b).stop - self.mesh.block(local_b).start
+            host_index, host_count = self.mesh.rank, self.mesh.size
 
         def source(epoch: int):
             return streaming_index_batches(
                 stream_pair_chunks(pair_files, self.notice_store, self.company_store, chunk_rows=chunk_rows,
                                    host_index=host_index, host_count=host_count),
-                self.cfg.data.batch_size,
+                local_b,
                 seed=self.cfg.data.shuffle_seed + epoch,
             )
 
@@ -468,6 +508,7 @@ class Trainer:
         state = self._eval_view(state)
         if self._dev_stores is not None:
             # the big side encodes straight from the device-resident store
+            # (on a mesh each rank a block of every chunk)
             corpus_emb = self.evaluator.encode_corpus_device(
                 state, self._dev_stores[1], len(self.company_store), side="company"
             )
@@ -479,4 +520,6 @@ class Trainer:
         query_emb = self.evaluator.encode_corpus(
             state, self.notice_store.dense[q_rows], self.notice_store.cat_ids[q_rows], side="notice"
         )
+        if self.mesh is not None and self.mesh.size > 1:
+            return sharded_corpus_retrieval_eval(query_emb, corpus_emb, val_pairs[:, 1], self.mesh, ks=ks)
         return corpus_retrieval_eval(query_emb, corpus_emb, val_pairs[:, 1], ks=ks)

@@ -6,7 +6,9 @@ weights-only format): the same keys at every level, the same validation
 split, and the metrics within bf16 resolution of each other (both run the
 default bf16 towers, rounded at other places). Then ``--resume`` of a
 finished run trains nothing and keeps its weights, the headline script's
-smoke holds its gate, and the mesh flags (not ported) raise. The parquet
+smoke holds its gate, and the flags of the mesh forms not ported yet
+(ROADMAP A12b) raise; ``--mesh-devices`` itself runs in
+tests/test_torch_mesh_cli.py. The parquet
 ``--data-dir`` and ``--stream`` run in tests/test_torch_data_cli.py."""
 
 import csv
@@ -136,7 +138,7 @@ def test_headline_smoke_holds_its_gate(tmp_path):
     assert {"train_results.csv", "metrics.jsonl"} <= {p.name for p in tmp_path.iterdir()}
 
 
-@pytest.mark.parametrize("flag", [["--mesh-devices", "2"], ["--grad-compression", "int16"],
+@pytest.mark.parametrize("flag", [["--mesh-devices", "2", "--store-sharding", "rows"], ["--grad-compression", "int16"],
                                   ["--store-sharding", "rows"], ["--compressed-negatives", "global"]])
 def test_unported_train_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
@@ -144,7 +146,7 @@ def test_unported_train_flags_raise(flag):
 
 
 def test_unported_eval_flags_raise(tmp_path):
-    for flag in (["--mesh-devices", "2"], ["--store-sharding", "rows"]):
+    for flag in (["--mesh-devices", "2", "--store-sharding", "rows"], ["--store-sharding", "rows"]):
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             teval.main(["--model-dir", str(tmp_path)] + flag)
     assert not list(tmp_path.iterdir())

@@ -67,3 +67,17 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert out.returncode == 0, out.stderr
+
+
+PARALLEL = sorted((REPO / "jodalrob_twotower_torch" / "parallel").glob("*.py"))
+MESH_WORKERS = REPO / "tests" / "torch_mesh_workers.py"
+
+
+@pytest.mark.parametrize("path", PARALLEL + [MESH_WORKERS], ids=lambda p: str(p.relative_to(REPO)))
+def test_the_mesh_and_its_test_ranks_import_nothing_of_jax(path):
+    """The mesh (``parallel/``) is scanned like every module; the module whose
+    functions the mesh tests run in spawned ranks imports no JAX either, nor
+    tests/torch_parity.py, which does."""
+    assert {"mesh.py", "distributed.py", "sharded_embedding.py", "sharded_train.py"} <= {p.name for p in PARALLEL}
+    assert path in SOURCES or path == MESH_WORKERS
+    assert not _imported_roots(path) & (FORBIDDEN | {"torch_parity"})

@@ -5,6 +5,8 @@ one-hot lookup through its Pallas kernel in interpret mode
 Tolerances: atol 1e-5 in float32 compute; 2e-2 in bfloat16 compute, where
 the two frameworks round the Dense outputs and bias adds at other places."""
 
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -142,8 +144,13 @@ def test_build_model_single_device_only():
     cfg = TorchTrainConfig()
     model = build_model(t_schema, cfg)
     assert not model.training
-    with pytest.raises(NotImplementedError, match="one device"):
-        build_model(t_schema, cfg, mesh=object())
+    # a mesh of one rank is one device; row-sharded tables on a larger mesh
+    # wait for ROADMAP A12b
+    one = build_model(t_schema, cfg, mesh=SimpleNamespace(size=1))
+    assert one.notice_tower.mesh is None
+    with pytest.raises(NotImplementedError, match="A12b"):
+        build_model(t_schema, cfg.replace(mesh=MeshConfig(embedding_sharding="gspmd_rows")),
+                    mesh=SimpleNamespace(size=2))
     assert not any(m.use_pallas for m in model.modules() if isinstance(m, EmbeddingCollection))
     # the training form follows the module's flag and needs a generator for dropout
     model.train()
@@ -154,6 +161,19 @@ def test_build_model_single_device_only():
         model.encode_company(batch)
     out = model.company_tower(batch, generator=torch.Generator().manual_seed(0))
     assert out.shape == (4, cfg.model.final_embedding_dim) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("kw", [{"grad_mode": "dense"}, {"lookup_mode": "onehot"}])
+def test_a_lookup_first_called_in_inference_mode_still_trains(kw):
+    """A resumed run validates before it trains: the dense-gradient and
+    one-hot lookups' tile maps, cached at their first call, must not be
+    inference tensors that the next step's backward cannot save."""
+    emb = EmbeddingCollection((5, 7), 8, **kw)
+    ids = torch.tensor([[0, 1], [4, 6], [2, 2]])
+    with torch.inference_mode():
+        emb(ids)
+    emb(ids).float().sum().backward()
+    assert emb.table.grad is not None and torch.isfinite(emb.table.grad).all()
 
 
 def test_reference_shape_has_the_reference_param_count():

@@ -226,6 +226,10 @@ def test_data_dir_serves_parquet_written_by_the_port(dirs):
     assert (t / "parquet.jsonl").read_text() == (t / "synthetic.jsonl").read_text()
 
 
-def test_mesh_devices_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+def test_mesh_devices_is_not_ported(tmp_path, monkeypatch):
+    """A mesh beyond the visible cards is refused before anything runs, as
+    the reference refuses it (the mesh serves in tests/test_torch_mesh_cli.py)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(SystemExit, match="--mesh-devices 2 but only 0 device"):
         serve.main(["--model-dir", str(tmp_path), "--mesh-devices", "2"])
+    assert not list(tmp_path.iterdir())

@@ -19,6 +19,7 @@ from jodalrob_twotower_torch.schema import reference_shaped_schema as t_referenc
 from jodalrob_twotower_torch.schema import tiny_synthetic_schema as t_tiny_schema
 from jodalrob_twotower_torch.serving import service as t_service
 from jodalrob_twotower_torch.serving.index import BruteForceIndex, load_index, save_index
+from jodalrob_twotower_torch.parallel.mesh import make_mesh
 from jodalrob_twotower_tpu import config as j_config
 from jodalrob_twotower_tpu.data.synthetic import make_synthetic_dataset as j_make_dataset
 from jodalrob_twotower_tpu.models import build_model as j_build_model
@@ -160,8 +161,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(services, monkeypatch
 
 def test_service_rejects_mesh_and_foreign_index(services):
     _, (t_model, t_cfg, t_state, t_ds) = services
-    with pytest.raises(NotImplementedError, match="one device"):
-        t_service.RetrievalService(t_model, t_cfg, t_state, t_ds.company_store, mesh=object(), device="cpu")
+    mesh = make_mesh(["cpu"])
+    with pytest.raises(ValueError, match="prebuilt_index cannot be combined with a mesh"):
+        t_service.RetrievalService(t_model, t_cfg, t_state, t_ds.company_store, mesh=mesh,
+                                   prebuilt_index=BruteForceIndex(np.eye(4, dtype=np.float32), device="cpu"))
+    with pytest.raises(ValueError, match="corpus_chunk is not supported with a mesh"):
+        t_service.RetrievalService(t_model, t_cfg, t_state, t_ds.company_store, mesh=mesh, corpus_chunk=64)
     with pytest.raises(ValueError, match="index_kind"):
         t_service.RetrievalService(t_model, t_cfg, t_state, t_ds.company_store, index_kind="ivf", device="cpu")
     index = BruteForceIndex(np.eye(4, dtype=np.float32), device="cpu")

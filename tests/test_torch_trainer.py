@@ -13,8 +13,9 @@ change over the run must match the reference's by relative norm within
 
 Then: sampled runs (dense and sparse tables) learn; the results CSV has the
 reference's header; the final corpus eval reuses the last epoch's result
-instead of encoding the corpus again; meshes and the compressed gradient
-sync raise (``train_streaming`` runs in tests/test_torch_streaming_trainer.py);
+instead of encoding the corpus again; sparse tables on a mesh and the
+compressed gradient sync raise (ROADMAP A12b; the mesh trainer runs in
+tests/test_torch_mesh_train.py) (``train_streaming`` runs in tests/test_torch_streaming_trainer.py);
 and the default device is the card, never the CPU.
 """
 
@@ -37,6 +38,7 @@ from jodalrob_twotower_torch.convert import flax_to_state_dict, state_dict_to_fl
 from jodalrob_twotower_torch.data.feature_store import FeatureStore as TFeatureStore
 from jodalrob_twotower_torch.data.synthetic import make_synthetic_dataset
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel as TTwoTowerModel
+from jodalrob_twotower_torch.parallel.mesh import make_mesh
 from jodalrob_twotower_torch.train import trainer as ttrainer
 from jodalrob_twotower_tpu.config import DataConfig as JDataConfig
 from jodalrob_twotower_tpu.config import LossConfig as JLossConfig
@@ -217,8 +219,9 @@ def test_final_corpus_eval_reuses_the_last_epoch(small_dataset, monkeypatch, epo
 def test_unported_modes_raise(small_dataset):
     ds = small_dataset
     args = (ds.schema, ds.notice_store, ds.company_store)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttrainer.Trainer(_small_cfg(), *args, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A12b"):
+        ttrainer.Trainer(_small_cfg().replace(sparse_tables=True), *args, mesh=make_mesh(["cpu"])).train(
+            ds.pairs[:512], ds.pairs[512:640])
     cfg = _small_cfg().replace(mesh=TMeshConfig(grad_compression="int16"))
     with pytest.raises(NotImplementedError, match="A12"):
         ttrainer.Trainer(cfg, *args, device="cpu").train(ds.pairs[:512], ds.pairs[512:640])
