@@ -136,7 +136,21 @@ NVIDIA card.
    step), and ``ShardedIndex`` over 1M companies, exact and int8, against
    one device's index; launches exact per rank. Then the train, eval and
    serve CLIs in-process with ``--mesh-devices 1`` (one NCCL rank) beside
-   the same runs without it: bit-equal.
+   the same runs without it: bit-equal; and the training CLI with
+   ``--store-sharding rows`` too, bit-equal, its checkpoint restored on one
+   device.
+16. The large-table mesh (``mesh_rows_phase``): BASELINE config 3 over two
+   gloo ranks on the card, tables ("auto" -> "gspmd_rows") and stores
+   row-sharded, 5,000,192 table rows a rank: ``mesh_scaled_dense`` (K4 on
+   each rank's block), ``mesh_scaled_sparse``, ``mesh_scaled_sparse_deferred``
+   and ``mesh_scaled_sparse_sampled``. Each path's two steps from one state
+   against one device's on the same batches (taken one rank at a time
+   before the mesh's, each rank keeping its block), the ranks' replicated
+   leaves bit-equal, rows no batch touched bit-equal to their start, then
+   three timed calls of 8 steps; launches exact per rank and step, peak
+   memory per rank, and the seconds to gather a checkpoint's row-sharded
+   leaves to rank 0. The kernel phase holds K4 on a rank's block (ids over
+   the whole table, clamped, zeroed out of range) bit-exact.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
 nonzero; so does a machine without a CUDA device. The second-to-last line is
@@ -225,10 +239,14 @@ from jodalrob_twotower_torch.schema import (
     classify_columns,
     reference_shaped_schema,
     schema_from_metadata_csv,
+    tiny_synthetic_schema,
 )
 from jodalrob_twotower_torch.serving import autoconfig
 from jodalrob_twotower_torch.parallel.distributed import launch
-from jodalrob_twotower_torch.parallel.mesh import make_mesh, put_replicated
+from jodalrob_twotower_torch.parallel.mesh import make_mesh, put_replicated, shard_state
+from jodalrob_twotower_torch.parallel.sharded_embedding import local_rows, masked_shard_gather
+from jodalrob_twotower_torch.parallel.sharded_sparse import make_sharded_sampled_sparse, make_sharded_sparse_train
+from jodalrob_twotower_torch.parallel.sharded_store import resolve_store_placement
 from jodalrob_twotower_torch.parallel.sharded_train import make_sharded_indexed_train
 from jodalrob_twotower_torch.serving.index import BruteForceIndex, Int8Index, ShardedIndex, recall_vs_exact
 from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
@@ -243,11 +261,14 @@ from jodalrob_twotower_torch.train.train_step import (
     make_sampled_train_steps,
     make_sharded_ce,
     make_scanned_train_steps,
+    SAMPLE_STREAM,
+    step_generator,
     make_train_step,
     resolve_store_dtype,
 )
 from jodalrob_twotower_torch.train.cli import split_pairs
-from jodalrob_twotower_torch.train.trainer import Trainer
+from jodalrob_twotower_torch.train.optimizer import build_optimizer
+from jodalrob_twotower_torch.train.trainer import Trainer, host_store
 from jodalrob_twotower_torch.utils.flops import H100_PEAK_BF16_FLOPS
 from jodalrob_twotower_torch.utils.profiling import device_breakdown, device_flops_estimate
 
@@ -997,6 +1018,32 @@ def row_gather_phase(flush: torch.Tensor) -> list[dict]:
               lambda: t.index_select(0, safe), flush)
         print("kernel row_gather", json.dumps(row), flush=True)
         results.append(row)
+    # a row-sharded table's local gather (mesh_rows): rank 1 of 2 holds rows
+    # [R/2, R); ids across the whole table, clamped into the shard, then
+    # zeroed out of range, through the kernel against the plain gather
+    offset = total // 2
+    shard = table[offset:]
+    case = f"masked shard [{total - offset}, {SCALED_DIM}] of [{total}, {SCALED_DIM}] at {offset}, ids [{CE_BATCH * SCALED_FEATURES}]"
+    ids = rows.reshape(-1)
+    got = masked_shard_gather(shard, ids, offset, use_pallas=True)
+    local, in_range = local_rows(ids, offset, shard.shape[0])
+    want = embedding_lookup_pallas_plain(shard, local).masked_fill_(~in_range[:, None], 0)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    check(equal, f"row_gather masked shard != plain version (max abs err {err})")
+    # the kernel's own launch on the clamped ids, as in the other cases; the
+    # whole masked gather (the ids' offset and clamp, the kernel, the zeroing) beside it
+    nbytes = ids.numel() * 4 + (int(torch.unique(local).numel()) + ids.numel()) * SCALED_DIM * 4
+    row = {"case": case, "equal": equal, "max_abs_err": err, "shape": list(got.shape), "dtype": str(got.dtype),
+           "in_range_share": float(in_range.float().mean()), **bound(0, nbytes)}
+    timed(row, lambda: el.embedding_lookup_pallas(shard, local), lambda: embedding_lookup_pallas_plain(shard, local),
+          lambda: shard.index_select(0, local), flush)
+    row["masked_gather_ms"] = median_ms(lambda: masked_shard_gather(shard, ids, offset, use_pallas=True), flush)
+    row["masked_plain_ms"] = median_ms(
+        lambda: embedding_lookup_pallas_plain(shard, local).masked_fill_(~in_range[:, None], 0), flush)
+    print("kernel row_gather", json.dumps(row), flush=True)
+    results.append(row)
     return results
 
 
@@ -2490,16 +2537,22 @@ def scaled_state(path: str, model, cfg):
     return sparse_tables.create_sparse_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device="cuda")
 
 
-def scaled_data():
-    """Config 3's stores and pairs on the card: the synthetic generator's
-    numeric features and pairs, categorical ids redrawn uniformly over each
-    1.25M vocab from numpy seed 0 (bench_suite.py:99-105)."""
+def scaled_dataset():
+    """Config 3's data on the host: the synthetic generator's numeric
+    features and pairs, categorical ids redrawn uniformly over each 1.25M
+    vocab from numpy seed 0 (bench_suite.py:99-105)."""
     schema = scaled_schema()
     ds = make_synthetic_dataset(schema, n_notices=SCALED_NOTICES, n_companies=SCALED_NOTICES,
                                 n_pairs=SCALED_PAIRS, n_clusters=SCALED_CLUSTERS, seed=SEED)
     rng = np.random.default_rng(SEED)
     for store in (ds.notice_store, ds.company_store):
         store.cat_ids[:] = rng.integers(0, SCALED_VOCAB, store.cat_ids.shape)
+    return schema, ds
+
+
+def scaled_data():
+    """Config 3's stores and pairs on the card (:func:`scaled_dataset`)."""
+    schema, ds = scaled_dataset()
     dtype = resolve_store_dtype(scaled_config("scaled_dense"))
     stores = [device_store(st, dtype=dtype, device="cuda") for st in (ds.notice_store, ds.company_store)]
     return schema, stores, torch.from_numpy(ds.pairs.astype(np.int64)).to("cuda")
@@ -2928,16 +2981,38 @@ def mesh_cli_check(out_dir: Path) -> tuple[dict, dict]:
             reset_counters()
             run_cli(argv[0], argv[1] + extra)
             launches[f"{tag}_{cli}"] = read_counters()
+    # one NCCL rank with row-sharded stores: the exchange's gather and
+    # reduce-scatter launch on the card and leave the rows as they are
+    d = out_dir / "mesh1_rows"
+    reset_counters()
+    stdout, _ = run_cli(train.main, train_args + ["--mesh-devices", "1", "--store-sharding", "rows", "--output-dir", d,
+                                                  "--results-csv", d / "results.csv", "--metrics-jsonl",
+                                                  d / "metrics.jsonl"])
+    launches["mesh1_rows_train"] = read_counters()
+    runs["mesh1_rows"] = {"stdout": stdout,
+                          "metrics": [json.loads(x) for x in (d / "metrics.jsonl").read_text().splitlines()],
+                          "weights": torch.load(d / "weights" / "state.pt", weights_only=True)}
+    check("stores rows" in stdout, "mesh1_rows: the training CLI did not place row-sharded stores")
+    check(launches["mesh1_rows_train"] == launches["plain_train"],
+          f"mesh1_rows train launches {launches['mesh1_rows_train']} != {launches['plain_train']}")
+    # its checkpoint restores on one device (the CLI's config, the card)
+    cfg1 = TrainConfig.from_json(d / "config.json")
+    m1 = build_model(tiny_synthetic_schema(), cfg1)
+    one, _ = create_train_state(m1, cfg1, cfg1.seed, 10, device="cuda")
+    restored = CheckpointManager(d, cfg1.checkpoint).restore("final", one)
+    for k, v in runs["mesh1_rows"]["weights"]["params"].items():
+        check(torch.equal(restored.params[k], v), f"mesh1_rows final checkpoint differs from its weights at {k}")
     check("over nccl" in runs["mesh1"]["stdout"], "mesh1: the training CLI did not run over NCCL")
     clocks = ("examples_per_sec", "time")  # each run's own clock
 
     def strip(tag):
         return [{k: v for k, v in m.items() if k not in clocks} for m in runs[tag]["metrics"]]
 
-    check(strip("plain") == strip("mesh1"), f"mesh1 metrics differ: {runs['mesh1']['metrics']} vs {runs['plain']['metrics']}")
-    for part in ("params", "batch_stats"):
-        for k, v in runs["plain"]["weights"][part].items():
-            check(torch.equal(v, runs["mesh1"]["weights"][part][k]), f"mesh1 weights differ at {k}")
+    for tag in ("mesh1", "mesh1_rows"):
+        check(strip("plain") == strip(tag), f"{tag} metrics differ: {runs[tag]['metrics']} vs {runs['plain']['metrics']}")
+        for part in ("params", "batch_stats"):
+            for k, v in runs["plain"]["weights"][part].items():
+                check(torch.equal(v, runs[tag]["weights"][part][k]), f"{tag} weights differ at {k}")
     for cli in ("train", "eval", "serve"):
         check(launches[f"plain_{cli}"] == launches[f"mesh1_{cli}"],
               f"mesh1 {cli} launches {launches[f'mesh1_{cli}']} != {launches[f'plain_{cli}']}")
@@ -2957,8 +3032,9 @@ def mesh_cli_check(out_dir: Path) -> tuple[dict, dict]:
               f"mesh1 serve answers differ beyond ties for notice {x['notice']}")
         ties += hx != hy
     row = {"train_loss": runs["mesh1"]["metrics"][-1]["train_loss"], "val_loss": runs["mesh1"]["metrics"][-1]["val_loss"],
-           "bit_equal": True, "serve_rows_ordered_apart_at_ties": ties, "launches": launches}
-    return row, {"mesh1_train": launches["mesh1_train"]}
+           "bit_equal": True, "rows_store_bit_equal": True, "rows_checkpoint_restores_on_one_device": True,
+           "serve_rows_ordered_apart_at_ties": ties, "launches": launches}
+    return row, {"mesh1_train": launches["mesh1_train"], "mesh1_rows_train": launches["mesh1_rows_train"]}
 
 
 def mesh_phase() -> tuple[dict, dict]:
@@ -2991,6 +3067,259 @@ def mesh_phase() -> tuple[dict, dict]:
     launches = {"mesh_trainer": r0["trainer"]["launches"], "mesh_b16384": r0["b16384"]["launches"],
                 "mesh_ls0.1": r0["ls0.1"]["launches"], **cli_launches}
     return row, launches
+
+
+# -- the large-table mesh: BASELINE config 3 row-sharded over two gloo ranks -------
+
+MESH_ROWS_PATHS = ("mesh_scaled_dense", "mesh_scaled_sparse", "mesh_scaled_sparse_deferred",
+                   "mesh_scaled_sparse_sampled")
+MESH_ROWS_CHECK_STEPS = 2  # steps held against one device's, from one state
+MESH_ROWS_TIMED_CALLS = 3  # of SCALED_CALL_STEPS steps (one deferred window each)
+MESH_ROWS_LOSS_RTOL = {"dense": 1e-5, "sparse": 2e-5}
+MESH_ROWS_LEAF_TOL = {"dense": (2e-4, 1e-6), "sparse": (2e-5, 1e-6)}  # (rtol, atol), tests/test_sharding.py,
+# tests/test_sharded_sparse.py; the replicated leaves, after Adam steps in bf16 towers, take up to
+# tests/test_torch_mesh_train.py's NOISE_SHARE of a leaf past it, none farther than 2 lr a step (Adam's
+# first steps move an entry by about lr sign(g): a gradient at rounding noise steps by +-lr either way)
+MESH_ROWS_NOISE_SHARE = 0.07
+MESH_ROWS_SAMPLE_SEED = SEED + 23
+MESH_ROWS_KERNELS = {  # launches per step on each rank
+    "mesh_scaled_dense": {"embedding_lookup_pallas": 2, "dense_table_lookup": 0, "dense_table_grad": 0,
+                          "fused_lean_lse": 1, "fused_ce_bwd": 1},
+    "mesh_scaled_sparse": SCALED_KERNELS["scaled_sparse"],
+}
+MESH_ROWS_KERNELS["mesh_scaled_sparse_deferred"] = MESH_ROWS_KERNELS["mesh_scaled_sparse"]
+MESH_ROWS_KERNELS["mesh_scaled_sparse_sampled"] = MESH_ROWS_KERNELS["mesh_scaled_sparse"]
+
+
+def mesh_rows_config(path: str) -> TrainConfig:
+    """Config 3's TrainConfig of ``path`` (``scaled_config``) with dropout 0,
+    the row-sharded stores, and "auto" tables: above 65,536 rows it picks
+    "gspmd_rows"."""
+    base = scaled_config(path.replace("mesh_", "").replace("_sampled", ""))
+    return base.replace(model=dataclasses.replace(base.model, dropout_rate=0.0),
+                        mesh=dataclasses.replace(base.mesh, store_sharding="rows"))
+
+
+def mesh_rows_steps(path: str, model, cfg, mesh, n: int, store_gather=None):
+    """``call(state, batches_or_seed, pairs, n_store, c_store)``: n steps of
+    ``path`` per call (one deferred window), on one device (mesh None) or
+    on the rank's blocks (mesh, row-sharded stores through store_gather)."""
+    tx = build_optimizer(cfg.optimizer, bench.TOTAL_STEPS)
+    kw = dict(mesh=mesh, store_gather=store_gather)
+    if path == "mesh_scaled_dense":
+        steps = make_scanned_train_steps(model, cfg, tx, n, **kw)
+    elif path == "mesh_scaled_sparse":
+        steps = sparse_tables.make_scanned_sparse_steps(model, cfg, tx, bench.TOTAL_STEPS, n, **kw)
+    elif path == "mesh_scaled_sparse_deferred":
+        steps = sparse_tables.deferred_sparse_steps_fn(model, cfg, tx, bench.TOTAL_STEPS, n_inner=n, **kw)
+    else:
+        steps = sparse_tables.make_sampled_sparse_steps(model, cfg, tx, bench.TOTAL_STEPS, n, SCALED_BATCH, **kw)
+        return lambda state, seed, pairs, ns, cs: steps(state, seed, pairs, ns, cs)
+    return lambda state, idx, pairs, ns, cs: steps(state, idx, ns, cs)
+
+
+def _leaf_blocks(state, keys, block) -> tuple[dict, dict]:
+    """(the rank's block of each row-sharded leaf, each replicated leaf), as
+    copies: a dense state's tables and accumulators, or a sparse state's."""
+    if isinstance(state, sparse_tables.SparseTrainState):
+        rows = {f"{f}.{leaf}": getattr(getattr(state, f), leaf) for f in sparse_tables.TABLE_KEYS.values()
+                for leaf in ("table", "accumulator")}
+        rep = {**state.dense_params, **state.batch_stats}
+    else:
+        rows = {**{k: state.params[k] for k in keys}, **{f"acc.{k}": state.opt_state["acc"][k] for k in keys}}
+        rep = {**{k: v for k, v in state.params.items() if k not in keys}, **state.batch_stats}
+    return ({k: v[block].clone() for k, v in rows.items()}, {k: v.clone() for k, v in rep.items()})
+
+
+def mesh_rows_path(mesh, path: str, schema, host_stores, pairs: np.ndarray) -> dict:
+    """One path of the mesh_rows phase on this rank: config 3's full model
+    drawn on the card from SEED (the same on every rank), one device's
+    MESH_ROWS_CHECK_STEPS steps from it (one rank at a time, keeping this
+    rank's block), then the mesh model cut from the same weights: the same
+    steps held against them, the ranks' replicated leaves bit-equal, the
+    rows no batch touched bit-equal to their start; then MESH_ROWS_TIMED_CALLS
+    timed calls. Launches are counted from the first mesh step to the last."""
+    dense = path == "mesh_scaled_dense"
+    kind = "dense" if dense else "sparse"
+    sampled = path.endswith("_sampled")
+    cfg = mesh_rows_config(path)
+    dev = mesh.device
+    torch.manual_seed(SEED)  # the layers' and tables' draws, on the card alike in every rank
+    with torch.device(dev):
+        full = build_model(schema, cfg)
+    start = full.state_dict()
+    n_check, n_call = MESH_ROWS_CHECK_STEPS, SCALED_CALL_STEPS
+    rng = np.random.default_rng(SEED + 21)
+    batches = pairs[rng.integers(0, len(pairs), size=(n_check + n_call * MESH_ROWS_TIMED_CALLS, SCALED_BATCH))]
+    pairs_dev = torch.from_numpy(pairs.astype(np.int64)).to(dev)
+
+    def arg(lo: int, hi: int, state, block=slice(None)):
+        if sampled:
+            return MESH_ROWS_SAMPLE_SEED
+        return torch.from_numpy(np.ascontiguousarray(batches[lo:hi, block])).to(dev)
+
+    # -- one device, one rank at a time --------------------------------------------
+    ref = None
+    for r in range(mesh.size):
+        mesh.barrier()
+        if r == mesh.rank:
+            stores = [tuple(x.to(dev) for x in st) for st in host_stores]
+            state = (create_train_state(full, cfg, SEED, bench.TOTAL_STEPS, device=dev)[0] if dense
+                     else sparse_tables.create_sparse_train_state(full, cfg, SEED, bench.TOTAL_STEPS, device=dev)[0])
+            state, m = mesh_rows_steps(path, full, cfg, None, n_check)(state, arg(0, n_check, state), pairs_dev,
+                                                                       *stores)
+            table_rows = full.notice_tower.embeddings.total_rows
+            ref = (m["loss"].cpu().numpy(), *_leaf_blocks(state, set(sparse_tables.TABLE_KEYS),
+                                                           mesh.block(table_rows)))
+            del state, stores, m
+            torch.cuda.empty_cache()
+    mesh.barrier()
+
+    # -- the mesh ----------------------------------------------------------------------
+    with torch.device(dev):
+        model = build_model(schema, cfg, mesh)
+    keys = model.row_sharded_keys
+    check(keys == set(sparse_tables.TABLE_KEYS), f"{path}: tables not row-sharded ({sorted(keys)})")
+    model.load_state_dict(shard_state(start, mesh, keys))
+    del full, start
+    torch.cuda.empty_cache()
+    if dense:
+        state, _, _, _, _, _ = make_sharded_indexed_train(model, cfg, mesh, SCALED_BATCH, bench.TOTAL_STEPS, n_inner=1)
+    else:
+        state, _, _, _ = make_sharded_sparse_train(model, cfg, mesh, SCALED_BATCH, bench.TOTAL_STEPS)
+    store_gather, put_store = resolve_store_placement(cfg, mesh)
+    n_store, c_store = (put_store(st) for st in host_stores)
+    block = mesh.block(SCALED_BATCH)
+    start_rows, _ = _leaf_blocks(state, keys, slice(None))
+    check_steps = mesh_rows_steps(path, model, cfg, mesh, n_check, store_gather)
+    call_steps = mesh_rows_steps(path, model, cfg, mesh, n_call, store_gather)
+    # -- the main path: counters from 0, read right after ----------------------------
+    reset_counters()
+    torch.cuda.synchronize()
+    state, m = check_steps(state, arg(0, n_check, state, block), pairs_dev, n_store, c_store)
+    losses = m["loss"].cpu().numpy()
+    rows, rep = _leaf_blocks(state, keys, slice(None))
+    equal = ranks_equal(mesh, list(rep.values()))
+    # rows of this rank's shards that no check batch touched: bit-equal to the start
+    if sampled:
+        drawn = [pairs_dev.index_select(0, torch.randint(
+            0, len(pairs), (SCALED_BATCH,), generator=step_generator(dev, MESH_ROWS_SAMPLE_SEED, t, SAMPLE_STREAM),
+            device=dev)).cpu().numpy() for t in range(n_check)]
+        touched_pairs = np.stack(drawn)
+    else:
+        touched_pairs = batches[:n_check]
+    untouched_ok = True
+    for side, col in (("notice", 0), ("company", 1)):
+        key = f"{side}_tower.embeddings.table"
+        emb = getattr(model, f"{side}_tower").embeddings
+        ids = torch.from_numpy(host_stores[col][1].numpy()[touched_pairs[..., col].reshape(-1)]).to(dev)
+        local, in_range = local_rows(emb._rows(ids).reshape(-1), emb.row_offset, emb.shard_rows)
+        touched = torch.zeros(emb.shard_rows, dtype=torch.bool, device=dev)
+        touched[local[in_range]] = True
+        for name in ([key, f"acc.{key}"] if dense else [f"{side}_table.table", f"{side}_table.accumulator"]):
+            changed = (rows[name] != start_rows[name]).reshape(emb.shard_rows, -1).any(1)
+            untouched_ok &= not bool((changed & ~touched).any())
+    # against one device: the loss, this rank's blocks, the replicated leaves
+    ref_losses, ref_rows, ref_rep = ref
+    rtol, atol = MESH_ROWS_LEAF_TOL[kind]
+    loss_rel = float(np.max(np.abs(losses - ref_losses) / np.abs(ref_losses)))
+    worst_rows, worst_rep, share_rep = 0.0, 0.0, 0.0
+    for name, want in ref_rows.items():
+        excess = ((rows[name] - want).abs() - rtol * want.abs()).max()
+        worst_rows = max(worst_rows, float(excess))
+    for name, want in ref_rep.items():
+        bad = ((rep[name] - want).abs() > atol + rtol * want.abs()).float().mean()
+        share_rep = max(share_rep, float(bad))
+        worst_rep = max(worst_rep, float((rep[name] - want).abs().max()))
+    del ref, ref_rows, ref_rep, rows, start_rows
+    # -- timed calls (the peak memory is theirs: the checks' copies are gone) -------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(MESH_ROWS_TIMED_CALLS):
+        lo = n_check + c * n_call
+        state, m = call_steps(state, arg(lo, lo + n_call, state, block), pairs_dev, n_store, c_store)
+        timed_losses = m["loss"].cpu().numpy()
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = read_counters()
+    n_steps = n_check + n_call * MESH_ROWS_TIMED_CALLS
+    for name, per_step in MESH_ROWS_KERNELS[path].items():
+        check(launches[name] == per_step * n_steps,
+              f"{path} rank {mesh.rank}: kernel {name} launched {launches[name]} times in {n_steps} steps, "
+              f"expected {per_step} per step")
+    check(bool(np.isfinite(losses).all() and np.isfinite(timed_losses).all()), f"{path}: non-finite losses")
+    check(equal, f"{path}: the ranks' replicated leaves differ after the check steps")
+    check(untouched_ok, f"{path} rank {mesh.rank}: a row no batch touched changed")
+    check(loss_rel <= MESH_ROWS_LOSS_RTOL[kind], f"{path}: loss {losses} vs one device {ref_losses}")
+    check(worst_rows <= atol, f"{path} rank {mesh.rank}: table blocks differ from one device's by {worst_rows} "
+                              f"past rtol {rtol}")
+    rep_ok = share_rep <= MESH_ROWS_NOISE_SHARE and worst_rep <= 2 * n_check * cfg.optimizer.learning_rate
+    check(rep_ok, f"{path} rank {mesh.rank}: replicated leaves differ from one device's ({share_rep} of a leaf "
+                  f"past the tolerance, at most {worst_rep})")
+    ms_per_step = timed_s * 1e3 / (n_call * MESH_ROWS_TIMED_CALLS)
+    row = {"rank": mesh.rank, "batch": SCALED_BATCH, "rows_per_rank": SCALED_BATCH // mesh.size,
+           "shard_rows": model.notice_tower.embeddings.shard_rows, "steps": n_steps, "ms_per_step": ms_per_step,
+           "examples_per_sec": SCALED_BATCH * 1e3 / ms_per_step, "loss_check": losses.tolist(),
+           "loss_one_device": ref_losses.tolist(), "loss_rel_err": loss_rel,
+           "table_blocks_max_err_past_rtol": worst_rows, "replicated_max_abs_err": worst_rep,
+           "replicated_share_past_tol": share_rep, "tolerance": {"rtol": rtol, "atol": atol},
+           "ranks_equal": equal, "untouched_rows_equal": untouched_ok, "loss_last_call": float(timed_losses.mean()),
+           "launches": launches, "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    if dense:
+        # the seconds to gather the row-sharded leaves of a config 3 checkpoint to rank 0, once
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_rows_") as unused:
+            t0 = time.perf_counter()
+            payload = CheckpointManager(unused, mesh=mesh, sharded=keys).gathered_payload(state)
+            row["checkpoint_gather_s"] = time.perf_counter() - t0
+        if mesh.is_main:
+            full_rows = payload["params"]["notice_tower.embeddings.table"].shape
+            check(tuple(full_rows) == (emb.total_rows, SCALED_DIM), f"gathered table {full_rows}")
+        del payload
+    del state, model, n_store, c_store
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_rows_rank(devices: list) -> dict:
+    """One rank of the mesh_rows phase: config 3's data built from its seed
+    on the host, then every path of MESH_ROWS_PATHS. Any failed check
+    raises, which fails the launch."""
+    mesh = make_mesh(devices)
+    torch.cuda.set_device(mesh.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    schema, ds = scaled_dataset()
+    dtype = resolve_store_dtype(mesh_rows_config("mesh_scaled_dense"))
+    host_stores = [host_store(fs, dtype) for fs in (ds.notice_store, ds.company_store)]
+    out = {"rank": mesh.rank, "backend": mesh.backend, "data_s": time.perf_counter() - t0}
+    for path in MESH_ROWS_PATHS:
+        t1 = time.perf_counter()
+        out[path] = mesh_rows_path(mesh, path, schema, host_stores, ds.pairs)
+        out[path]["path_s"] = time.perf_counter() - t1
+        print(f"mesh_rows rank {mesh.rank} {path} " + json.dumps(out[path]), flush=True)
+    return out
+
+
+def mesh_rows_phase() -> tuple[dict, dict]:
+    """MESH_RANKS gloo ranks on the one card (``mesh_rows_rank``), through
+    the port's launcher with its group timeout and deadline: BASELINE config
+    3 with its tables and stores row-sharded. Returns the record and rank
+    0's launches per path."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rows_rank, MESH_RANKS, args=(["cuda:0"] * MESH_RANKS,), backend="gloo",
+                   devices=["cuda:0"] * MESH_RANKS, timeout_s=MESH_PG_S, join_timeout_s=MESH_JOIN_S)
+    ranks_s = time.perf_counter() - t0
+    for path in MESH_ROWS_PATHS:
+        check(ranks[0][path]["loss_check"] == ranks[1][path]["loss_check"], f"{path}: the ranks' losses differ")
+    row = {"ranks": MESH_RANKS, "backend": ranks[0]["backend"], "ranks_s": ranks_s,
+           "per_rank_data_s": [r["data_s"] for r in ranks],
+           **{path: [r[path] for r in ranks] for path in MESH_ROWS_PATHS}}
+    print("mesh_rows " + json.dumps(row), flush=True)
+    return row, {path: ranks[0][path]["launches"] for path in MESH_ROWS_PATHS}
 
 
 def kernel_record(name: str, tpu_kernel: str, source: str, replaces: str, rows: list[dict], launches: dict,
@@ -3078,10 +3407,12 @@ def main() -> int:
     step_check = step_grad_check()
     mesh, mesh_launches = mesh_phase()
     mesh["card"] = card
+    mesh_rows, mesh_rows_launches = mesh_rows_phase()
+    mesh_rows["card"] = card
 
     launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches,
                 **headline_counts, **serve_launches, **resume_launches, **profile_launches, **hostfed_launches_by_path,
-                **etl_launches, **scaled_launches, **mesh_launches}
+                **etl_launches, **scaled_launches, **mesh_launches, **mesh_rows_launches}
     record = {"kernels": [
         kernel_record("onehot_lookup", "K1", "onehot_lookup.cu", "embedding_grad.py:358",
                       kernels["onehot_lookup"], launches, "dense_table_lookup", "training"),
@@ -3165,6 +3496,11 @@ def main() -> int:
                                                                    "worst_share_of_tolerance")},
                  "b16384_wall_s": mesh["b16384"]["wall_s"], "ls0.1_wall_s": mesh["ls0.1"]["wall_s"],
                  "index": mesh["index"], "nccl_one_rank_bit_equal": mesh["nccl_one_rank"]["bit_equal"]},
+        "mesh_rows": {"ranks_s": mesh_rows["ranks_s"], **{
+            path: [{k: r[k] for k in ("ms_per_step", "examples_per_sec", "peak_memory_gb", "loss_rel_err",
+                                      "table_blocks_max_err_past_rtol", "replicated_share_past_tol",
+                                      "checkpoint_gather_s") if k in r} for r in mesh_rows[path]]
+            for path in MESH_ROWS_PATHS}},
         "card": card}
     by_kernel = {rec["tpu_kernel"]: rec for rec in record["kernels"]}
     by_kernel["K6"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"

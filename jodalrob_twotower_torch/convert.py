@@ -21,6 +21,14 @@ torch                                  flax
 Every torch entry must find its leaf with the right shape, and every flax
 leaf must be used; anything else raises ``ValueError``.
 
+A mesh model with row-sharded tables (``model.row_sharded_keys``) holds
+its rank's block of each table: :func:`flax_to_state_dict` cuts the flax
+table to that block (``parallel/mesh.shard_state``) and
+:func:`state_dict_to_flax` joins the blocks whole again
+(``parallel/mesh.join_state``, a collective every rank calls), so a mesh
+state from the reference's parameters is one device's state cut into
+blocks.
+
 :func:`flax_to_sparse_state` carries the reference's ``SparseTrainState``
 (train/sparse_tables.py) into the port's: its dense params and batch
 statistics through the same map, its two tables and their accumulators as
@@ -38,6 +46,7 @@ from torch import nn
 from jodalrob_twotower_torch.device import resolve_device
 from jodalrob_twotower_torch.models.embedding import EmbeddingCollection
 from jodalrob_twotower_torch.models.tower import BatchNorm
+from jodalrob_twotower_torch.parallel.mesh import join_state, shard_state
 
 
 def _flatten(tree: Mapping | None, root: str) -> dict[str, np.ndarray]:
@@ -70,21 +79,37 @@ def _sources(model: nn.Module):
             yield f"{name}.table", f"params/{path}/table", False
 
 
+def _row_mesh(model: nn.Module):
+    """The mesh of ``model``'s row-sharded tables, or None."""
+    return next((m.row_mesh for m in model.modules() if isinstance(m, EmbeddingCollection)
+                 and m.row_mesh is not None), None)
+
+
+def _whole_shapes(model: nn.Module) -> dict[str, tuple]:
+    """``model``'s state_dict shapes, a row-sharded table's whole."""
+    out = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    for name, m in model.named_modules():
+        if isinstance(m, EmbeddingCollection):
+            out[f"{name}.table"] = (m.total_rows, m.embed_dim)
+    return out
+
+
 def flax_to_state_dict(
     model: nn.Module, params: Mapping, batch_stats: Mapping | None = None
 ) -> dict[str, torch.Tensor]:
     """``model``'s state_dict filled from flax ``params`` and ``batch_stats``
     (nested dicts of numpy arrays, rooted at the towers, e.g.
-    ``params["notice_tower"]["proj_bidntcenm"]["kernel"]``)."""
+    ``params["notice_tower"]["proj_bidntcenm"]["kernel"]``); a row-sharded
+    table cut to the rank's block."""
     leaves = {**_flatten(params, "params"), **_flatten(batch_stats, "batch_stats")}
-    expected = model.state_dict()
+    expected = _whole_shapes(model)
     out: dict[str, torch.Tensor] = {}
     for key, path, transpose in _sources(model):
         if path not in leaves:
             raise ValueError(f"flax variables lack {path} (for {key})")
         value = leaves.pop(path)
         value = value.T if transpose else value
-        want = tuple(expected[key].shape)
+        want = expected[key]
         if value.shape != want:
             raise ValueError(
                 f"{path} has shape {value.shape}{' transposed' if transpose else ''}, "
@@ -96,7 +121,8 @@ def flax_to_state_dict(
         raise ValueError(f"no flax source known for {sorted(missing)}")
     if leaves:
         raise ValueError(f"flax leaves with no place in the model: {sorted(leaves)}")
-    return out
+    mesh = _row_mesh(model)
+    return shard_state(out, mesh, model.row_sharded_keys) if mesh is not None else out
 
 
 def state_dict_to_flax(
@@ -104,7 +130,8 @@ def state_dict_to_flax(
 ) -> tuple[dict, dict]:
     """The inverse of :func:`flax_to_state_dict`: (params, batch_stats) as
     nested dicts of float32 numpy arrays in flax's layout, from a state_dict
-    of ``model`` (a TrainState's ``state_dict`` included)."""
+    of ``model`` (a TrainState's ``state_dict`` included); row-sharded
+    tables joined whole (every rank of their mesh must call it)."""
     trees: dict[str, dict] = {"params": {}, "batch_stats": {}}
     expected = set(model.state_dict())
     if set(state_dict) != expected:
@@ -112,6 +139,9 @@ def state_dict_to_flax(
             f"state_dict keys differ from the model's: missing {sorted(expected - set(state_dict))}, "
             f"extra {sorted(set(state_dict) - expected)}"
         )
+    mesh = _row_mesh(model)
+    if mesh is not None:
+        state_dict = join_state(dict(state_dict), mesh, model.row_sharded_keys)
     for key, path, transpose in _sources(model):
         value = state_dict[key].detach().to("cpu", torch.float32).numpy()
         value = np.ascontiguousarray(value.T if transpose else value)

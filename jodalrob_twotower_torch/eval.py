@@ -14,7 +14,10 @@ training CLI's; its readers need pyarrow). Runs on the card; ``--force-cpu``
 asks for the CPU. ``--mesh-devices N`` evaluates over an N-rank mesh
 (``parallel/``; N cards over NCCL, or N gloo ranks with ``--force-cpu``):
 each rank scores its block of every batch and the corpus is row-sharded
-(``sharded_corpus_retrieval_eval``); the report is rank 0's.
+(``sharded_corpus_retrieval_eval``); the report is rank 0's. Tables above
+65,536 rows are row-sharded over the mesh (each rank restores its block of
+the weights), and ``--store-sharding rows`` places each rank's block of the
+feature stores (it needs ``--mesh-devices``).
 
   python -m jodalrob_twotower_torch.eval --model-dir runs/exp1 --output eval.json
   python -m jodalrob_twotower_torch.eval --model-dir runs/ds --data-dir ds/ --output eval.json
@@ -23,6 +26,7 @@ each rank scores its block of every batch and the corpus is row-sharded
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -49,7 +53,7 @@ def parse_args(argv=None):
     p.add_argument("--mesh-devices", type=int,
                    help="evaluate over an N-device mesh (state replicated, batches and corpus sharded)")
     p.add_argument("--store-sharding", choices=["replicated", "rows"],
-                   help="feature-store placement under --mesh-devices ('rows' is not ported yet)")
+                   help="feature-store placement under --mesh-devices ('rows': each device its block of rows)")
     return p.parse_args(argv)
 
 
@@ -79,6 +83,7 @@ def run(argv: list[str], devices: list | None = None) -> int:
     )
     from jodalrob_twotower_torch.models import build_model
     from jodalrob_twotower_torch.parallel.mesh import make_mesh
+    from jodalrob_twotower_torch.parallel.sharded_store import resolve_store_placement
     from jodalrob_twotower_torch.serving.service import FrozenState
     from jodalrob_twotower_torch.train.checkpoint import CheckpointManager
     from jodalrob_twotower_torch.train.cli import split_pairs, synthetic_data
@@ -89,6 +94,8 @@ def run(argv: list[str], devices: list | None = None) -> int:
     mesh = make_mesh(devices) if devices else None
     device = mesh.device if mesh is not None else resolve_device("cpu" if args.force_cpu else None)
     cfg = TrainConfig.from_json(args.model_dir / "config.json")
+    if args.store_sharding:
+        cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, store_sharding=args.store_sharding))
     if args.data_dir and not args.synthetic:
         from jodalrob_twotower_torch.data.parquet_dataset import load_dataset
 
@@ -108,15 +115,22 @@ def run(argv: list[str], devices: list | None = None) -> int:
         print(f"eval: {len(val_pairs):,} validation pairs, batch {b}", file=sys.stderr)
 
     model = build_model(schema, cfg, mesh)
-    restored = CheckpointManager(args.model_dir, cfg.checkpoint).restore_weights(model.state_dict(), device=device)
+    ckpt = CheckpointManager(args.model_dir, cfg.checkpoint, mesh=mesh, sharded=model.row_sharded_keys)
+    restored = ckpt.restore_weights(model.state_dict(), device=device)
     state = FrozenState({**restored["params"], **restored["batch_stats"]})
     evaluator = Evaluator(model, cfg, mesh=mesh)
 
-    dev_stores = None
+    dev_stores, store_gather = None, None
     if not args.host_eval:
         store_dt = resolve_store_dtype(cfg)
-        dev_stores = (device_store(notice_store, dtype=store_dt, device=device),
-                      device_store(company_store, dtype=store_dt, device=device))
+        if mesh is not None:
+            from jodalrob_twotower_torch.train.trainer import host_store
+
+            store_gather, put_store = resolve_store_placement(cfg, mesh)
+            dev_stores = tuple(put_store(host_store(fs, store_dt)) for fs in (notice_store, company_store))
+        else:
+            dev_stores = (device_store(notice_store, dtype=store_dt, device=device),
+                          device_store(company_store, dtype=store_dt, device=device))
 
     def batches():
         for start in range(0, len(val_pairs) - b + 1, b):
@@ -124,7 +138,8 @@ def run(argv: list[str], devices: list | None = None) -> int:
 
     report: dict = {"model_dir": str(args.model_dir), "num_val_pairs": int(len(val_pairs))}
     if dev_stores is not None and len(val_pairs) >= b:
-        metrics = evaluator.evaluate_indexed(state, val_pairs, dev_stores[0], dev_stores[1], batch_size=b)
+        metrics = evaluator.evaluate_indexed(state, val_pairs, dev_stores[0], dev_stores[1], batch_size=b,
+                                             store_gather=store_gather)
     else:
         metrics = evaluator.evaluate(state, batches())
     report["in_batch"] = {k: round(v, 6) for k, v in metrics.items()}
@@ -134,7 +149,8 @@ def run(argv: list[str], devices: list | None = None) -> int:
     if not args.no_corpus_eval and len(val_pairs):
         ks = tuple(int(k) for k in args.ks.split(","))
         if dev_stores is not None:
-            corpus_emb = evaluator.encode_corpus_device(state, dev_stores[1], len(company_store), side="company")
+            corpus_emb = evaluator.encode_corpus_device(state, dev_stores[1], len(company_store), side="company",
+                                                        store_gather=store_gather)
         else:
             corpus_emb = evaluator.encode_corpus(state, company_store.dense, company_store.cat_ids, side="company")
         query_emb = evaluator.encode_corpus(

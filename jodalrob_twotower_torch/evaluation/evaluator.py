@@ -9,8 +9,11 @@ company corpus. The ranking math is vectorized on the device; the corpus
 ranks are plain float32 products and counts, as the reference computes them
 outside any kernel. On a mesh (``parallel/mesh.py``) the evaluator's steps
 run on each rank's block of every batch and return the global batch's
-metrics on every rank, and :func:`sharded_corpus_retrieval_eval` ranks
-against a row-sharded corpus.
+metrics on every rank, over replicated or row-sharded stores (a
+``store_gather``, ``parallel/sharded_store.py``), and
+:func:`sharded_corpus_retrieval_eval` ranks against a row-sharded corpus.
+Every rank calls the evaluator alike, at the same shapes: a row-sharded
+table or store is read through a collective exchange.
 """
 
 from __future__ import annotations
@@ -73,7 +76,8 @@ class Evaluator:
         self._eval_step = make_eval_step(model, cfg, mesh=mesh)
         self._encode_notice = make_encode_fn(model, "notice")
         self._encode_company = make_encode_fn(model, "company")
-        self._indexed_eval = make_indexed_eval_steps(model, cfg, mesh=mesh)
+        # one indexed eval per store kind: plain gathers or the exchange
+        self._indexed_eval: dict[bool, object] = {}
 
     def evaluate(self, state, batches: Iterable[PairBatch]) -> dict[str, float]:
         """The in-batch metrics averaged over ``batches`` (host or device
@@ -107,6 +111,7 @@ class Evaluator:
         *,
         batch_size: int,
         stack: int = 32,
+        store_gather=None,
     ) -> dict[str, float]:
         """:meth:`evaluate` over device-resident (dense, cat_ids) stores:
         only the [n, B, 2] indices go to the device, batches run in stacks
@@ -114,10 +119,23 @@ class Evaluator:
         metrics are fetched at the end. A partial trailing batch is dropped;
         when the batches do not fill whole stacks, the final stack starts
         early and its already-covered head is left out (reference
-        ``evaluate_indexed``)."""
+        ``evaluate_indexed``). ``store_gather`` reads row-sharded stores
+        through the exchange; ``batch_size`` must then be a multiple of its
+        ``batch_multiple``, as the reference requires."""
         n_batches = len(pairs) // batch_size
         if n_batches == 0:
             return {}
+        multiple = getattr(store_gather, "batch_multiple", 1) if store_gather is not None else 1
+        if batch_size % multiple:
+            raise ValueError(
+                f"batch_size {batch_size} must be a multiple of the row-sharded store's mesh axis ({multiple}) "
+                "- the eval batch is split over it by the cross-shard exchange"
+            )
+        key = store_gather is not None
+        if key not in self._indexed_eval:
+            self._indexed_eval[key] = make_indexed_eval_steps(self.model, self.cfg, mesh=self.mesh,
+                                                              store_gather=store_gather)
+        indexed_eval = self._indexed_eval[key]
         idx = torch.from_numpy(pairs[: n_batches * batch_size].astype(np.int64)).reshape(n_batches, batch_size, 2)
         idx = idx.to(state.device)
         stack = min(stack, n_batches)
@@ -129,7 +147,7 @@ class Evaluator:
             # for the overlapping final stack keep only the uncovered tail
             prev_end = starts[i - 1] + stack if i else 0
             keep = start + stack - max(prev_end, start)
-            results.append((keep, self._indexed_eval(state, idx[start : start + stack], notice_store, company_store)))
+            results.append((keep, indexed_eval(state, idx[start : start + stack], notice_store, company_store)))
         totals: dict[str, float] = {}
         for keep, m in results:
             for k, v in _fetch(m).items():
@@ -140,7 +158,7 @@ class Evaluator:
         return out
 
     def encode_corpus_device(
-        self, state, store, n_rows: int, *, side: str = "company", chunk: int = 8192
+        self, state, store, n_rows: int, *, side: str = "company", chunk: int = 8192, store_gather=None
     ) -> torch.Tensor:
         """:meth:`encode_corpus` over a device-resident (dense, cat_ids)
         store: [n_rows, D] float32 on the store's device. The store may hold
@@ -148,12 +166,17 @@ class Evaluator:
         they do not tile the store, the final chunk starts early and its
         overlapping head is dropped (reference ``encode_corpus_device``). On
         a mesh each rank encodes its block of every chunk (the chunk cut to
-        a multiple of the mesh size) and every rank returns the whole."""
+        a multiple of the mesh size) and every rank returns the whole. A
+        row-sharded store (``store_gather``; the rank's block of a store
+        padded to a multiple of the mesh size) is read through the
+        exchange, every rank at the same chunks."""
         store_rows = store[0].shape[0]
+        if store_gather is not None:
+            store_rows *= getattr(store_gather, "batch_multiple", 1)
         chunk = min(chunk, store_rows)
         if self.mesh is not None:
-            chunk -= chunk % self.mesh.size
-        encode = make_device_encode_fn(self.model, side, chunk, mesh=self.mesh)
+            chunk = max(chunk - chunk % self.mesh.size, self.mesh.size)
+        encode = make_device_encode_fn(self.model, side, chunk, mesh=self.mesh, store_gather=store_gather)
         pieces = []
         covered = 0
         while covered < store_rows:

@@ -2,9 +2,8 @@ from jodalrob_twotower_torch.models.embedding import EmbeddingCollection  # noqa
 from jodalrob_twotower_torch.models.tower import Tower  # noqa: F401
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel
 
-
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP A12b)")
+    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP A12b item 4)")
 
 
 def build_model(schema, cfg, mesh=None) -> TwoTowerModel:
@@ -12,11 +11,19 @@ def build_model(schema, cfg, mesh=None) -> TwoTowerModel:
     ``models.build_model``): the row-gather kernel where
     ``MeshConfig.use_pallas_lookup`` asks for the reference's Pallas gather,
     and on a mesh of more than one rank (``parallel/mesh.py``) the towers of
-    the rank's batch block, with global BatchNorm statistics. Their tables
-    are replicated ("auto" resolves to that up to 65,536 rows), and each
-    rank's unchanged lookup chooses its kernels as one device does
-    (``parallel/sharded_embedding.py``). Row-sharded tables and the
-    compressed gradient sync raise NotImplementedError (ROADMAP A12b)."""
+    the rank's batch block, with global BatchNorm statistics.
+
+    The tables follow ``embedding_sharding`` ("auto" resolves to
+    "replicated" up to 65,536 rows, else "gspmd_rows"): replicated tables
+    keep each rank's unchanged lookup, which chooses its kernels as one
+    device does; "gspmd_rows" and "shard_map" row-shard every table over
+    the ranks and look up through the row exchange
+    (``parallel/sharded_embedding.make_sharded_lookup``). The reference's
+    two modes differ only in who writes the exchange (XLA's GSPMD or the
+    code); the port has one exchange for both. Sparse tables on a mesh are
+    row-sharded too. The compressed gradient sync raises
+    NotImplementedError (ROADMAP A12b item 4)."""
+    row_sharded = False
     if mesh is not None and mesh.size > 1:
         from jodalrob_twotower_torch.parallel.mesh import resolve_embedding_sharding
 
@@ -34,6 +41,5 @@ def build_model(schema, cfg, mesh=None) -> TwoTowerModel:
                 "embedding_lookup='onehot' cannot run under embedding_sharding='gspmd_rows' on a "
                 "multi-device mesh - use 'replicated' (the kernel runs per rank) or embedding_lookup='auto'"
             )
-        if mode != "replicated":
-            raise _not_ported(f"embedding_sharding={mode!r} (row-sharded tables)")
-    return TwoTowerModel(schema, cfg.model, cfg.mesh.use_pallas_lookup, mesh=mesh)
+        row_sharded = mode in ("gspmd_rows", "shard_map") or bool(cfg.sparse_tables)
+    return TwoTowerModel(schema, cfg.model, cfg.mesh.use_pallas_lookup, mesh=mesh, row_sharded=row_sharded)

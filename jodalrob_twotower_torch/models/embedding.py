@@ -94,6 +94,15 @@ class EmbeddingCollection(nn.Module):
     gather, as the reference's ``use_pallas`` takes its Pallas gather: on
     the card, past the 65,536-row dense envelope or with
     ``grad_mode="scatter"``.
+
+    With ``row_mesh`` (a mesh of more than one rank; ``models.build_model``
+    passes it for the row-sharded modes) the table is row-sharded: this
+    rank holds the block ``[r R/n, (r+1) R/n)`` (``shard_rows`` rows, from
+    ``row_offset``) and every lookup is the row exchange of
+    ``parallel/sharded_embedding.make_sharded_lookup``, with the row-gather
+    kernel under ``use_pallas``. The one-hot and dense-gradient kernels are
+    the replicated table's and are not used there. Every rank must call it
+    alike (the exchange is a collective).
     """
 
     # Above this many table rows the reference's dense one-hot path stops
@@ -109,6 +118,7 @@ class EmbeddingCollection(nn.Module):
         grad_mode: str = "auto",
         lookup_mode: str = "auto",
         use_pallas: bool = False,
+        row_mesh=None,
     ) -> None:
         super().__init__()
         self.vocab_sizes = tuple(vocab_sizes)
@@ -117,7 +127,18 @@ class EmbeddingCollection(nn.Module):
         self.grad_mode = grad_mode
         self.lookup_mode = lookup_mode
         _, self.total_rows = table_layout(self.vocab_sizes)
-        self.table = nn.Parameter(torch.empty(self.total_rows, embed_dim))
+        self.row_mesh = row_mesh if row_mesh is not None and row_mesh.size > 1 else None
+        self.shard_rows, self.row_offset, self._sharded = self.total_rows, 0, None
+        if self.row_mesh is not None:
+            from jodalrob_twotower_torch.parallel.sharded_embedding import make_sharded_lookup
+
+            if self.total_rows % self.row_mesh.size:
+                raise ValueError(f"rows {self.total_rows} must divide the 'data' axis ({self.row_mesh.size}) "
+                                 "to row-shard the table")
+            self._sharded = make_sharded_lookup(self.row_mesh, use_pallas=use_pallas)
+            block = self.row_mesh.block(self.total_rows)
+            self.shard_rows, self.row_offset = block.stop - block.start, block.start
+        self.table = nn.Parameter(torch.empty(self.shard_rows, embed_dim))
         nn.init.normal_(self.table, std=1.0 / np.sqrt(embed_dim))
         tiles = tile_feature_map(self.vocab_sizes)
         self._onehot = make_onehot_lookup(self.total_rows, tiles)
@@ -130,7 +151,9 @@ class EmbeddingCollection(nn.Module):
                 f"cat_ids must be [B, {len(self.vocab_sizes)}], got {tuple(cat_ids.shape)}"
             )
         rows = self._rows(cat_ids)
-        if self._onehot_lookup_active(rows):
+        if self._sharded is not None:
+            emb = self._sharded(self.table, rows, self.total_rows)
+        elif self._onehot_lookup_active(rows):
             emb = self._onehot(self.table, rows)
         elif self._dense_grad_active(rows):
             emb = self._dense_grad(self.table, rows)

@@ -112,7 +112,7 @@ class Tower(nn.Module):
     [B, final_dim] float32 embedding."""
 
     def __init__(self, schema: SideSchema, config: ModelConfig, use_pallas_lookup: bool = False, *,
-                 mesh=None) -> None:
+                 mesh=None, row_sharded: bool = False) -> None:
         super().__init__()
         self.schema = schema
         self.config = config
@@ -140,6 +140,7 @@ class Tower(nn.Module):
                 grad_mode=config.embedding_grad,
                 lookup_mode=resolve_lookup_mode(config),
                 use_pallas=use_pallas_lookup,
+                row_mesh=self.mesh if row_sharded else None,
             )
         if not self.blocks and not schema.num_categorical:
             raise ValueError(f"tower {schema.table!r} has no features")

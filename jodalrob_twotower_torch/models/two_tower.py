@@ -9,6 +9,7 @@ from torch import nn
 
 from jodalrob_twotower_torch.config import ModelConfig
 from jodalrob_twotower_torch.data.types import PairBatch, TowerBatch
+from jodalrob_twotower_torch.models.embedding import EmbeddingCollection
 from jodalrob_twotower_torch.models.tower import BatchNorm, Tower
 from jodalrob_twotower_torch.schema import TwoTowerSchema
 
@@ -24,16 +25,30 @@ class TwoTowerModel(nn.Module):
     ``use_pallas_lookup`` lets the towers' gathers take the row-gather
     kernel (models/embedding.EmbeddingCollection). ``mesh`` is the mesh
     model's (``models.build_model``): the towers then run on the rank's
-    block of each global batch."""
+    block of each global batch, and with ``row_sharded`` each table holds
+    the rank's block of rows (:attr:`row_sharded_keys`)."""
 
     def __init__(self, schema: TwoTowerSchema, config: ModelConfig, use_pallas_lookup: bool = False, *,
-                 mesh=None) -> None:
+                 mesh=None, row_sharded: bool = False) -> None:
         super().__init__()
         self.schema = schema
         self.config = config
-        self.notice_tower = Tower(schema.notice, config, use_pallas_lookup, mesh=mesh)
-        self.company_tower = Tower(schema.company, config, use_pallas_lookup, mesh=mesh)
+        self.notice_tower = Tower(schema.notice, config, use_pallas_lookup, mesh=mesh, row_sharded=row_sharded)
+        self.company_tower = Tower(schema.company, config, use_pallas_lookup, mesh=mesh, row_sharded=row_sharded)
+        # the state_dict keys of the row-sharded tables (empty off a mesh or
+        # with replicated tables)
+        self.row_sharded_keys = frozenset(f"{name}.table" for name, m in self.named_modules()
+                                          if isinstance(m, EmbeddingCollection) and m.row_mesh is not None)
         self.eval()
+
+    def _draw_tables(self, generator: torch.Generator) -> None:
+        """Every table from N(0, 1/D), drawn whole (a row-sharded table then
+        keeps its rank's block, so that every mesh size starts from one
+        device's weights)."""
+        for name, m in self.named_modules():
+            if isinstance(m, EmbeddingCollection):
+                full = torch.randn((m.total_rows, m.embed_dim), generator=generator) / np.sqrt(m.embed_dim)
+                m.table.copy_(full[m.row_offset : m.row_offset + m.shard_rows])
 
     def forward(
         self,
@@ -69,7 +84,8 @@ class TwoTowerModel(nn.Module):
         "truncated_normal")``: a normal truncated at two standard deviations,
         std sqrt(1/fan_in) / 0.87962566, so that the truncated draw has std
         sqrt(1/fan_in)), zero biases, BatchNorm scale 1 and bias 0 with
-        running mean 0 and variance 1, and N(0, 1/D) tables. Draws are made
+        running mean 0 and variance 1, and N(0, 1/D) tables (a row-sharded
+        table drawn whole, keeping its rank's block). Draws are made
         in module order on the generator's device (the CPU for a default
         ``torch.Generator()``), so one seed gives one model. Returns self."""
         for module in self.modules():
@@ -84,9 +100,7 @@ class TwoTowerModel(nn.Module):
                 module.bias.zero_()
                 module.running_mean.zero_()
                 module.running_var.fill_(1.0)
-        for name, p in self.named_parameters():
-            if name.endswith("embeddings.table"):
-                p.copy_(torch.randn(p.shape, generator=generator) / np.sqrt(p.shape[1]))
+        self._draw_tables(generator)
         return self
 
     @torch.no_grad()
@@ -105,7 +119,5 @@ class TwoTowerModel(nn.Module):
                 n = module.weight.shape[0]
                 module.running_mean.copy_(0.1 * torch.randn(n, generator=generator))
                 module.running_var.copy_(0.5 + torch.rand(n, generator=generator))
-        for name, p in self.named_parameters():
-            if name.endswith("embeddings.table"):
-                p.copy_(torch.randn(p.shape, generator=generator) / np.sqrt(p.shape[1]))
+        self._draw_tables(generator)
         return self

@@ -7,9 +7,12 @@ device, PyTorch's idiom and the way the reference itself runs multi-host
 (``parallel/distributed.py``). Rank r holds the contiguous block
 ``[r B/n, (r+1) B/n)`` of every global batch, the block the reference's
 ``batch_sharding`` (``P("data")``) gives device r, and the code calls the
-collectives itself: an all-reduce SUM of the dense gradients, an all-gather
-of the company side for the global in-batch negatives, a reduce-scatter of
-its gradient, and the BatchNorm sums.
+collectives itself: an all-reduce SUM of the replicated gradients, an
+all-gather of the company side for the global in-batch negatives, a
+reduce-scatter of its gradient, the BatchNorm sums, and for row-sharded
+tables and stores (the reference's ``P("data", None)``: rank r holds rows
+``[r R/n, (r+1) R/n)``) the row exchange of ``sharded_embedding.py`` and
+``sharded_store.py``.
 
 A :class:`Mesh` is one rank's view: its group, rank, world size, device and
 collectives. Both backends take the same tensor collectives: NCCL on the
@@ -17,7 +20,9 @@ card, and gloo (the CPU tests, the CLIs' ``--force-cpu`` and two ranks
 sharing one card, which NCCL refuses as a duplicate GPU) carries
 all-reduce, broadcast, ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor`` for CUDA tensors too, staged through the host
-(torch 2.11 on the H100 machine). Their names are taken once, at import:
+(torch 2.11 on the H100 machine). The row exchange moves int32 and int64
+ids, float32 rows and bfloat16 store rows; gloo sums all four exactly
+(x + 0 = x) on the CPU. Their names are taken once, at import:
 torch 2.13 renames the last two ``*_single`` and deprecates the old names,
 which 2.11 has alone. No collective is chosen by catching an exception.
 """
@@ -155,18 +160,38 @@ def gather_replicated(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _GatherReplicated.apply(x, mesh) if mesh.size > 1 else x
 
 
-def sync_grads(grads: dict[str, torch.Tensor], mesh: Mesh) -> dict[str, torch.Tensor]:
-    """Every rank's gradients summed over the ranks, in one all-reduce of
-    one flat buffer. A SUM, not a mean: each rank's backward of the global
-    loss holds only its own rows' share of every gradient (the embedding
-    tables' [R, D] partials included), and the shares add up to the
-    gradient of one device's step on the whole batch."""
-    flat = mesh.all_reduce_(torch.cat([g.reshape(-1).float() for g in grads.values()]))
-    out, start = {}, 0
-    for k, g in grads.items():
+def sync_grads(grads: dict[str, torch.Tensor], mesh: Mesh, *, sharded=frozenset()) -> dict[str, torch.Tensor]:
+    """Every rank's gradients of the replicated leaves summed over the
+    ranks, in one all-reduce of one flat buffer. A SUM, not a mean: each
+    rank's backward of the global loss holds only its own rows' share of
+    every gradient (replicated tables' [R, D] partials included), and the
+    shares add up to the gradient of one device's step on the whole batch.
+    The leaves named in ``sharded`` (row-sharded tables) pass as they are:
+    the row exchange's backward already left each rank the whole gradient
+    of its own block, and a sum would count the other ranks' zeros and
+    move 2 x 1.28 GB a step at BASELINE config 3."""
+    names = [k for k in grads if k not in sharded]
+    out = dict(grads)
+    if not names:
+        return out
+    flat = mesh.all_reduce_(torch.cat([grads[k].reshape(-1).float() for k in names]))
+    start = 0
+    for k in names:
+        g = grads[k]
         out[k] = flat[start : start + g.numel()].view(g.shape).to(g.dtype)
         start += g.numel()
     return out
+
+
+def global_sq_norm(tensors: dict[str, torch.Tensor], mesh: Mesh, *, sharded=frozenset()) -> torch.Tensor:
+    """The sum of squares of every entry of ``tensors`` as one device would
+    count it: the replicated leaves once (each rank holds them whole), the
+    row-sharded leaves named in ``sharded`` summed over the ranks (each rank
+    holds its block). A 0-dim float32 tensor, equal on every rank."""
+    zero = torch.zeros((), device=mesh.device)
+    own = sum(((t.float() * t.float()).sum() for k, t in tensors.items() if k in sharded), zero)
+    rep = sum(((t.float() * t.float()).sum() for k, t in tensors.items() if k not in sharded), zero)
+    return mesh.all_reduce_(own.reshape(1)).reshape(()) + rep
 
 
 def make_mesh(devices: Sequence | None = None, cfg: MeshConfig | None = None, *, group=None) -> Mesh:
@@ -191,7 +216,7 @@ def make_mesh(devices: Sequence | None = None, cfg: MeshConfig | None = None, *,
     if model > 1:
         raise NotImplementedError(
             "a model axis above 1 is not ported: the port's mesh shards the batch over one "
-            "data axis (ROADMAP A12b)"
+            "data axis (ROADMAP A12b item 6)"
         )
     if n != world:
         raise ValueError(f"make_mesh: {n} devices but the process group has {world} ranks (one device each)")
@@ -232,12 +257,26 @@ def put_replicated(x, mesh: Mesh) -> torch.Tensor:
 
 def row_sharding(mesh: Mesh, rows: int) -> slice:
     """The rank's block of a row-sharded array of ``rows`` rows padded to a
-    multiple of the mesh size: the sharded corpus eval
-    (``evaluation/evaluator.sharded_corpus_retrieval_eval``) and
-    ``serving/index.ShardedIndex`` keep these rows. Row-sharded tables and
-    stores (the reference's ``P("data", None)`` on a table) wait for
-    ROADMAP A12b."""
+    multiple of the mesh size (the reference's ``P("data", None)``): the
+    rows a row-sharded embedding table (``sharded_embedding.py``), its
+    optimizer leaves, a row-sharded feature store (``sharded_store.py``),
+    the sharded corpus eval and ``serving/index.ShardedIndex`` keep on
+    this rank."""
     return mesh.block(-(-rows // mesh.size) * mesh.size)
+
+
+def shard_state(state_dict: dict[str, torch.Tensor], mesh: Mesh, keys) -> dict[str, torch.Tensor]:
+    """``state_dict`` with each leaf named in ``keys`` (row-sharded tables)
+    cut to this rank's block of rows; the rest as they are. A one-device
+    state cut so equals a mesh state leaf for leaf."""
+    return {k: (v[mesh.block(v.shape[0])] if k in keys else v) for k, v in state_dict.items()}
+
+
+def join_state(state_dict: dict[str, torch.Tensor], mesh: Mesh, keys) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_state`: each leaf named in ``keys``
+    gathered whole from every rank's block (a collective: every rank calls
+    it alike); the rest as they are."""
+    return {k: (mesh.all_gather_rows(v) if k in keys else v) for k, v in state_dict.items()}
 
 
 # dense table gradients (cost ~ rows x batch) lose to the scatter above this

@@ -167,7 +167,8 @@ def run(argv: list[str], devices: list | None = None) -> int:
     cfg = TrainConfig.from_json(args.model_dir / "config.json")
     schema, notice_store, company_store = load_data(args, cfg.seed)
     model = build_model(schema, cfg, mesh)
-    restored = CheckpointManager(args.model_dir, cfg.checkpoint).restore_weights(model.state_dict(), device=device)
+    ckpt = CheckpointManager(args.model_dir, cfg.checkpoint, mesh=mesh, sharded=model.row_sharded_keys)
+    restored = ckpt.restore_weights(model.state_dict(), device=device)
     state = FrozenState({**restored["params"], **restored["batch_stats"]})
 
     precomputed_emb = None

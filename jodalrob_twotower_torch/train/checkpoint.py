@@ -24,8 +24,14 @@ count and dropout seed as ints, so a restored run continues bit for bit.
 Files load with ``torch.load(..., weights_only=True)`` onto the target's
 device: a checkpoint written on the CPU restores onto the card and back.
 
-On a mesh (``mesh=``) every rank holds the same state: rank 0 alone writes,
-each save ends in a barrier, and every rank restores from the files.
+On a mesh (``mesh=``) rank 0 alone writes, each save ends in a barrier,
+and every rank restores from the files. A row-sharded leaf (``sharded=``,
+the model's row-sharded table keys, with their optimizer leaves; and a
+sparse state's tables and accumulators on a mesh of more than one rank) is
+gathered whole from every rank's block before the write, one leaf at a
+time, onto rank 0's host, so a mesh checkpoint has exactly the keys and
+shapes of one device's; a restore cuts each rank's block again. A mesh
+checkpoint thus restores on one device, and one device's on a mesh.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import torch
 
 from jodalrob_twotower_torch.config import CheckpointConfig, TrainConfig
 from jodalrob_twotower_torch.device import resolve_device
-from jodalrob_twotower_torch.train.sparse_tables import SparseTable, SparseTrainState, merged_params
+from jodalrob_twotower_torch.train.sparse_tables import TABLE_KEYS, SparseTable, SparseTrainState, merged_params
 from jodalrob_twotower_torch.train.train_step import TrainState
 
 STATE_FILE = "state.pt"
@@ -110,15 +116,29 @@ def _write_json(path: Path, obj) -> None:
     tmp.replace(path)
 
 
+def _map_leaves(node, fn, path: tuple = ()):
+    """``node`` (nested dicts) with every tensor leaf t replaced by fn(path, t)."""
+    if isinstance(node, torch.Tensor):
+        return fn(path, node)
+    if isinstance(node, Mapping):
+        return {k: _map_leaves(v, fn, (*path, k)) for k, v in node.items()}
+    return node
+
+
 class CheckpointManager:
     """best/final/epoch/step checkpoint retention (layout in the module
     docstring)."""
 
-    def __init__(self, directory: str | Path, cfg: CheckpointConfig | None = None, *, mesh=None) -> None:
+    def __init__(self, directory: str | Path, cfg: CheckpointConfig | None = None, *, mesh=None,
+                 sharded=frozenset()) -> None:
         self.dir = Path(directory)
         self.cfg = cfg or CheckpointConfig()
         self.mesh = mesh
         self._writes = mesh is None or mesh.is_main
+        split = mesh is not None and mesh.size > 1
+        # state_dict keys whose leaves (and optimizer leaves) are row-sharded
+        self.sharded = frozenset(sharded) if split else frozenset()
+        self._split = split  # a sparse state's tables are row-sharded on such a mesh
         self.dir.mkdir(parents=True, exist_ok=True)
         self._best_metric: float | None = None
         best_file = self.dir / "best.json"
@@ -190,14 +210,58 @@ class CheckpointManager:
         self._write_params_only(self.dir / "weights", state)
         self._saved()
 
+    def _is_sharded(self, path: tuple, sparse: bool) -> bool:
+        """Whether the payload leaf at ``path`` (of a sparse state's payload
+        or weights, with ``sparse``) is a rank's block of rows."""
+        return path[-1] in self.sharded or (sparse and self._split and (
+            path[0] in TABLE_KEYS.values() or (path[0] == "params" and path[-1] in TABLE_KEYS)))
+
+    def gathered_payload(self, state):
+        """The checkpoint payload of ``state`` as rank 0 writes it: every
+        row-sharded leaf gathered whole onto its host (None on the other
+        ranks; every rank must call it)."""
+        return self._joined(state_payload(state), isinstance(state, SparseTrainState))
+
+    def _joined(self, payload, sparse: bool):
+        """``payload`` with every row-sharded leaf gathered whole, on rank
+        0's host (a collective: every rank calls it; the others get None
+        in its place)."""
+        if not (self.sharded or (sparse and self._split)):
+            return payload
+
+        def join(path, t):
+            if not self._is_sharded(path, sparse):
+                return t
+            whole = self.mesh.all_gather_rows(t)
+            return whole.cpu() if self._writes else None
+
+        return _map_leaves(payload, join)
+
+    def _load(self, name: str, device, sparse: bool = False) -> dict:
+        """A checkpoint file's payload on ``device``, each row-sharded leaf
+        cut to this rank's block (the file read on the host first then)."""
+        if not (self.sharded or (sparse and self._split)):
+            return torch.load(self.dir / name / STATE_FILE, map_location=device, weights_only=True)
+        payload = torch.load(self.dir / name / STATE_FILE, map_location="cpu", weights_only=True)
+
+        def cut(path, t):
+            if self._is_sharded(path, sparse):
+                t = t[self.mesh.block(t.shape[0])].clone()  # not a view of the whole leaf
+            return t.to(device)
+
+        return _map_leaves(payload, cut)
+
     def _write(self, path: Path, state) -> None:
+        payload = self.gathered_payload(state)
         if self._writes:
-            _write_file(path, state_payload(state))
+            _write_file(path, payload)
 
     def _write_params_only(self, path: Path, state) -> None:
+        sparse = isinstance(state, SparseTrainState)
+        params = merged_params(state) if sparse else state.params
+        payload = self._joined({"params": params, "batch_stats": state.batch_stats}, sparse)
         if self._writes:
-            params = merged_params(state) if isinstance(state, SparseTrainState) else state.params
-            _write_file(path, {"params": params, "batch_stats": state.batch_stats})
+            _write_file(path, payload)
 
     _EPOCH_RE = re.compile(r"^epoch_(\d+)$")
 
@@ -225,9 +289,9 @@ class CheckpointManager:
     def restore(self, name: str, target):
         """Restore checkpoint ``name`` ('best', 'final', 'epoch_N', 'step_a')
         as a new state of ``target``'s type, structure and device (an
-        initialized state); raises if the checkpoint does not fit it."""
-        payload = torch.load(self.dir / name / STATE_FILE, map_location=target.device, weights_only=True)
-        return state_from_payload(payload, target)
+        initialized state; on a mesh, the rank's); raises if the checkpoint
+        does not fit it."""
+        return state_from_payload(self._load(name, target.device, isinstance(target, SparseTrainState)), target)
 
     def restore_latest(self, target):
         """(state, epoch) of the newest epoch checkpoint, or None."""
@@ -242,8 +306,7 @@ class CheckpointManager:
         the serving entry point, with no optimizer state and no step.
         ``template`` (a model's ``state_dict``) checks that every key, shape
         and dtype fits the model that will take them."""
-        payload = torch.load(self.dir / "weights" / STATE_FILE, map_location=resolve_device(device),
-                             weights_only=True)
+        payload = self._load("weights", resolve_device(device))
         if template is not None:
             got = {**payload["params"], **payload["batch_stats"]}
             _conform(got, {k: template[k] for k in template}, "weights")

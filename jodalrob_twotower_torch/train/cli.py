@@ -18,7 +18,10 @@ set as without it). The parquet readers need pyarrow. The run goes on the
 card; ``--force-cpu`` asks for the CPU. ``--mesh-devices N`` trains over an
 N-rank data-parallel mesh (``parallel/``): N cards over NCCL, or with
 ``--force-cpu`` N gloo ranks on the CPU; ``--batch-size`` is then the global
-batch. A run across hosts starts one process per card with ``torchrun``.
+batch. Tables above 65,536 rows are row-sharded over the mesh, and
+``--store-sharding rows`` row-shards the feature stores too (it needs
+``--mesh-devices``). A run across hosts starts one process per card with
+``torchrun``.
 
   python -m jodalrob_twotower_torch.train --synthetic --synthetic-scale bench \\
       --batch-size 8192 --epochs 8 --sample-on-device --epoch-corpus-eval \\
@@ -71,9 +74,10 @@ def parse_args(argv=None):
                    help="ModelConfig.dropout_rng_impl (the port draws every mask from a seeded torch.Generator)")
     p.add_argument("--force-cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument("--mesh-devices", type=int,
-                   help="train over an N-device data-parallel mesh (replicated tables, batch dim sharded)")
+                   help="train over an N-device data-parallel mesh (batch dim sharded; tables replicated "
+                   "up to 65,536 rows, row-sharded above)")
     p.add_argument("--store-sharding", choices=["replicated", "rows"],
-                   help="feature-store placement under --mesh-devices ('rows' is not ported yet)")
+                   help="feature-store placement under --mesh-devices ('rows': each device its block of rows)")
     p.add_argument("--grad-compression", choices=["none", "int16", "bf16"], help="(not ported yet)")
     p.add_argument("--compressed-negatives", choices=["local", "global"], help="(not ported yet)")
     return p.parse_args(argv)
@@ -111,6 +115,10 @@ def configure(args):
         cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, use_fused_logits=resolved))
     if args.dropout_rng:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_rng_impl=args.dropout_rng))
+    if args.store_sharding:
+        if not args.mesh_devices:
+            raise SystemExit("--store-sharding requires --mesh-devices")
+        cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, store_sharding=args.store_sharding))
     return cfg
 
 
@@ -174,7 +182,10 @@ def run(argv: list[str], devices: list | None = None) -> int:
     train_pairs, val_pairs = split_pairs(pairs, cfg)
     say(f"pairs: {len(train_pairs):,} train / {len(val_pairs):,} val")
     if mesh is not None:
-        say(f"mesh: {mesh.size} devices over {mesh.backend} (tables replicated, batch dim sharded)")
+        from jodalrob_twotower_torch.parallel.mesh import resolve_embedding_sharding
+
+        say(f"mesh: {mesh.size} devices over {mesh.backend} (tables {resolve_embedding_sharding(cfg.mesh, schema)}, "
+            f"stores {cfg.mesh.store_sharding}, batch dim sharded)")
 
     trainer = Trainer(cfg, schema, notice_store, company_store, mesh=mesh,
                       device=None if mesh is not None else "cpu" if args.force_cpu else None, log_fn=say)

@@ -16,7 +16,9 @@ groups (count = number of earlier updates):
   acc += mean_D(g^2); p += lr * (-g * rsqrt(acc + eps)).
 
 ``gradient_clip_norm`` scales every gradient by max_norm / global_norm when
-the global norm reaches max_norm, before the split. Parameters and state are
+the global norm reaches max_norm, before the split. On a mesh with
+row-sharded tables the norm counts each rank's block of a sharded leaf once
+(``parallel/mesh.global_sq_norm``), so it is one device's norm. Parameters and state are
 updated in place (the port keeps one copy of each, where the reference's
 optax returns new arrays).
 """
@@ -86,11 +88,13 @@ class Optimizer:
         return torch.float32 if is_embedding_table(name) else self.mu_dtype
 
     @torch.no_grad()
-    def update(self, params: dict[str, torch.Tensor], grads: Mapping[str, torch.Tensor], state: dict) -> None:
-        """One update of ``params`` and ``state``, in place."""
+    def update(self, params: dict[str, torch.Tensor], grads: Mapping[str, torch.Tensor], state: dict, *,
+               mesh=None, sharded=frozenset()) -> None:
+        """One update of ``params`` and ``state``, in place. On a mesh,
+        ``sharded`` names the row-sharded leaves (for the global norm)."""
         count = state["count"]
         if self.cfg.gradient_clip_norm:
-            grads = clip_by_global_norm(grads, self.cfg.gradient_clip_norm)
+            grads = clip_by_global_norm(grads, self.cfg.gradient_clip_norm, mesh=mesh, sharded=sharded)
         lr = self.schedule(count)
         emb_lr = self.emb_schedule(count)
         t = count + 1
@@ -124,9 +128,17 @@ def build_optimizer(cfg, total_steps: int) -> Optimizer:
     return Optimizer(cfg, total_steps)
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float) -> dict[str, torch.Tensor]:
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float, *, mesh=None,
+                        sharded=frozenset()) -> dict[str, torch.Tensor]:
     """optax.clip_by_global_norm: unchanged below max_norm, else
-    (g / global_norm) * max_norm."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+    (g / global_norm) * max_norm. On a mesh the leaves named in ``sharded``
+    are the rank's blocks of row-sharded leaves, summed over the ranks
+    once; every rank gets the same norm."""
+    if sharded and mesh is not None:
+        from jodalrob_twotower_torch.parallel.mesh import global_sq_norm
+
+        norm = torch.sqrt(global_sq_norm(dict(grads), mesh, sharded=sharded))
+    else:
+        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
     keep = norm < max_norm
     return {k: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for k, g in grads.items()}

@@ -1,5 +1,5 @@
 """Sparse-table training: O(batch) embedding updates for huge tables (port of
-``jodalrob_twotower_tpu/train/sparse_tables.py``, one device).
+``jodalrob_twotower_tpu/train/sparse_tables.py``).
 
 The standard step differentiates through the table lookup, so autograd forms
 a dense [R, D] gradient and rowwise Adagrad touches every row: O(R) memory
@@ -31,6 +31,18 @@ of range and nothing changes. ``index_add_`` of floats on CUDA sums a row's
 duplicates in no fixed order; the exact dedup leaves each row once, so the
 table and accumulator scatters are deterministic, and only the segment sum
 varies in the last bits.
+
+On a mesh (the steps' ``mesh`` argument, ``parallel/sharded_sparse.py``)
+each rank holds its block of rows of both tables and their accumulators
+(``[r R/n, (r+1) R/n)``) and its block of every global batch. The lookup is
+the row exchange outside autograd (``parallel/sharded_embedding.exchange_rows``),
+the loss the mesh's, the dense gradients summed over the ranks. The compact
+cotangents [b K, D] and their rows are all-gathered, in global batch
+order; each rank keeps the rows of its block (the others become the
+shard's sentinel, a zero update) and applies the same dedup and rowwise
+Adagrad to its shard, so every row steps as on one device. A deferred
+window gathers its stacked occurrences once, into the same step-major
+order as one device's window.
 """
 
 from __future__ import annotations
@@ -43,11 +55,14 @@ from jodalrob_twotower_torch.data.types import PairBatch, default_tower_gather
 from jodalrob_twotower_torch.device import resolve_device
 from jodalrob_twotower_torch.models.embedding import make_absolute_rows
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel
+from jodalrob_twotower_torch.parallel.mesh import sync_grads
+from jodalrob_twotower_torch.parallel.sharded_embedding import exchange_rows, local_rows
 from jodalrob_twotower_torch.train.metrics import in_batch_metrics
 from jodalrob_twotower_torch.train.optimizer import Optimizer, build_optimizer, warmup_constant_schedule
 from jodalrob_twotower_torch.train.train_step import (
     DROPOUT_STREAM,
     _forward_loss,
+    make_sharded_ce,
     sampled_scan_fn,
     scanned_fn,
     step_generator,
@@ -198,6 +213,34 @@ def sparse_rowwise_adagrad_update(
     return st
 
 
+def _on_mesh(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def gather_occurrences(mesh, rows: torch.Tensor, grads: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every rank's per-occurrence rows [..., N] and cotangents [..., N, D]
+    (a leading window axis allowed) -> the global batch's, flat, in global
+    batch order (step-major over a window, as one device's window)."""
+    d = grads.shape[-1]
+    rows, grads = rows.reshape(-1, rows.shape[-1]), grads.reshape(-1, grads.shape[-2], d)
+    n_steps = rows.shape[0]
+    all_rows = mesh.all_gather_rows(rows).reshape(mesh.size, n_steps, -1).transpose(0, 1)
+    all_grads = mesh.all_gather_rows(grads).reshape(mesh.size, n_steps, -1, d).transpose(0, 1)
+    return all_rows.reshape(-1), all_grads.reshape(-1, d)
+
+
+def update_shard(st: SparseTable, rows: torch.Tensor, grads: torch.Tensor, mesh, **kw) -> SparseTable:
+    """:func:`sparse_rowwise_adagrad_update` of the rank's shard ``st`` by
+    global rows: a row outside the shard's block becomes the shard's
+    sentinel (its update is zero and leaves the table and the accumulator
+    as they were). Off a mesh, the update itself."""
+    if not _on_mesh(mesh):
+        return sparse_rowwise_adagrad_update(st, rows, grads, **kw)
+    n = st.table.shape[0]
+    local, in_range = local_rows(rows, mesh.rank * n, n)
+    return sparse_rowwise_adagrad_update(st, torch.where(in_range, local, n), grads, **kw)
+
+
 def make_sparse_train_step(
     model: TwoTowerModel,
     cfg,
@@ -206,6 +249,8 @@ def make_sparse_train_step(
     *,
     with_metrics: bool = False,
     defer_table_updates: bool = False,
+    mesh=None,
+    store_gather=None,
 ):
     """Indexed train step over device-resident stores with sparse tables:
     ``step(state, pair_idx [B, 2], notice_store, company_store) -> (state,
@@ -214,7 +259,12 @@ def make_sparse_train_step(
     ``defer_table_updates=True`` leaves the tables untouched and returns the
     compact per-occurrence rows and cotangents in the metrics (keys
     ``rows_n``, ``g_n``, ``rows_c``, ``g_c``), for one batched update per
-    window (:func:`make_deferred_sparse_steps`)."""
+    window (:func:`make_deferred_sparse_steps`).
+
+    With ``mesh`` (more than one rank) ``pair_idx`` is the rank's block of
+    the global batch and the state's tables the rank's row blocks (module
+    docstring); ``store_gather(store, rows) -> TowerBatch`` replaces the
+    plain gather (a row-sharded store, ``parallel/sharded_store.py``)."""
     n_rows = make_absolute_rows(model.schema.notice.vocab_sizes)
     c_rows = make_absolute_rows(model.schema.company.vocab_sizes)
     emb_dim = cfg.model.categorical_embedding_dim
@@ -222,15 +272,23 @@ def make_sparse_train_step(
     emb_schedule = warmup_constant_schedule(emb_lr, total_steps, cfg.optimizer.warmup_ratio)
     eps = cfg.optimizer.adagrad_eps
     dedup = cfg.optimizer.sparse_duplicate_handling == "exact"
+    gather = store_gather or default_tower_gather
+    sharded_ce = make_sharded_ce(cfg, mesh)
+    sharded = _on_mesh(mesh)
+
+    def lookup(st: SparseTable, rows: torch.Tensor) -> torch.Tensor:
+        if sharded:
+            return exchange_rows(mesh, st.table, rows.reshape(-1))
+        return st.table.index_select(0, rows.reshape(-1))
 
     def step(state: SparseTrainState, pair_idx: torch.Tensor, notice_store, company_store):
-        batch = PairBatch(notice=default_tower_gather(notice_store, pair_idx[:, 0]),
-                          company=default_tower_gather(company_store, pair_idx[:, 1]))
+        batch = PairBatch(notice=gather(notice_store, pair_idx[:, 0]),
+                          company=gather(company_store, pair_idx[:, 1]))
         b = pair_idx.shape[0]
         # lookups outside autograd -> compact activation cotangents
         rows_n, rows_c = n_rows(batch.notice.cat_ids), c_rows(batch.company.cat_ids)
-        emb_n = state.notice_table.table.index_select(0, rows_n.reshape(-1)).reshape(b, -1).requires_grad_(True)
-        emb_c = state.company_table.table.index_select(0, rows_c.reshape(-1)).reshape(b, -1).requires_grad_(True)
+        emb_n = lookup(state.notice_table, rows_n).reshape(b, -1).requires_grad_(True)
+        emb_c = lookup(state.company_table, rows_c).reshape(b, -1).requires_grad_(True)
         generator = None
         if cfg.model.dropout_rate > 0:
             generator = step_generator(state.device, state.seed, state.step, DROPOUT_STREAM)
@@ -238,15 +296,20 @@ def make_sparse_train_step(
         # the tables complete the model's keys; with the overrides no tower reads them
         weights = {**dense, **state.batch_stats, **{k: getattr(state, f).table for k, f in TABLE_KEYS.items()}}
         loss, sim, _, _ = _forward_loss(model, cfg, weights, batch, generator, train=True,
-                                        emb_overrides=(emb_n, emb_c))
+                                        emb_overrides=(emb_n, emb_c), mesh=mesh, sharded_ce=sharded_ce)
         *g_dense, g_n, g_c = torch.autograd.grad(loss, [*dense.values(), emb_n, emb_c])
-        tx.update(state.dense_params, dict(zip(dense, g_dense)), state.opt_state)
+        g_dense = dict(zip(dense, g_dense))
+        if mesh is not None:
+            g_dense = sync_grads(g_dense, mesh)
+        tx.update(state.dense_params, g_dense, state.opt_state)
         rows_n, rows_c = rows_n.reshape(-1), rows_c.reshape(-1)
         g_n, g_c = g_n.reshape(-1, emb_dim).float(), g_c.reshape(-1, emb_dim).float()
         if not defer_table_updates:
             lr_t = emb_schedule(state.step)
-            sparse_rowwise_adagrad_update(state.notice_table, rows_n, g_n, lr=lr_t, eps=eps, dedup=dedup)
-            sparse_rowwise_adagrad_update(state.company_table, rows_c, g_c, lr=lr_t, eps=eps, dedup=dedup)
+            for st, rows, g in ((state.notice_table, rows_n, g_n), (state.company_table, rows_c, g_c)):
+                if sharded:
+                    rows, g = gather_occurrences(mesh, rows, g)
+                update_shard(st, rows, g, mesh, lr=lr_t, eps=eps, dedup=dedup)
         state.step += 1
         metrics = {"loss": loss.detach()}
         if with_metrics and sim is not None:
@@ -258,22 +321,27 @@ def make_sparse_train_step(
     return step
 
 
-def make_scanned_sparse_steps(model: TwoTowerModel, cfg, tx: Optimizer, total_steps: int, n_inner: int):
+def make_scanned_sparse_steps(model: TwoTowerModel, cfg, tx: Optimizer, total_steps: int, n_inner: int, *,
+                              mesh=None, store_gather=None):
     """``steps(state, pair_idx_stack [n_inner, B, 2], notice_store,
     company_store) -> (state, metrics stacked [n_inner])``: n_inner sparse
     steps per call (the reference's ``lax.scan``, a Python loop here)."""
-    return scanned_fn(make_sparse_train_step(model, cfg, tx, total_steps), n_inner)
+    return scanned_fn(make_sparse_train_step(model, cfg, tx, total_steps, mesh=mesh, store_gather=store_gather),
+                      n_inner)
 
 
 def make_sampled_sparse_steps(
-    model: TwoTowerModel, cfg, tx: Optimizer, total_steps: int, n_inner: int, batch_size: int
+    model: TwoTowerModel, cfg, tx: Optimizer, total_steps: int, n_inner: int, batch_size: int, *,
+    mesh=None, store_gather=None,
 ):
     """``steps(state, sample_seed, pairs_dev [P, 2], notice_store,
     company_store)``: n_inner sparse steps per call, each on a batch drawn
     on the device from a generator seeded from (sample_seed, global step),
-    as train_step.make_sampled_train_steps draws. For one table update per
+    as train_step.make_sampled_train_steps draws (on a mesh every rank
+    draws the global batch and keeps its block). For one table update per
     window use :func:`make_sampled_deferred_sparse_steps`."""
-    return sampled_scan_fn(make_sparse_train_step(model, cfg, tx, total_steps), n_inner, batch_size)
+    inner = make_sparse_train_step(model, cfg, tx, total_steps, mesh=mesh, store_gather=store_gather)
+    return sampled_scan_fn(inner, n_inner, batch_size, mesh)
 
 
 def make_deferred_sparse_steps(model: TwoTowerModel, cfg, tx: Optimizer, total_steps: int, n_inner: int):
@@ -299,20 +367,24 @@ def deferred_sparse_steps_fn(
     *,
     n_inner: int | None = None,
     sampled: tuple[int, int] | None = None,
+    mesh=None,
+    store_gather=None,
 ):
     """The deferred window (see :func:`make_deferred_sparse_steps`).
     Host-fed, ``n_inner`` steps over a pair-index stack; with ``sampled=
     (n_inner, batch_size)`` the window draws its batches on the device, as
     :func:`make_sampled_sparse_steps` does, and the call becomes
-    ``steps(state, sample_seed, pairs_dev, notice_store, company_store)``."""
+    ``steps(state, sample_seed, pairs_dev, notice_store, company_store)``.
+    On a mesh the window's occurrences are gathered once, at its end."""
     if (n_inner is None) == (sampled is None):
         raise ValueError("deferred_sparse_steps_fn takes n_inner (host-fed) or sampled=(n_inner, batch_size)")
-    inner = make_sparse_train_step(model, cfg, tx, total_steps, defer_table_updates=True)
+    inner = make_sparse_train_step(model, cfg, tx, total_steps, defer_table_updates=True, mesh=mesh,
+                                   store_gather=store_gather)
     emb_lr = cfg.optimizer.embedding_learning_rate or cfg.optimizer.learning_rate
     emb_schedule = warmup_constant_schedule(emb_lr, total_steps, cfg.optimizer.warmup_ratio)
     eps = cfg.optimizer.adagrad_eps
     dedup = cfg.optimizer.sparse_duplicate_handling == "exact"
-    window = sampled_scan_fn(inner, *sampled) if sampled is not None else scanned_fn(inner, n_inner)
+    window = sampled_scan_fn(inner, *sampled, mesh) if sampled is not None else scanned_fn(inner, n_inner)
 
     def steps(state: SparseTrainState, *args):
         """One batched rowwise-Adagrad update per side over the window's
@@ -320,11 +392,10 @@ def deferred_sparse_steps_fn(
         state, metrics = window(state, *args)
         rows_n, g_n, rows_c, g_c = (metrics.pop(k) for k in _DEFERRED_KEYS)
         lr_t = emb_schedule(state.step - 1)
-        d = g_n.shape[-1]
-        sparse_rowwise_adagrad_update(state.notice_table, rows_n.reshape(-1), g_n.reshape(-1, d),
-                                      lr=lr_t, eps=eps, dedup=dedup)
-        sparse_rowwise_adagrad_update(state.company_table, rows_c.reshape(-1), g_c.reshape(-1, d),
-                                      lr=lr_t, eps=eps, dedup=dedup)
+        for st, rows, g in ((state.notice_table, rows_n, g_n), (state.company_table, rows_c, g_c)):
+            if _on_mesh(mesh):
+                rows, g = gather_occurrences(mesh, rows, g)
+            update_shard(st, rows.reshape(-1), g.reshape(-1, g.shape[-1]), mesh, lr=lr_t, eps=eps, dedup=dedup)
         return state, metrics
 
     return steps

@@ -24,9 +24,13 @@ same state object.
 
 On a mesh (``parallel/mesh.py``, the steps' ``mesh`` argument) each rank
 holds a copy of the state on its device and steps on its block of every
-global batch; the loss is the global batch's, the gradients are summed
-over the ranks before the update, and every rank applies the same update,
-so the copies stay equal.
+global batch; the loss is the global batch's, the gradients of the
+replicated leaves are summed over the ranks before the update, and every
+rank applies the same update, so the copies stay equal. A row-sharded
+table (``model.row_sharded_keys``) and its optimizer leaves are the rank's
+block of rows: the row exchange's backward gives each rank its block's
+whole gradient, which no sum touches. A row-sharded store enters through
+``store_gather`` (``parallel/sharded_store.make_tower_batch_gather``).
 """
 
 from __future__ import annotations
@@ -203,14 +207,14 @@ def loss_and_grads(model, cfg, state: TrainState, batch: PairBatch, *, mesh=None
                                     mesh=mesh, sharded_ce=sharded_ce)
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
     if mesh is not None:
-        grads = sync_grads(grads, mesh)
+        grads = sync_grads(grads, mesh, sharded=model.row_sharded_keys)
     return loss.detach(), sim, grads
 
 
 def _train_on_batch(model, cfg, tx: Optimizer, state: TrainState, batch: PairBatch, with_metrics: bool,
                     mesh=None, sharded_ce=None):
     loss, sim, grads = loss_and_grads(model, cfg, state, batch, mesh=mesh, sharded_ce=sharded_ce)
-    tx.update(state.params, grads, state.opt_state)
+    tx.update(state.params, grads, state.opt_state, mesh=mesh, sharded=model.row_sharded_keys)
     state.step += 1
     metrics = {"loss": loss}
     if with_metrics and sim is not None:
@@ -284,12 +288,14 @@ def scanned_fn(inner, n_inner: int):
 
 
 def make_scanned_train_steps(
-    model: TwoTowerModel, cfg, tx: Optimizer, n_inner: int, *, with_metrics: bool = False, mesh=None
+    model: TwoTowerModel, cfg, tx: Optimizer, n_inner: int, *, with_metrics: bool = False, mesh=None,
+    store_gather: Callable | None = None,
 ):
     """``steps(state, pair_idx_stack [n_inner, B, 2], notice_store,
     company_store) -> (state, metrics stacked [n_inner])``: n_inner indexed
     steps per call (with ``mesh``, the rank's [n_inner, B/n, 2] blocks)."""
-    return scanned_fn(make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics, mesh=mesh), n_inner)
+    return scanned_fn(make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics, mesh=mesh,
+                                              store_gather=store_gather), n_inner)
 
 
 def sampled_scan_fn(inner, n_inner: int, batch_size: int, mesh=None):
@@ -322,13 +328,14 @@ def make_sampled_train_steps(
     *,
     with_metrics: bool = False,
     mesh=None,
+    store_gather: Callable | None = None,
 ):
     """``steps(state, sample_seed, pairs_dev [P, 2], notice_store,
     company_store) -> (state, metrics stacked [n_inner])``: n_inner train
     steps per call, each on a batch sampled on the device from the resident
     pair set; the host sends one integer seed per call. ``batch_size`` is
     the global batch; with ``mesh`` each rank trains its block of it."""
-    inner = make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics, mesh=mesh)
+    inner = make_indexed_train_step(model, cfg, tx, with_metrics=with_metrics, mesh=mesh, store_gather=store_gather)
     return sampled_scan_fn(inner, n_inner, batch_size, mesh)
 
 
@@ -369,15 +376,17 @@ def make_eval_step(model: TwoTowerModel, cfg, *, mesh=None):
     return eval_step
 
 
-def make_indexed_eval_steps(model: TwoTowerModel, cfg, *, mesh=None):
+def make_indexed_eval_steps(model: TwoTowerModel, cfg, *, mesh=None, store_gather: Callable | None = None):
     """Eval over device-resident stores: ``steps(state, idx_stack [n, B, 2],
     notice_store, company_store)`` gathers each batch on the device and
     returns the per-batch metrics stacked [n] (reference
     ``make_indexed_eval_steps``, train_step.py:472-519; a Python loop where
     the reference scans). Only the indices cross to the device. With
     ``mesh`` the stack is the global batches' (as the reference places it
-    replicated) and each rank evaluates its block of every batch."""
+    replicated) and each rank evaluates its block of every batch, gathered
+    by ``store_gather`` over row-sharded stores."""
     eval_core = make_eval_step(model, cfg, mesh=mesh)
+    gather = store_gather or default_tower_gather
 
     def steps(state, idx_stack: torch.Tensor, notice_store, company_store) -> dict[str, torch.Tensor]:
         if mesh is not None:
@@ -385,8 +394,8 @@ def make_indexed_eval_steps(model: TwoTowerModel, cfg, *, mesh=None):
         out = []
         for pair_idx in idx_stack:
             batch = PairBatch(
-                notice=default_tower_gather(notice_store, pair_idx[:, 0]),
-                company=default_tower_gather(company_store, pair_idx[:, 1]),
+                notice=gather(notice_store, pair_idx[:, 0]),
+                company=gather(company_store, pair_idx[:, 1]),
             )
             out.append(eval_core(state, batch))
         return _stack(out)
@@ -394,7 +403,8 @@ def make_indexed_eval_steps(model: TwoTowerModel, cfg, *, mesh=None):
     return steps
 
 
-def make_device_encode_fn(model: TwoTowerModel, side: str, chunk: int, *, mesh=None):
+def make_device_encode_fn(model: TwoTowerModel, side: str, chunk: int, *, mesh=None,
+                          store_gather: Callable | None = None):
     """Chunked single-side encoder over a device-resident (dense, cat_ids)
     store: ``encode(state, store, start)`` embeds rows [start, start +
     chunk) in inference form (reference ``make_device_encode_fn``,
@@ -403,15 +413,22 @@ def make_device_encode_fn(model: TwoTowerModel, side: str, chunk: int, *, mesh=N
     chunk always has ``chunk`` rows of a store that holds as many. With
     ``mesh`` each rank encodes its block of the chunk and every rank gets
     the whole chunk back (an all-gather), so ``chunk`` must divide the
-    mesh's data axis, as the reference requires (:542)."""
+    mesh's data axis, as the reference requires (:542). A row-sharded
+    store (``store_gather``, N its padded rows over the ranks) gives each
+    rank its block's rows through the exchange."""
     encode = make_encode_fn(model, side)
     block = mesh.block(chunk) if mesh is not None else slice(None)  # raises unless chunk divides
 
     def encode_chunk(state, store, start: int) -> torch.Tensor:
         dense, cat = store
-        start = max(0, min(int(start), dense.shape[0] - chunk))
+        n_rows = dense.shape[0] * (mesh.size if store_gather is not None else 1)
+        start = max(0, min(int(start), n_rows - chunk))
         rows = slice(start + (block.start or 0), start + (block.stop or chunk))
-        out = encode(state, TowerBatch(dense[rows], cat[rows]))
+        if store_gather is not None:
+            tb = store_gather(store, torch.arange(rows.start, rows.stop, device=dense.device))
+        else:
+            tb = TowerBatch(dense[rows], cat[rows])
+        out = encode(state, tb)
         return mesh.all_gather_rows(out) if mesh is not None else out
 
     return encode_chunk

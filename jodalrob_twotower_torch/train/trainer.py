@@ -28,13 +28,17 @@ records how many batches the epoch had consumed, and every random draw
 is seeded too, and resume skips the batches it had consumed.
 
 On a mesh (``Trainer(mesh=...)``, ``parallel/mesh.py``) every rank runs the
-trainer alike on its device, the dense forms only: each step trains the
-rank's block of the global batch (``parallel/sharded_train.py``), and
+trainer alike on its device, in every form: each step trains the rank's
+block of the global batch (``parallel/sharded_train.py``, and
+``parallel/sharded_sparse.py`` for sparse tables), and
 ``cfg.data.batch_size`` is the global batch, which must divide the data
-axis. Validation and the corpus eval run on the mesh too, rank 0 alone
-writes checkpoints, the metrics, the results CSV and the log, and every
-rank restores. Sparse tables, row-sharded stores and the compressed
-gradient sync on a mesh wait for ROADMAP A12b.
+axis. Tables are replicated or row-sharded as ``embedding_sharding``
+resolves (sparse tables always row-sharded), the stores replicated or, with
+``store_sharding="rows"``, row-sharded and read through the exchange in
+training, validation and the corpus encode alike. Rank 0 alone writes
+checkpoints (the row-sharded leaves gathered whole first), the metrics,
+the results CSV and the log, and every rank restores its share. The
+compressed gradient sync waits for ROADMAP A12b item 4.
 """
 
 from __future__ import annotations
@@ -58,6 +62,8 @@ from jodalrob_twotower_torch.evaluation.evaluator import (
     qualitative_assessment,
     sharded_corpus_retrieval_eval,
 )
+from jodalrob_twotower_torch.parallel.sharded_sparse import make_sharded_sampled_sparse, make_sharded_sparse_train
+from jodalrob_twotower_torch.parallel.sharded_store import resolve_store_placement
 from jodalrob_twotower_torch.parallel.sharded_train import make_sharded_indexed_train, make_sharded_sampled_steps
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.serving.service import FrozenState
@@ -75,6 +81,13 @@ from jodalrob_twotower_torch.train.train_step import (
 from jodalrob_twotower_torch.utils.profiling import MetricsLogger
 
 
+def host_store(fs: FeatureStore, dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A FeatureStore's (dense, cat_ids) as CPU tensors, the dense block at
+    ``dtype`` (cast on the host, so only the smaller copy crosses)."""
+    dense = torch.from_numpy(np.ascontiguousarray(fs.dense))
+    return (dense.to(dtype) if dtype is not None else dense), torch.from_numpy(np.ascontiguousarray(fs.cat_ids))
+
+
 @dataclasses.dataclass
 class TrainResult:
     state: object
@@ -85,8 +98,11 @@ class TrainResult:
     num_params: int
 
 
-def _count_params(params) -> int:
-    return int(sum(p.numel() for p in params.values()))
+def _count_params(params, mesh=None, sharded=frozenset()) -> int:
+    """The model's parameter count (a row-sharded leaf counts its ranks'
+    blocks together)."""
+    n = mesh.size if mesh is not None else 1
+    return int(sum(p.numel() * (n if k in sharded else 1) for k, p in params.items()))
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -124,6 +140,7 @@ class Trainer:
         self.log = log_fn if main else (lambda *_: None)
         self.evaluator = Evaluator(self.model, cfg, mesh=mesh)
         self._dev_stores = None
+        self._store_gather = None  # the exchange of row-sharded stores
         self._metrics_logger = MetricsLogger(cfg.metrics_jsonl) if cfg.metrics_jsonl and main else None
 
     def _init_state(self, total_steps: int):
@@ -160,9 +177,7 @@ class Trainer:
         cfg = self.cfg
         mesh = self.mesh
         if cfg.mesh.grad_compression != "none":
-            raise _not_ported("the compressed gradient sync", "A12b")
-        if mesh is not None and cfg.sparse_tables:
-            raise _not_ported("sparse tables on a mesh", "A12b")
+            raise _not_ported("the compressed gradient sync", "A12b item 4")
         if cfg.data.sample_on_device and batch_source is not None:
             raise ValueError(
                 "sample_on_device needs the whole pair set device-resident; "
@@ -178,12 +193,19 @@ class Trainer:
 
         put_idx = None
         if mesh is not None:
-            # the rank's copy of the state (rank 0's weights) and the mesh
-            # steps on its block of each global batch
+            # the rank's share of the state (rank 0's replicated weights, its
+            # own blocks of row-sharded tables) and the mesh steps on its
+            # block of each global batch
             self.model.init_flax(torch.Generator().manual_seed(cfg.seed))
-            state, tx, scan_steps, single_step, put_idx, _ = make_sharded_indexed_train(
-                model, cfg, mesh, b, total_steps, n_inner=n_inner)
-            num_params = _count_params(state.params)
+            if cfg.sparse_tables:
+                state, single_step, put_idx, _, scan_steps = make_sharded_sparse_train(
+                    model, cfg, mesh, b, total_steps, with_metrics=True, n_inner=n_inner,
+                    defer_updates=cfg.sparse_defer_updates)
+                num_params = _count_params(sparse_tables.merged_params(state), mesh, model.row_sharded_keys)
+            else:
+                state, tx, scan_steps, single_step, put_idx, _ = make_sharded_indexed_train(
+                    model, cfg, mesh, b, total_steps, n_inner=n_inner)
+                num_params = _count_params(state.params, mesh, model.row_sharded_keys)
             if batch_source is not None:
                 put_idx = None  # a streamed source yields the rank's own blocks
         elif cfg.sparse_tables:
@@ -204,7 +226,10 @@ class Trainer:
             # batches drawn on the device, IID with replacement, by a
             # generator keyed with the global step: draws are a function of
             # the step counter, so mid-epoch resume replays them exactly
-            if mesh is not None:
+            if mesh is not None and cfg.sparse_tables:
+                make_sampled = lambda k: make_sharded_sampled_sparse(  # noqa: E731
+                    model, cfg, mesh, state, k, b, total_steps, defer_updates=cfg.sparse_defer_updates)[0]
+            elif mesh is not None:
                 make_sampled = lambda k: make_sharded_sampled_steps(model, cfg, tx, mesh, k, b)[0]  # noqa: E731
             elif not cfg.sparse_tables:
                 make_sampled = lambda k: make_sampled_train_steps(model, cfg, tx, k, b)  # noqa: E731
@@ -227,7 +252,7 @@ class Trainer:
         start_epoch = 0
         skip_batches = 0  # mid-epoch resume: batches already trained this epoch
         if checkpoint_dir is not None:
-            ckpt = CheckpointManager(checkpoint_dir, cfg.checkpoint, mesh=mesh)
+            ckpt = CheckpointManager(checkpoint_dir, cfg.checkpoint, mesh=mesh, sharded=model.row_sharded_keys)
             ckpt.save_config(cfg)
             if resume:
                 last_epoch = ckpt.latest_epoch()
@@ -455,12 +480,19 @@ class Trainer:
     def prepare_device_eval(self) -> None:
         """Place both feature stores on the device, so validate() and
         corpus_eval() run device-resident (indices-only uploads) without a
-        prior train(): the standalone-eval entry point."""
+        prior train(): the standalone-eval entry point. On a mesh the stores
+        are placed per ``cfg.mesh.store_sharding`` (whole, or the rank's
+        block of rows read through the exchange), as the mesh steps read
+        them."""
         store_dt = resolve_store_dtype(self.cfg)
-        self._dev_stores = (
-            device_store(self.notice_store, dtype=store_dt, device=self.device),
-            device_store(self.company_store, dtype=store_dt, device=self.device),
-        )
+        if self.mesh is None:
+            self._dev_stores = (
+                device_store(self.notice_store, dtype=store_dt, device=self.device),
+                device_store(self.company_store, dtype=store_dt, device=self.device),
+            )
+            return
+        self._store_gather, put_store = resolve_store_placement(self.cfg, self.mesh)
+        self._dev_stores = tuple(put_store(host_store(fs, store_dt)) for fs in (self.notice_store, self.company_store))
 
     @staticmethod
     def verify_pair_alignment(batch_idx: np.ndarray, pairs: np.ndarray) -> None:
@@ -496,7 +528,8 @@ class Trainer:
         if self._dev_stores is not None and len(val_pairs) >= b:
             # device-resident eval: whole stacks of batches per call, only
             # indices over the link
-            return self.evaluator.evaluate_indexed(state, val_pairs, *self._dev_stores, batch_size=b)
+            return self.evaluator.evaluate_indexed(state, val_pairs, *self._dev_stores, batch_size=b,
+                                                   store_gather=self._store_gather)
         batches = (
             assemble_pair_batch(self.notice_store, self.company_store, idx)
             for idx in epoch_batches(val_pairs, b, shuffle=False)
@@ -510,7 +543,7 @@ class Trainer:
             # the big side encodes straight from the device-resident store
             # (on a mesh each rank a block of every chunk)
             corpus_emb = self.evaluator.encode_corpus_device(
-                state, self._dev_stores[1], len(self.company_store), side="company"
+                state, self._dev_stores[1], len(self.company_store), side="company", store_gather=self._store_gather
             )
         else:
             corpus_emb = self.evaluator.encode_corpus(

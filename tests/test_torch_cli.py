@@ -23,6 +23,7 @@ import torch
 from jodalrob_twotower_torch import eval as teval
 from jodalrob_twotower_torch import train as ttrain
 from jodalrob_twotower_torch import train_headline
+from jodalrob_twotower_torch.train import cli as tcli
 from jodalrob_twotower_torch.config import TrainConfig
 from jodalrob_twotower_torch.convert import state_dict_to_flax
 from jodalrob_twotower_torch.models import build_model
@@ -141,12 +142,27 @@ def test_headline_smoke_holds_its_gate(tmp_path):
 @pytest.mark.parametrize("flag", [["--mesh-devices", "2", "--store-sharding", "rows"], ["--grad-compression", "int16"],
                                   ["--store-sharding", "rows"], ["--compressed-negatives", "global"]])
 def test_unported_train_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        ttrain.main(["--force-cpu"] + flag)
+    """The compressed sync's flags raise (ROADMAP A12b item 4);
+    ``--store-sharding`` needs ``--mesh-devices`` and exits without it, as
+    scripts/train.py:226-228 does, and sets the store placement with it
+    (the mesh runs: tests/test_torch_mesh_cli.py)."""
+    if "--store-sharding" not in flag:
+        with pytest.raises(NotImplementedError, match="ROADMAP A12b item 4"):
+            ttrain.main(["--force-cpu"] + flag)
+    elif "--mesh-devices" not in flag:
+        with pytest.raises(SystemExit, match="--store-sharding requires --mesh-devices"):
+            ttrain.main(["--force-cpu"] + flag)
+    else:
+        cfg = tcli.configure(tcli.parse_args(["--force-cpu"] + flag))
+        assert cfg.mesh.store_sharding == "rows"
 
 
 def test_unported_eval_flags_raise(tmp_path):
-    for flag in (["--mesh-devices", "2", "--store-sharding", "rows"], ["--store-sharding", "rows"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            teval.main(["--model-dir", str(tmp_path)] + flag)
+    """``--store-sharding`` without ``--mesh-devices`` exits before reading
+    anything, as scripts/eval.py:126-127 does; with it the flag parses (the
+    mesh eval runs in tests/test_torch_mesh_cli.py)."""
+    with pytest.raises(SystemExit, match="--store-sharding requires --mesh-devices"):
+        teval.main(["--model-dir", str(tmp_path), "--store-sharding", "rows"])
+    args = teval.parse_args(["--model-dir", str(tmp_path), "--mesh-devices", "2", "--store-sharding", "rows"])
+    assert (args.mesh_devices, args.store_sharding) == (2, "rows")
     assert not list(tmp_path.iterdir())

@@ -78,6 +78,7 @@ def test_the_mesh_and_its_test_ranks_import_nothing_of_jax(path):
     """The mesh (``parallel/``) is scanned like every module; the module whose
     functions the mesh tests run in spawned ranks imports no JAX either, nor
     tests/torch_parity.py, which does."""
-    assert {"mesh.py", "distributed.py", "sharded_embedding.py", "sharded_train.py"} <= {p.name for p in PARALLEL}
+    assert {"mesh.py", "distributed.py", "sharded_embedding.py", "sharded_train.py", "sharded_store.py",
+            "sharded_sparse.py"} <= {p.name for p in PARALLEL}
     assert path in SOURCES or path == MESH_WORKERS
     assert not _imported_roots(path) & (FORBIDDEN | {"torch_parity"})

@@ -12,8 +12,12 @@ in-process on conftest's virtual devices).
   equal, through the indexed eval and ``--host-eval``; the serve JSONL naming the same companies in the same order,
   scores within 1e-5 (tests/test_torch_serve.py's tolerance), from the int8
   and the exact ShardedIndex.
-* The flags of A12b still raise, and a mesh larger than the visible cards
-  is refused as the reference refuses it."""
+* ``--store-sharding rows`` (A12b item 2): the training CLI's run on the
+  mesh bit-equal to its replicated-store run (the exchange reads exact
+  rows), the eval CLI's report against the reference CLI's with the same
+  flag (the tolerances above). The compressed sync's flags (A12b item 4)
+  still raise, and a mesh larger than the visible cards is refused as the
+  reference refuses it."""
 
 import contextlib
 import csv
@@ -168,9 +172,35 @@ def test_serve_cli_on_the_mesh_matches_the_reference_cli(dirs, index):
     (ttrain.main, ["--compressed-negatives", "global"]),
     (teval.main, ["--model-dir", "missing", "--store-sharding", "rows"]),
 ])
-def test_a12b_flags_still_raise(main, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
-        main(["--force-cpu", *MESH, *flags])
+def test_a12b_flags_still_raise(main, flags, request):
+    """The compressed sync's flags raise (A12b item 4); ``--store-sharding
+    rows`` runs (items 1-2): training bit-equal to the replicated-store
+    run, the eval report as the reference CLI's."""
+    if "--store-sharding" not in flags:
+        with pytest.raises(NotImplementedError, match="ROADMAP A12b item 4"):
+            main(["--force-cpu", *MESH, *flags])
+        return
+    tmp = request.getfixturevalue("tmp_path")
+    if main is ttrain.main:
+        runs, capfd = {}, request.getfixturevalue("capfd")
+        for tag, extra in (("replicated", []), ("rows", flags)):
+            out = tmp / tag
+            assert main([str(a) for a in ["--force-cpu", *TRAIN_ARGS, *MESH, *extra, "--output-dir", out,
+                                          "--results-csv", tmp / f"{tag}.csv", "--no-corpus-eval"]]) == 0
+            runs[tag] = torch.load(out / "final" / "state.pt", weights_only=True)
+        assert "stores rows" in capfd.readouterr().out
+        for k, v in runs["replicated"]["params"].items():
+            assert torch.equal(runs["rows"]["params"][k], v), k
+        return
+    dirs = request.getfixturevalue("dirs")
+    got_path, want_path = tmp / "port_rows.json", tmp / "jax_rows.json"
+    argv = ["--model-dir", dirs.port, "--force-cpu", *EVAL_ARGS, *MESH, *flags[2:], "--output", got_path]
+    assert main([str(a) for a in argv]) == 0
+    _quiet(_script("eval"), ["--model-dir", dirs.ref, *EVAL_ARGS, *MESH, *flags[2:], "--output", want_path])
+    got, want = json.loads(got_path.read_text()), json.loads(want_path.read_text())
+    for k, v in want["in_batch"].items():
+        assert abs(got["in_batch"][k] - v) <= 1e-4 * max(1.0, abs(v)), (k, got["in_batch"][k], v)
+    assert got["corpus"] == want["corpus"]
 
 
 def test_a_mesh_beyond_the_visible_cards_is_refused(monkeypatch):

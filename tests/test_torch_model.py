@@ -144,13 +144,20 @@ def test_build_model_single_device_only():
     cfg = TorchTrainConfig()
     model = build_model(t_schema, cfg)
     assert not model.training
-    # a mesh of one rank is one device; row-sharded tables on a larger mesh
-    # wait for ROADMAP A12b
+    # a mesh of one rank is one device; on a larger mesh "gspmd_rows" holds
+    # the rank's block of each table's rows
     one = build_model(t_schema, cfg, mesh=SimpleNamespace(size=1))
-    assert one.notice_tower.mesh is None
-    with pytest.raises(NotImplementedError, match="A12b"):
-        build_model(t_schema, cfg.replace(mesh=MeshConfig(embedding_sharding="gspmd_rows")),
-                    mesh=SimpleNamespace(size=2))
+    assert one.notice_tower.mesh is None and not one.row_sharded_keys
+    from jodalrob_twotower_torch.parallel.mesh import make_mesh
+
+    two = make_mesh(["cpu"])
+    two.rank, two.size, two.shape = 1, 2, {"data": 2, "model": 1}  # rank 1 of 2, seen from this process
+    rows = build_model(t_schema, cfg.replace(mesh=MeshConfig(embedding_sharding="gspmd_rows")), mesh=two)
+    assert rows.row_sharded_keys == {"notice_tower.embeddings.table", "company_tower.embeddings.table"}
+    emb = rows.notice_tower.embeddings
+    assert emb.table.shape == (emb.total_rows // 2, emb.embed_dim) and emb.row_offset == emb.total_rows // 2
+    with pytest.raises(NotImplementedError, match="A12b item 4"):
+        build_model(t_schema, cfg.replace(mesh=MeshConfig(grad_compression="int16")), mesh=two)
     assert not any(m.use_pallas for m in model.modules() if isinstance(m, EmbeddingCollection))
     # the training form follows the module's flag and needs a generator for dropout
     model.train()

@@ -96,7 +96,10 @@ def _patched_trainer(schema, cfg, stores, start, mesh):
     from jodalrob_twotower_torch.train.trainer import Trainer
 
     def init_from(self, generator):
-        self.load_state_dict({k: torch.from_numpy(v) for k, v in start.items()})
+        from jodalrob_twotower_torch.parallel.mesh import shard_state
+
+        sd = {k: torch.from_numpy(v) for k, v in start.items()}
+        self.load_state_dict(shard_state(sd, mesh, self.row_sharded_keys))
         return self
 
     TwoTowerModel.init_flax = init_from  # this rank's process only
@@ -175,3 +178,261 @@ def hangs() -> None:
 
     if torch.distributed.get_rank():
         time.sleep(3600)
+
+
+# -- row-sharded tables and stores, the sparse mesh (test_torch_mesh_rows.py,
+#    test_torch_mesh_sparse.py) -------------------------------------------------
+
+
+def _mesh():
+    return make_mesh(["cpu"] * torch.distributed.get_world_size())
+
+
+def exchange_checks(table: np.ndarray, rows: np.ndarray, mats: dict, store_rows: np.ndarray) -> dict:
+    """The row exchange on this rank: the lookup's forward and its table
+    gradient (of sum(2 y)) on the rank's blocks, its shape errors, and the
+    store gather of each matrix in ``mats`` (the rank's block of the
+    padded matrix) at the rank's block of ``store_rows``, and its ragged
+    refusal."""
+    from jodalrob_twotower_torch.parallel.sharded_embedding import make_sharded_lookup
+    from jodalrob_twotower_torch.parallel.sharded_store import make_store_gather, put_row_sharded_store
+
+    mesh = _mesh()
+    lookup = make_sharded_lookup(mesh)
+    t = torch.from_numpy(table[mesh.block(table.shape[0])].copy()).requires_grad_(True)
+    out = lookup(t, torch.from_numpy(rows[mesh.block(rows.shape[0])].copy()))
+    (out * 2.0).sum().backward()
+    res = {"lookup": out.detach().numpy(), "grad": t.grad.numpy(), "errors": []}
+    for shard, ids, total in ((torch.zeros(50, 8), torch.zeros(4, 2, dtype=torch.int32), 100 + 1),
+                              (torch.zeros(64, 8), torch.zeros(3, 2, dtype=torch.int32), 100)):
+        try:
+            lookup(shard, ids, total)
+            res["errors"].append(None)
+        except ValueError as e:
+            res["errors"].append(str(e))
+    gather = make_store_gather(mesh)
+    mine = torch.from_numpy(store_rows[mesh.block(store_rows.shape[0])].copy())
+    res["stores"] = {}
+    for name, mat in mats.items():
+        shard = put_row_sharded_store((mat,), mesh)[0] if name != "bf16" else \
+            put_row_sharded_store((torch.from_numpy(mat).to(torch.bfloat16),), mesh)[0]
+        got = gather(shard, mine)
+        res["stores"][name] = (got.float() if name == "bf16" else got).numpy()
+        res["shard_rows"] = shard.shape[0]
+    try:
+        gather(torch.zeros(30, 8), mine, 61)
+        res["ragged"] = None
+    except ValueError as e:
+        res["ragged"] = str(e)
+    return res
+
+
+def _joined(sd: dict, mesh, keys) -> dict:
+    from jodalrob_twotower_torch.parallel.mesh import join_state
+
+    return _np(join_state(dict(sd), mesh, keys))
+
+
+def rows_steps(schema, cfgs: dict, start: dict, stores: dict, idx: np.ndarray) -> dict:
+    """Per config name: the mesh steps (``make_sharded_indexed_train``'s
+    single step) on this rank's blocks of the global batches ``idx`` from
+    the one-device state dict ``start``, cut to the rank's blocks: each
+    step's loss, the joined params and accumulators, this rank's
+    replicated leaves, its table blocks' rows untouched by any batch, and
+    each table's rank block shape. Config names starting "single" run the
+    port's one-device steps on the whole batches instead."""
+    from jodalrob_twotower_torch.models import build_model
+    from jodalrob_twotower_torch.parallel.mesh import shard_state
+    from jodalrob_twotower_torch.parallel.sharded_train import make_sharded_indexed_train
+    from jodalrob_twotower_torch.train import train_step as tts
+
+    mesh = _mesh()
+    out = {}
+    for name, cfg in cfgs.items():
+        if name.startswith("single"):
+            model = TwoTowerModel(schema, cfg.model)
+            model.load_state_dict({k: torch.from_numpy(v) for k, v in start.items()})
+            state, tx = tts.create_train_state(model, cfg, cfg.seed, 10, device="cpu")
+            step = tts.make_indexed_train_step(model, cfg, tx)
+            s = _stores(stores)
+            losses = []
+            for i in idx:
+                state, m = step(state, torch.from_numpy(i.astype(np.int64)), s["notice"], s["company"])
+                losses.append(float(m["loss"]))
+            out[name] = {"losses": losses, "state": _np({**state.params, **state.batch_stats}),
+                         "acc": _np(state.opt_state["acc"])}
+            continue
+        model = build_model(schema, cfg, mesh)
+        keys = model.row_sharded_keys
+        model.load_state_dict(shard_state({k: torch.from_numpy(v) for k, v in start.items()}, mesh, keys))
+        state, tx, _, single, put_idx, put_store = make_sharded_indexed_train(model, cfg, mesh, idx.shape[1], 10,
+                                                                            n_inner=1)
+        n_store = put_store(stores["notice"])
+        c_store = put_store(stores["company"])
+        losses, states, replicated = [], [], []
+        for i in idx:
+            state, m = single(state, put_idx(i), n_store, c_store)
+            losses.append(float(m["loss"]))
+            states.append(_joined({**state.params, **state.batch_stats}, mesh, keys))
+            replicated.append(_np({k: v for k, v in state.params.items() if k not in keys}))
+        out[name] = {"losses": losses, "states": states, "replicated": replicated,
+                     "acc": _joined(state.opt_state["acc"], mesh, keys),
+                     "shard_shapes": {k: tuple(state.params[k].shape) for k in keys},
+                     "store_rows": int(n_store[0].shape[0]), "row_sharded": sorted(keys)}
+    return out
+
+
+def rows_trainer(schema, cfgs: dict, stores: dict, start: dict, train_pairs, val_pairs, tmp: str) -> dict:
+    """On this rank: the mesh Trainer under each config (row-sharded tables
+    and stores, and the replicated stores beside them), its validation and
+    corpus eval from the device stores against the host-assembled ones, the
+    corpus encode at a chunk that does not divide the mesh, the eval batch
+    refusal; a row-sharded mesh checkpoint preempted after its second step
+    save and resumed against a straight run, and its files."""
+    import dataclasses
+    from pathlib import Path
+
+    from jodalrob_twotower_torch.train.checkpoint import CheckpointManager
+
+    mesh = _mesh()
+    out = {}
+    for name, cfg in cfgs.items():
+        trainer = _patched_trainer(schema, cfg, stores, start, mesh)
+        res = trainer.train(train_pairs, val_pairs, n_inner=2)
+        state = res.state
+        row = {"history": res.history, "rows_store": trainer._store_gather is not None}
+        dev_val, dev_corpus = trainer.validate(state, val_pairs), trainer.corpus_eval(state, val_pairs)
+        view = trainer._eval_view(state)
+        row["odd_chunk"], row["tiny_chunk"] = (trainer.evaluator.encode_corpus_device(
+            view, trainer._dev_stores[1], len(trainer.company_store), chunk=chunk,
+            store_gather=trainer._store_gather).numpy() for chunk in (33, 1))
+        try:
+            trainer.evaluator.evaluate_indexed(view, val_pairs, *trainer._dev_stores, batch_size=31,
+                                               store_gather=trainer._store_gather)
+            row["odd_batch"] = None
+        except ValueError as e:
+            row["odd_batch"] = str(e)
+        dev_stores, trainer._dev_stores = trainer._dev_stores, None
+        host_val, host_corpus = trainer.validate(state, val_pairs), trainer.corpus_eval(state, val_pairs)
+        trainer._dev_stores = dev_stores
+        row.update(dev_val=dev_val, host_val=host_val, dev_corpus=(dev_corpus.recall, dev_corpus.mrr),
+                   host_corpus=(host_corpus.recall, host_corpus.mrr),
+                   corpus_emb=trainer.evaluator.encode_corpus(view, trainer.company_store.dense,
+                                                              trainer.company_store.cat_ids).numpy())
+        out[name] = row
+
+    cfg = cfgs["rows"]
+    ckpt_cfg = cfg.replace(checkpoint=dataclasses.replace(cfg.checkpoint, save_every_steps=2))
+    d = Path(tmp) / "ckpt"
+    saves = []
+    real_save = CheckpointManager.save_step
+
+    def save_then_stop(self, state, epoch, batch):
+        real_save(self, state, epoch, batch)
+        saves.append(int(state.step))
+        if len(saves) == 2:
+            raise KeyboardInterrupt("simulated preemption")
+
+    CheckpointManager.save_step = save_then_stop
+    try:
+        _patched_trainer(schema, ckpt_cfg, stores, start, mesh).train(
+            train_pairs, val_pairs, checkpoint_dir=d, corpus_eval=False, n_inner=1)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        CheckpointManager.save_step = real_save
+    trainer = _patched_trainer(schema, ckpt_cfg, stores, start, mesh)
+    resumed = trainer.train(train_pairs, val_pairs, checkpoint_dir=d, resume=True, corpus_eval=False, n_inner=1)
+    again = _patched_trainer(schema, ckpt_cfg, stores, start, mesh).train(
+        train_pairs, val_pairs, corpus_eval=False, n_inner=1)
+    keys = trainer.model.row_sharded_keys
+
+    def whole(st):
+        return {**_joined({**st.params, **st.batch_stats}, mesh, keys),
+                **{f"acc/{k}": v for k, v in _joined(st.opt_state["acc"], mesh, keys).items()}}
+
+    out["resume"] = {"saved_at": saves, "step": resumed.state.step, "resumed": whole(resumed.state),
+                     "straight": whole(again.state), "files": sorted(p.name for p in d.iterdir()),
+                     "shard_rows": {k: int(resumed.state.params[k].shape[0]) for k in keys}}
+    # the final checkpoint restored into the rank's state again
+    back = CheckpointManager(d, ckpt_cfg.checkpoint, mesh=mesh, sharded=keys).restore("final", resumed.state)
+    out["resume"]["restored_equal"] = all(torch.equal(back.params[k], resumed.state.params[k])
+                                          for k in resumed.state.params) and all(
+        torch.equal(back.opt_state["acc"][k], resumed.state.opt_state["acc"][k]) for k in keys)
+    return out
+
+
+def sparse_runs(schema, cfgs: dict, start: dict, stores: dict, batches: dict, pairs: np.ndarray,
+                sample_seed: int) -> dict:
+    """Per config name, on this rank: the mesh sparse steps
+    (``make_sharded_sparse_train``) from the one-device state dict
+    ``start`` on the rank's blocks of the global batches
+    ``batches.get(name, batches["default"])``, one step per batch (or, for
+    names ending "deferred", one window over all of them): the losses, the
+    joined tables, accumulators and dense params, the rank's table block
+    rows and its replicated leaves; names starting "single" run the port's
+    one-device sparse steps instead. "sampled" draws as many batches on the
+    device (``make_sharded_sampled_sparse``, from ``sample_seed``); "learn"
+    runs 20 steps over the batches repeated."""
+    from jodalrob_twotower_torch.models import build_model
+    from jodalrob_twotower_torch.parallel.mesh import shard_state
+    from jodalrob_twotower_torch.parallel.sharded_sparse import make_sharded_sampled_sparse, make_sharded_sparse_train
+    from jodalrob_twotower_torch.train import sparse_tables as tst
+
+    mesh = _mesh()
+    s = _stores(stores)
+    out = {}
+
+    def result(state, losses, keys_mesh):
+        tables = {f"{f}/{leaf}": getattr(getattr(state, f), leaf) for f in tst.TABLE_KEYS.values()
+                  for leaf in ("table", "accumulator")}
+        whole = _joined(tables, keys_mesh, set(tables)) if keys_mesh is not None else _np(tables)
+        return {"losses": losses, "tables": whole, "dense": _np(state.dense_params),
+                "shard_rows": {k: int(v.shape[0]) for k, v in tables.items()}}
+
+    for name, cfg in cfgs.items():
+        idx = batches.get(name, batches["default"])
+        n = len(idx)
+        if name.startswith("single"):
+            model = TwoTowerModel(schema, cfg.model)
+            model.load_state_dict({k: torch.from_numpy(v) for k, v in start.items()})
+            state, tx = tst.create_sparse_train_state(model, cfg, cfg.seed, 10, device="cpu")
+            if name.endswith("deferred"):
+                steps = tst.make_deferred_sparse_steps(model, cfg, tx, 10, n)
+                state, m = steps(state, torch.from_numpy(idx.astype(np.int64)), s["notice"], s["company"])
+                losses = m["loss"].tolist()
+            else:
+                step = tst.make_sparse_train_step(model, cfg, tx, 10)
+                losses = []
+                for i in idx:
+                    state, m = step(state, torch.from_numpy(i.astype(np.int64)), s["notice"], s["company"])
+                    losses.append(float(m["loss"]))
+            out[name] = result(state, losses, None)
+            continue
+        if name == "plain_model":  # built without the mesh: the sparse state cuts its tables itself
+            model = TwoTowerModel(schema, cfg.model)
+            model.load_state_dict({k: torch.from_numpy(v) for k, v in start.items()})
+        else:
+            model = build_model(schema, cfg, mesh)
+            model.load_state_dict(shard_state({k: torch.from_numpy(v) for k, v in start.items()}, mesh,
+                                              model.row_sharded_keys))
+        n_inner = n if name.endswith("deferred") else None
+        built = make_sharded_sparse_train(model, cfg, mesh, idx.shape[1], 10, n_inner=n_inner,
+                                          defer_updates=n_inner is not None)
+        state, step, put_batch, put_store = built[:4]
+        n_store, c_store = put_store(stores["notice"]), put_store(stores["company"])
+        losses = []
+        if name.endswith("deferred"):
+            state, m = built[4](state, put_batch(idx), n_store, c_store)
+            losses = m["loss"].tolist()
+        elif name == "sampled":
+            steps, put_pairs = make_sharded_sampled_sparse(model, cfg, mesh, state, n, idx.shape[1], 10)
+            state, m = steps(state, sample_seed, put_pairs(pairs), n_store, c_store)
+            losses = m["loss"].tolist()
+        else:
+            for i in idx:
+                state, m = step(state, put_batch(i), n_store, c_store)
+                losses.append(float(m["loss"]))
+        out[name] = result(state, losses, mesh)
+        out[name]["replicated"] = _np({**state.dense_params, **state.batch_stats})
+    return out
