@@ -11,8 +11,10 @@ NVIDIA card.
    near-tie rule, also against a diagonal below every S_ii, which only a
    rank that leaves the diagonal's own column out by index gets right), and
    times kernel, plain version and the nearest library call beside the
-   kernel's bound: the row gather (K4) at config 3's shape, on a bf16 table
-   and a ragged batch; the table gradient (K2) and its [D, R] form (K3,
+   kernel's bound: the row gather (K4) at config 3's shape, on a bf16 table,
+   a ragged batch and int64 rows past 2^31, and its zero form on a mesh
+   rank's block with the block's edge ids planted (one CUDA kernel per
+   masked gather, counted by the profiler); the table gradient (K2) and its [D, R] form (K3,
    equal to K2's output transposed) at the training path's two shapes, on a
    skewed batch and at R=65,536 (K2 also at each cluster size), with a
    ragged batch for agreement and a cluster launch the card refuses, which
@@ -22,8 +24,8 @@ NVIDIA card.
    (K8); all of K5-K11 again at D=256 and 512 (the backward also at
    D=1024, its chunked branch past the wgmma one, for agreement only), and
    K8's diagonal against the sweep's S_ii bit for bit at D=128, 256 and 512;
-   the backward's, the lean forward's, the statistics' and the lookup's
-   builds must not spill, nor the wgmma ones serialize (their ptxas reports
+   the backward's, the lean forward's, the statistics', the lookup's and
+   the row gather's builds must not spill, nor the wgmma ones serialize (their ptxas reports
    are printed); at
    B=65536 the statistics forward against the lean forward, and the
    label-smoothed loss and its gradients finite.
@@ -149,8 +151,8 @@ NVIDIA card.
    leaves bit-equal, rows no batch touched bit-equal to their start, then
    three timed calls of 8 steps; launches exact per rank and step, peak
    memory per rank, and the seconds to gather a checkpoint's row-sharded
-   leaves to rank 0. The kernel phase holds K4 on a rank's block (ids over
-   the whole table, clamped, zeroed out of range) bit-exact.
+   leaves to rank 0. The kernel phase holds K4's zero form on a rank's
+   block (ids over the whole table, rows outside the block zero) bit-exact.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
 nonzero; so does a machine without a CUDA device. The second-to-last line is
@@ -987,63 +989,102 @@ def scaled_rows(batch: int, seed: int = SEED) -> tuple[torch.Tensor, int]:
     return torch.from_numpy((ids + offsets[None, :]).astype(np.int32)).to("cuda"), total
 
 
-def row_gather_phase(flush: torch.Tensor) -> list[dict]:
+def row_gather_bytes(ids: torch.Tensor, read_rows: torch.Tensor, row_bytes: int) -> int:
+    """Least bytes K4 must move: the ids read, each distinct row of
+    ``read_rows`` (the rows the function reads) read once, the output
+    written once."""
+    return ids.numel() * ids.element_size() + (int(torch.unique(read_rows).numel()) + ids.numel()) * row_bytes
+
+
+def row_gather_case(flush: torch.Tensor | None, case: str, fn, plain, library, nbytes: int, **extra) -> dict:
+    """One K4 case's row: ``fn`` (through the module, so a fault planted
+    there shows here) bit-exact against ``plain``; with ``flush``, the
+    kernel, the plain version and ``library`` timed beside the bound."""
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    equal = torch.equal(got.view(torch.int16 if got.dtype == torch.bfloat16 else torch.int32),
+                        want.view(torch.int16 if want.dtype == torch.bfloat16 else torch.int32))
+    err = float((got.float() - want.float()).abs().nan_to_num(0.0).max())
+    check(equal and got.dtype == want.dtype, f"row_gather != plain version, case {case} (max abs err {err})")
+    row = {"case": case, "equal": equal, "max_abs_err": err, "shape": list(got.shape), "dtype": str(got.dtype),
+           **extra, **bound(0, nbytes)}
+    if flush is not None:
+        timed(row, fn, plain, library, flush)
+    return row
+
+
+def row_gather_phase(flush: torch.Tensor | None) -> list[dict]:
     """K4 at the scaled_dense path's shape (a [10,000,384, 64] f32 table,
-    rows [8192, 8]), on a bf16 table of that shape and on a ragged B=1000
-    batch with rows at -1 and past the table (clamped to the edge rows):
-    bit-exact against its plain version, timed beside index_select."""
+    rows [8192, 8]), on a bf16 table of that shape, on a ragged B=1000 batch
+    with rows at -1 and past the table and on int64 rows with ids at 2^32 + 5
+    and -2^32 + 3 (clamped to the edge rows, not wrapped); then its zero form
+    on a mesh rank's block (``masked_shard_gather``, the mesh_rows path's
+    call), on rank 1's block with the ids of the f32 case, and on rank 1's
+    and rank 0's blocks with the block's edge ids planted, as int32 and
+    int64. Every case bit-exact against its plain version; with ``flush``
+    timed beside index_select on the clamped rows. One masked gather runs
+    one CUDA kernel, K4 (the profiler counts them)."""
     rows, total = scaled_rows(CE_BATCH)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     table = torch.randn(total, SCALED_DIM, generator=gen, device="cuda")
     ragged = rows[:1000].clone()
     ragged[::97, 0] = -1
     ragged[5::101, 3] = total + 3
+    wide = rows.long()  # C12: int64 ids read at their width, past 2^31 clamped as XLA clamps
+    wide[::97, 0] = 2**32 + 5
+    wide[5::101, 3] = -(2**32) + 3
     results = []
     for case, t, r in ((f"f32 table [{total}, {SCALED_DIM}] rows [{CE_BATCH}, {SCALED_FEATURES}]", table, rows),
                        (f"bf16 table [{total}, {SCALED_DIM}] rows [{CE_BATCH}, {SCALED_FEATURES}]",
                         table.to(torch.bfloat16), rows),
-                       (f"ragged B=1000 rows [1000, {SCALED_FEATURES}], -1 and R+3 clamped", table, ragged)):
-        # through the module, so a fault planted there (planted_faults.py) shows here
-        got, want = el.embedding_lookup_pallas(t, r), embedding_lookup_pallas_plain(t, r)
-        torch.cuda.synchronize()
-        equal = torch.equal(got, want)
-        err = float((got.float() - want.float()).abs().max())
-        check(equal and got.dtype == t.dtype, f"row_gather != plain version, case {case} (max abs err {err})")
+                       (f"ragged B=1000 rows [1000, {SCALED_FEATURES}], -1 and R+3 clamped", table, ragged),
+                       (f"int64 rows [{CE_BATCH}, {SCALED_FEATURES}], 2^32+5 and -2^32+3 clamped", table, wide)):
         safe = r.reshape(-1).long().clamp(0, total - 1)
-        # ids in, each referenced row read once, the output written once
-        nbytes = r.numel() * 4 + (int(torch.unique(safe).numel()) + r.numel()) * SCALED_DIM * t.element_size()
-        row = {"case": case, "equal": equal, "max_abs_err": err, "shape": list(got.shape), "dtype": str(got.dtype),
-               **bound(0, nbytes)}
-        timed(row, lambda: embedding_lookup_pallas(t, r), lambda: embedding_lookup_pallas_plain(t, r),
-              lambda: t.index_select(0, safe), flush)
+        results.append(row_gather_case(
+            flush, case, lambda t=t, r=r: el.embedding_lookup_pallas(t, r),
+            lambda t=t, r=r: embedding_lookup_pallas_plain(t, r), lambda t=t, safe=safe: t.index_select(0, safe),
+            row_gather_bytes(r, safe, SCALED_DIM * t.element_size())))
+        print("kernel row_gather", json.dumps(results[-1]), flush=True)
+    edge = table[total - 1], table[0]
+    got = el.embedding_lookup_pallas(table, wide)
+    check(torch.equal(got[0, 0], edge[0]) and torch.equal(got[5, 3], edge[1]),
+          "row_gather: int64 ids 2^32+5 and -2^32+3 did not read rows R-1 and 0")
+    # the zero form on a rank's block [R/2, 64] of the table (the mesh_rows
+    # path: ids over the whole table, about half inside the block)
+    block_rows = total // 2
+    ids = rows.reshape(-1)
+    for rank, id_dtype, planted in ((1, torch.int32, False), (1, torch.int32, True), (1, torch.int64, True),
+                                    (0, torch.int32, True), (0, torch.int64, True)):
+        offset = rank * block_rows
+        block = table[offset:offset + block_rows]
+        case_ids = ids.to(id_dtype)
+        if planted:  # the edge ids: just outside, first, last, just past, -1, past the table
+            case_ids = case_ids.clone()
+            edges = [offset - 1, offset, offset + block_rows - 1, offset + block_rows, -1, total + 3]
+            if id_dtype == torch.int64:  # an id that an int32 cast would wrap into the block
+                edges.append(offset + 2**32)
+            case_ids[: 101 * len(edges): 101] = torch.tensor(edges, dtype=id_dtype, device="cuda")
+        local, in_range = local_rows(case_ids, offset, block_rows)
+        case = (f"masked shard [{block_rows}, {SCALED_DIM}] of [{total}, {SCALED_DIM}] at {offset}, "
+                f"ids [{ids.numel()}] {str(id_dtype).split('.')[-1]}" + (", edge ids planted" if planted else ""))
+        row = row_gather_case(
+            flush, case, lambda b=block, i=case_ids, o=offset: masked_shard_gather(b, i, o, use_pallas=True),
+            lambda b=block, i=case_ids, o=offset: el.embedding_lookup_pallas_shard_plain(b, i, o),
+            lambda b=block, lo=local: b.index_select(0, lo),
+            # only the rows inside the block are read: the rest cost their write
+            row_gather_bytes(case_ids, local[in_range], SCALED_DIM * 4),
+            in_range_share=float(in_range.float().mean()))
+        if flush is not None and not planted:  # the masked case timed as the whole masked gather
+            row["masked_gather_ms"] = median_ms(lambda: masked_shard_gather(block, ids, offset, use_pallas=True), flush)
+            one = device_breakdown(lambda: masked_shard_gather(block, ids, offset, use_pallas=True), repeats=1)
+            row["device_kernels_per_call"] = one["device_events_per_call"]
+            row["device_kernels"] = list(one["top_ms"])
+            print("row_gather masked gather on the card " + json.dumps(one), flush=True)
+            check(one["device_events_per_call"] == 1 and "row_gather" in row["device_kernels"][0],
+                  f"masked_shard_gather ran {one['device_events_per_call']} CUDA kernels, not K4 alone: "
+                  f"{row['device_kernels']}")
         print("kernel row_gather", json.dumps(row), flush=True)
         results.append(row)
-    # a row-sharded table's local gather (mesh_rows): rank 1 of 2 holds rows
-    # [R/2, R); ids across the whole table, clamped into the shard, then
-    # zeroed out of range, through the kernel against the plain gather
-    offset = total // 2
-    shard = table[offset:]
-    case = f"masked shard [{total - offset}, {SCALED_DIM}] of [{total}, {SCALED_DIM}] at {offset}, ids [{CE_BATCH * SCALED_FEATURES}]"
-    ids = rows.reshape(-1)
-    got = masked_shard_gather(shard, ids, offset, use_pallas=True)
-    local, in_range = local_rows(ids, offset, shard.shape[0])
-    want = embedding_lookup_pallas_plain(shard, local).masked_fill_(~in_range[:, None], 0)
-    torch.cuda.synchronize()
-    equal = torch.equal(got, want)
-    err = float((got - want).abs().max())
-    check(equal, f"row_gather masked shard != plain version (max abs err {err})")
-    # the kernel's own launch on the clamped ids, as in the other cases; the
-    # whole masked gather (the ids' offset and clamp, the kernel, the zeroing) beside it
-    nbytes = ids.numel() * 4 + (int(torch.unique(local).numel()) + ids.numel()) * SCALED_DIM * 4
-    row = {"case": case, "equal": equal, "max_abs_err": err, "shape": list(got.shape), "dtype": str(got.dtype),
-           "in_range_share": float(in_range.float().mean()), **bound(0, nbytes)}
-    timed(row, lambda: el.embedding_lookup_pallas(shard, local), lambda: embedding_lookup_pallas_plain(shard, local),
-          lambda: shard.index_select(0, local), flush)
-    row["masked_gather_ms"] = median_ms(lambda: masked_shard_gather(shard, ids, offset, use_pallas=True), flush)
-    row["masked_plain_ms"] = median_ms(
-        lambda: embedding_lookup_pallas_plain(shard, local).masked_fill_(~in_range[:, None], 0), flush)
-    print("kernel row_gather", json.dumps(row), flush=True)
-    results.append(row)
     return results
 
 
@@ -3370,6 +3411,7 @@ def main() -> int:
     fwd_build = fwd_build_report()
     stats_build = stats_build_report()
     lookup_build = build_report("onehot_lookup")
+    gather_build = build_report("row_gather")
 
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     kernels = kernel_phase(flush)
@@ -3488,6 +3530,7 @@ def main() -> int:
         "fused_ce_fwd_build": fwd_build,
         "fused_stats_build": stats_build,
         "onehot_lookup_build": lookup_build,
+        "row_gather_build": gather_build,
         "step_check": {k: step_check[k] for k in ("loss_abs_err", "max_grad_rel_err", "worst_share_of_tolerance")},
         "mesh": {"ranks": mesh["ranks"], "backend": mesh["backend"], "ranks_s": mesh["ranks_s"], "cli_s": mesh["cli_s"],
                  "trainer": {k: mesh["trainer"][k] for k in ("steps", "train_loss", "val_loss", "corpus_recall@100",

@@ -31,7 +31,19 @@ parent's code times the parent:
   two calls bit-equal, timed beside its bound and the library call;
 * ``--kernel lookup``: the one-hot lookup (K1) through its
   ``chip_smoke.lookup_phase`` (the notice, serving, company and ragged
-  cases, bit-exact and timed).
+  cases, bit-exact and timed);
+* ``--kernel row_gather``: the row gather (K4) on inputs built here, the
+  same in every tree (BASELINE config 3's [10,000,384, 64] f32 table, ids
+  uniform over each feature's 1.25M from numpy seed 0): through
+  ``embedding_lookup_pallas`` at rows [8192, 8] in f32 and bf16, a ragged
+  B=1000 batch (rows at -1 and past the table), rank 1's block [R/2, 64]
+  of 2 with the 65,536 ids clamped into it and one id (the launch's floor);
+  then the whole masked gather of that block through
+  ``masked_shard_gather(block, ids, offset, use_pallas=True)``. Each
+  bit-exact against its plain arithmetic, timed beside its bound and
+  ``index_select`` on the clamped rows, and timed again after an L2 flush
+  that reads (``ms_clean_l2``: the L2 then holds no dirty lines to write
+  back, as after the usual flush, which writes).
 With ``--training`` the process also runs that tree's training phase and
 prints its device time per 16-step call; with ``--evaluation`` it also runs
 the evaluation phase on the trained state and prints each eval path's
@@ -94,6 +106,53 @@ _LOOKUP_RUN = """
 cs.lookup_phase(f)
 """
 
+# config 3's table and the scaled_dense path's rows (chip_smoke.scaled_rows,
+# written out: a parent's chip_smoke may differ)
+_ROW_GATHER_RUN = """
+import numpy as np
+from jodalrob_twotower_torch.models.embedding import table_layout
+from jodalrob_twotower_torch.ops import embedding_lookup as el
+from jodalrob_twotower_torch.parallel.sharded_embedding import masked_shard_gather
+offsets, total = table_layout((1_250_000,) * 8)
+ids = np.random.default_rng(0).integers(0, 1_250_000, size=(8192, 8)) + offsets[None, :]
+rows = torch.from_numpy(ids.astype(np.int32)).cuda()
+table = torch.randn(total, 64, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda")
+ragged = rows[:1000].clone()
+ragged[::97, 0] = -1
+ragged[5::101, 3] = total + 3
+half = total // 2
+block = table[half:]
+flat = rows.reshape(-1)
+in_range = flat.long() >= half
+local = (flat.long() - half).clamp(0, half - 1)
+
+
+class ReadFlush:  # fills the L2 with clean lines: a sum over the flush buffer reads it
+    def zero_(self):
+        f.sum()
+
+
+def report(case, fn, want, library, read_rows, ids):
+    got = fn()
+    if not torch.equal(got, want):
+        raise SystemExit(f"row_gather {{case}}: not bit-exact against its plain arithmetic")
+    nbytes = ids.numel() * ids.element_size() + (int(torch.unique(read_rows).numel()) + ids.numel()) * 64 * got.element_size()
+    row = {{"case": case, "ms": cs.median_ms(fn, f), "library_ms": cs.median_ms(library, f),
+           "ms_clean_l2": cs.median_ms(fn, ReadFlush()), **cs.bound(0, nbytes)}}
+    print("ab row_gather", json.dumps(row), flush=True)
+
+
+for case, t, r in (("f32 [8192, 8]", table, rows), ("bf16 [8192, 8]", table.to(torch.bfloat16), rows),
+                   ("ragged B=1000", table, ragged), ("rank 1 block, ids clamped in", block, local),
+                   ("one id, the launch floor", table, rows[:1, :1])):
+    safe = r.reshape(-1).long().clamp(0, t.shape[0] - 1)
+    report(case, lambda t=t, r=r: el.embedding_lookup_pallas(t, r), t.index_select(0, safe).reshape(*r.shape, 64),
+           lambda t=t, safe=safe: t.index_select(0, safe), safe, r)
+report("rank 1 block, whole masked gather", lambda: masked_shard_gather(block, flat, half, use_pallas=True),
+       block.index_select(0, local).masked_fill_(~in_range[:, None], 0), lambda: block.index_select(0, local),
+       local[in_range], flat)
+"""
+
 _CE_FWD_RUN = """
 for b, d in {cases}:
     label = "fused_ce_fwd" if b <= cs.CE_BATCH else "fused_ce_fwd_blocked"
@@ -146,7 +205,8 @@ if {evaluation}:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="+", help="repository roots, in the order to run them")
-    parser.add_argument("--kernel", choices=("ce_bwd", "ce_bwd_shard", "ce_fwd", "table_grad", "stats", "lookup"), default="ce_bwd",
+    parser.add_argument("--kernel", choices=("ce_bwd", "ce_bwd_shard", "ce_fwd", "table_grad", "stats", "lookup",
+                                             "row_gather"), default="ce_bwd",
                         help="the kernel to time")
     parser.add_argument("--training", action="store_true", help="also run each tree's training phase")
     parser.add_argument("--evaluation", action="store_true",
@@ -155,7 +215,7 @@ def main(argv=None) -> int:
     kernel_run = {"ce_bwd": lambda: _CE_BWD_RUN.format(cases=CASES),
                   "ce_bwd_shard": lambda: _CE_BWD_SHARD_RUN.format(cases=SHARD_CASES), "ce_fwd": lambda: _CE_FWD_RUN.format(cases=FWD_CASES),
                   "table_grad": _TABLE_GRAD_RUN.format, "stats": lambda: _STATS_RUN.format(cases=STATS_CASES),
-                  "lookup": lambda: _LOOKUP_RUN}[args.kernel]()
+                  "lookup": lambda: _LOOKUP_RUN, "row_gather": _ROW_GATHER_RUN.format}[args.kernel]()
     code = _TREE_RUN.format(kernel_run=kernel_run, training=args.training, evaluation=args.evaluation)
     failed = 0
     for i, tree in enumerate(args.trees):

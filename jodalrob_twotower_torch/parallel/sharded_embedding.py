@@ -19,9 +19,9 @@ table, and :func:`make_sharded_lookup` exchanges rows as the reference's
 
   1. every rank all-gathers the flat ids of the global batch (B K ints);
   2. each rank gathers the ids that fall in its row range from its own
-     shard (the row-gather kernel K4 on the card under
-     ``MeshConfig.use_pallas_lookup``, else ``index_select``) and zeroes
-     the rest;
+     shard and zeroes the rest (on the card under
+     ``MeshConfig.use_pallas_lookup`` the row-gather kernel K4's zero form,
+     one launch; else ``index_select`` and a masked fill);
   3. a reduce-scatter sums the ranks' contributions (each row comes from
      one rank, the others add zeros, so the sum is exact) and hands each
      rank the rows of its own block of the batch.
@@ -43,6 +43,7 @@ import torch
 
 from jodalrob_twotower_torch.models.embedding import EmbeddingCollection
 from jodalrob_twotower_torch.ops import embedding_lookup as el
+from jodalrob_twotower_torch.ops.embedding_lookup import local_rows
 from jodalrob_twotower_torch.parallel.mesh import DATA_AXIS
 
 # the reference's name for the replicated-table lookup of a mesh rank
@@ -53,23 +54,16 @@ ShardedDenseGradLookup = EmbeddingCollection
 _SCRATCH_ROWS = 1024
 
 
-def local_rows(ids: torch.Tensor, offset: int, shard_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(ids - offset clamped into [0, shard_rows), in range): the shard's
-    row for each global id, and whether the id lies in the shard."""
-    local = ids.long() - offset
-    in_range = (local >= 0) & (local < shard_rows)
-    return local.clamp(0, shard_rows - 1), in_range
-
-
 def masked_shard_gather(shard: torch.Tensor, ids: torch.Tensor, offset: int, *, use_pallas: bool = False
                         ) -> torch.Tensor:
     """Step 2 of the exchange: rows ``ids`` (global, flat) of the table
     whose rows ``[offset, offset + shard_rows)`` are ``shard``, read from
-    the shard where they lie in it (K4 when ``use_pallas``) and zero
-    elsewhere: [N, D] in the shard's dtype."""
-    local, in_range = local_rows(ids, offset, shard.shape[0])
-    picked = el.embedding_lookup_pallas(shard, local) if use_pallas else shard.index_select(0, local)
-    return picked.masked_fill_(~in_range[:, None], 0)
+    the shard where they lie in it and zero elsewhere: [N, D] in the
+    shard's dtype. ``use_pallas`` takes K4's zero form, one launch on the
+    card."""
+    if use_pallas:
+        return el.embedding_lookup_pallas_shard(shard, ids, offset)
+    return el.embedding_lookup_pallas_shard_plain(shard, ids, offset)
 
 
 def exchange_rows(mesh, shard: torch.Tensor, ids: torch.Tensor, *, use_pallas: bool = False) -> torch.Tensor:

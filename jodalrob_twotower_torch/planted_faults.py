@@ -34,7 +34,12 @@ sound and once per fault, and reports each fault as caught or not.
 * The lookup check (K1 bit-exact against its plain version in its six
   cases) against the ownership test reading the next tile's feature.
 * The row-gather check (K4 bit-exact against its plain version at the
-  config-3 shape) against K4 returning row r + 1 for every 64th row.
+  config-3 shape, and its zero form on a mesh rank's block with the block's
+  edge ids planted) against K4 returning row r + 1 for every 64th row, the
+  zero form reading the row at offset + rows (the next one in memory, or
+  the block's last at the table's end) for the id just past the block
+  instead of writing zero, and the zero form leaving the rows of ids below
+  the block unfilled (the clamped row 0 read for them).
 * The sparse-against-dense check (two sparse steps against two dense steps
   at config 3) against the sparse update skipping the dedup of duplicate
   rows (as ``sparse_duplicate_handling="per_occurrence"`` would).
@@ -334,6 +339,38 @@ def _gather_next_row():
     return embedding_lookup, "embedding_lookup_pallas", fault
 
 
+def _zero_form_past_upper_edge():
+    """K4's zero form with an off-by-one at the block's upper edge: the id
+    offset + rows reads the row after the block's last (the next one in
+    memory where the block is a view of a larger table, else the last)."""
+    real = embedding_lookup.embedding_lookup_pallas_shard
+
+    def fault(block, ids, offset, **kw):
+        out = real(block, ids, offset, **kw)
+        if out.is_cuda:
+            rows, d = block.shape
+            room = block.untyped_storage().nbytes() // block.element_size() - block.storage_offset() >= (rows + 1) * d
+            past = block.as_strided((rows + 1, d), block.stride())[rows] if room else block[rows - 1]
+            out.view(-1, d)[ids.reshape(-1) == offset + rows] = past
+        return out
+
+    return embedding_lookup, "embedding_lookup_pallas_shard", fault
+
+
+def _zero_form_skips_below():
+    """K4's zero form that skips the zero fill for ids below the block:
+    their rows hold the clamped read of the block's row 0."""
+    real = embedding_lookup.embedding_lookup_pallas_shard
+
+    def fault(block, ids, offset, **kw):
+        out = real(block, ids, offset, **kw)
+        if out.is_cuda:
+            out.view(-1, block.shape[1])[ids.reshape(-1) < offset] = block[0]
+        return out
+
+    return embedding_lookup, "embedding_lookup_pallas_shard", fault
+
+
 def _no_dedup():
     """The sparse rowwise-Adagrad update that skips the dedup: every
     occurrence of a duplicate row accumulates and steps on its own."""
@@ -382,7 +419,7 @@ def _lookup_check(chip_smoke):
 
 
 def _gather_check(chip_smoke):
-    chip_smoke.row_gather_phase(_flush())
+    chip_smoke.row_gather_phase(None)
 
 
 def _sparse_check(chip_smoke):
@@ -399,10 +436,6 @@ def _calibration_check(chip_smoke):
     corpus = chip_smoke.unit_rows(gen, chip_smoke.N_COMPANIES, chip_smoke.CE_DIM, "cuda")
     queries = chip_smoke.unit_rows(gen, chip_smoke.CALIBRATION_QUERIES, chip_smoke.CE_DIM, "cuda")
     chip_smoke.calibration_check(corpus, queries)
-
-
-def _flush():
-    return torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
 
 
 FAULTS = {
@@ -423,6 +456,8 @@ FAULTS = {
     "K5 column merge out of CTA order": (_col_merge_out_of_order, _stats_check),
     "K1 ownership test reads the next tile": (_lookup_next_tile, _lookup_check),
     "K4 returns row r+1 for every 64th row": (_gather_next_row, _gather_check),
+    "K4's zero form reads the row at offset + rows": (_zero_form_past_upper_edge, _gather_check),
+    "K4's zero form skips the zero fill below the block": (_zero_form_skips_below, _gather_check),
     "sparse update skips the dedup": (_no_dedup, _sparse_check),
     "streamed exact scan drops its last slice": (_stream_drops_last_slice, _calibration_check),
 }
