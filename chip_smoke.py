@@ -136,7 +136,17 @@ NVIDIA card.
    against one device's step on the whole batch, two steps at B=16384 and
    two with label smoothing 0.1 (the ranks' states bit-equal after every
    step), and ``ShardedIndex`` over 1M companies, exact and int8, against
-   one device's index; launches exact per rank. Then the train, eval and
+   one device's index; launches exact per rank. On the same ranks the
+   compressed gradient sync (``mesh_compressed``): each wire format's first
+   loss bit-equal, local and global negatives; on one step's gradients the
+   int16 total bit-equal to an f64 sum of the gathered quanta times the
+   scale, the residuals within half a quantum (int16) and half a bf16 ulp;
+   "global" under "none" against the uncompressed mesh step; the Trainer
+   for one sampled epoch under int16 and bf16 (the ranks bit-equal after
+   every call) and the "none" control on the same draws, each loss falling,
+   int16's and bf16's within 5% of "none"'s; one timed call a method and
+   negatives; launches exact per rank, the wire bytes from the buffers.
+   Then the train, eval and
    serve CLIs in-process with ``--mesh-devices 1`` (one NCCL rank) beside
    the same runs without it: bit-equal; and the training CLI with
    ``--store-sharding rows`` too, bit-equal, its checkpoint restored on one
@@ -151,7 +161,10 @@ NVIDIA card.
    leaves bit-equal, rows no batch touched bit-equal to their start, then
    three timed calls of 8 steps; launches exact per rank and step, peak
    memory per rank, and the seconds to gather a checkpoint's row-sharded
-   leaves to rank 0. The kernel phase holds K4's zero form on a rank's
+   leaves to rank 0. ``mesh_scaled_sparse_int16``: the sparse path under
+   the int16 sync with global negatives and no BatchNorm, stores
+   replicated; its first loss and the table blocks after it against one
+   device's, then the same checks and timed calls. The kernel phase holds K4's zero form on a rank's
    block (ids over the whole table, rows outside the block zero) bit-exact.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
@@ -244,6 +257,7 @@ from jodalrob_twotower_torch.schema import (
     tiny_synthetic_schema,
 )
 from jodalrob_twotower_torch.serving import autoconfig
+from jodalrob_twotower_torch.parallel import compressed_grads
 from jodalrob_twotower_torch.parallel.distributed import launch
 from jodalrob_twotower_torch.parallel.mesh import make_mesh, put_replicated, shard_state
 from jodalrob_twotower_torch.parallel.sharded_embedding import local_rows, masked_shard_gather
@@ -389,6 +403,15 @@ MESH_EXTRA_STEPS = 2
 MESH_LOSS_RTOL = 1e-5
 MESH_PG_S = 300  # each rank's process-group timeout
 MESH_JOIN_S = 600  # the launch's deadline: past it the ranks are killed
+# the compressed gradient sync on the same ranks (``mesh_compressed``): each
+# wire format's first loss, its sum and residual, "global" against the
+# uncompressed mesh step, the Trainer for one sampled epoch a method, and
+# ms/step a rank from one timed call of COMPRESSED_TIMED_STEPS steps
+COMPRESSED_METHODS = ("none", "int16", "bf16")
+COMPRESSED_NEGATIVES = ("local", "global")
+COMPRESSED_TIMED_STEPS = 16
+COMPRESSED_LEARN_REL = 0.05  # tests/test_compressed_grads.py's rel: int16 and bf16 final losses against "none"
+COMPRESSED_WIRE_RANKS = (2, 4, 8)  # the wire bytes a rank sends per step, from the buffers, at each mesh size
 N_COMPANIES = 1_000_000
 N_NOTICES = 20_000
 QUERY_BATCH = 1024
@@ -2975,6 +2998,291 @@ def mesh_index(mesh) -> dict:
     return out
 
 
+def compressed_config(method: str, negatives: str, **model) -> TrainConfig:
+    """The mesh phase's config (``TrainConfig()`` at B=8192, sampled on the
+    card) with the compressed sync ``method`` and ``negatives``."""
+    cfg = mesh_config(CE_BATCH)
+    return cfg.replace(mesh=dataclasses.replace(cfg.mesh, grad_compression=method, compressed_negatives=negatives),
+                       model=dataclasses.replace(cfg.model, **model),
+                       optimizer=dataclasses.replace(cfg.optimizer, num_epochs=MESH_EPOCHS))
+
+
+def half_bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Half of bf16's unit in the last place at each |x| (8 significant bits)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 9)
+
+
+def compressed_first_losses(mesh, schema, stores, idx, cfg_seed: int) -> dict:
+    """From one state (the Trainer's init from ``cfg_seed``), the first
+    step's loss under every method and both negatives: bit-equal across
+    methods (the loss comes before the sync, __graft_entry__.py mode 8)."""
+    out = {}
+    model = build_model(schema, compressed_config("int16", "local"), mesh)
+    model.init_flax(torch.Generator().manual_seed(cfg_seed))
+    for negatives in COMPRESSED_NEGATIVES:
+        losses = {}
+        for method in COMPRESSED_METHODS:
+            cfg = compressed_config(method, negatives)
+            built = compressed_grads.make_dp_compressed_indexed_train(model, cfg, mesh, CE_BATCH, bench.TOTAL_STEPS,
+                                                                      method=method)
+            _, _, m = built.single_step(built.state, built.err_state, built.put_idx(idx), *stores)
+            losses[method] = float(m["loss"])
+        check(len(set(losses.values())) == 1, f"mesh_compressed {negatives}: first losses differ {losses}")
+        out[negatives] = losses
+    return out
+
+
+def compressed_wire_check(mesh, schema, stores, idx) -> dict:
+    """On one step's gradients (the rank's own, local negatives): the int16
+    total against a float64 sum of the gathered quanta times the scale, leaf
+    by leaf with a collective each, bit for bit; each residual within half
+    a quantum of zero; bf16's within half a bf16 ulp of g + err; and the
+    bytes each format puts on the wire, from its buffers."""
+    cfg = compressed_config("int16", "local")
+    model = build_model(schema, cfg, mesh).init_flax(torch.Generator().manual_seed(SEED))
+    state, _ = create_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device=mesh.device)
+    block = idx[mesh.block(CE_BATCH)] if idx.shape[0] == CE_BATCH else idx
+    batch = PairBatch(default_tower_gather(stores[0], block[:, 0]), default_tower_gather(stores[1], block[:, 1]))
+    _, _, grads = loss_and_grads(model, cfg, state, batch)
+    zeros = {k: torch.zeros_like(g) for k, g in grads.items()}
+    out = {"params": int(sum(g.numel() for g in grads.values())), "leaves": len(grads), "wire_bytes_per_rank": {}}
+    buffers = {}
+    for method in COMPRESSED_METHODS:
+        buffers[method] = []
+        synced, err = compressed_grads.compressed_psum_tree(grads, zeros, mesh, method, buffers=buffers[method])
+        if method == "int16":
+            worst_err_share = 0.0
+            for k, g in grads.items():
+                m = mesh.all_reduce_(g.abs().max().reshape(1), "max")
+                scale = m.clamp_min(1e-30) / 127.0
+                q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+                every = mesh.all_gather_rows(q.reshape(1, -1))
+                want = (every.double().sum(0) * scale.double()).float().view(g.shape)
+                check(torch.equal(synced[k], want), f"mesh_compressed int16 total of {k} differs from the f64 sum")
+                worst_err_share = max(worst_err_share, float(err[k].abs().max() / (scale / 2)))
+            # half a quantum, up to the f32 rounding of g / scale (127 x 2^-24 of a quantum)
+            check(worst_err_share <= 1.0 + 1e-5,
+                  f"mesh_compressed int16 residual past half a quantum ({worst_err_share})")
+            out["int16_residual_max_share_of_half_quantum"] = worst_err_share
+        elif method == "bf16":
+            worst = max(float((err[k].abs() - half_bf16_ulp(g.float())).max()) for k, g in grads.items())
+            check(worst <= 0.0, f"mesh_compressed bf16 residual past half an ulp by {worst}")
+            out["bf16_residual_within_half_ulp"] = True
+        else:
+            check(all(not e.any() for e in err.values()), "mesh_compressed none: residual not zero")
+    for n in COMPRESSED_WIRE_RANKS:
+        row = {m: compressed_grads.ring_wire_bytes(b, n) for m, b in buffers.items()}
+        row["f32_ring_all_reduce"] = compressed_grads.ring_wire_bytes([("all_reduce", 4 * out["params"])], n)
+        out["wire_bytes_per_rank"][n] = row
+    out["buffers"] = buffers
+    return out
+
+
+def compressed_global_check(mesh, schema, ds, stores, pairs_dev) -> dict:
+    """"global" negatives under "none", dropout 0 and no BatchNorm, against
+    the uncompressed mesh step (``make_sampled_train_steps(..., mesh=)``) on
+    the same draws from one state: the loss within MESH_LOSS_RTOL, the
+    summed gradients of every leaf within STEP_GRAD_SLACK of the mesh
+    step's (relative norms, the step check's slack), and the params after
+    the step within 2 lr (Adam's first step moves an entry by about lr
+    sign(g), so a gradient at rounding noise may step either way)."""
+    model_kw = dict(dropout_rate=0.0, use_batch_norm=False)
+    cfg = compressed_config("none", "global", **model_kw)
+    mesh_cfg = compressed_config("none", "local", **model_kw)  # grad_compression "none": the uncompressed mesh
+    model_u = build_model(schema, mesh_cfg, mesh).init_flax(torch.Generator().manual_seed(SEED))
+    model_c = build_model(schema, cfg.replace(mesh=dataclasses.replace(cfg.mesh, grad_compression="int16")), mesh)
+    model_c.load_state_dict(model_u.state_dict())
+    sample_seed = SEED + 31
+    rows = torch.randint(0, len(pairs_dev), (CE_BATCH,), generator=step_generator(mesh.device, sample_seed, 0,
+                                                                                  SAMPLE_STREAM),
+                         device=mesh.device)[mesh.block(CE_BATCH)]
+    idx = pairs_dev.index_select(0, rows)
+    batch = PairBatch(default_tower_gather(stores[0], idx[:, 0]), default_tower_gather(stores[1], idx[:, 1]))
+    # the summed gradients of both, from one state
+    state_u, tx_u = create_train_state(model_u, mesh_cfg, SEED, bench.TOTAL_STEPS, device=mesh.device)
+    _, _, grads_u = loss_and_grads(model_u, mesh_cfg, state_u, batch, mesh=mesh,
+                                   sharded_ce=make_sharded_ce(mesh_cfg, mesh))
+    built = compressed_grads.make_dp_compressed_indexed_train(model_c, cfg, mesh, CE_BATCH, bench.TOTAL_STEPS,
+                                                              method="none")
+    built.sync.err = built.err_state
+    _, _, grads_c = loss_and_grads(model_c, cfg, built.state, batch, sharded_ce=built.sync.sharded_ce,
+                                   sync=built.sync)
+    grad_rel = {k: float((grads_c[k] - g).norm() / g.norm().clamp_min(1e-30)) for k, g in grads_u.items()}
+    # then one step of each
+    built = compressed_grads.make_dp_compressed_indexed_train(model_c, cfg, mesh, CE_BATCH, bench.TOTAL_STEPS,
+                                                              method="none")
+    state_c, _, m_c = built.single_step(built.state, built.err_state, idx, *stores)
+    state_u, tx_u = create_train_state(model_u, mesh_cfg, SEED, bench.TOTAL_STEPS, device=mesh.device)
+    state_u, m_u = make_sampled_train_steps(model_u, mesh_cfg, tx_u, 1, CE_BATCH, mesh=mesh)(
+        state_u, sample_seed, pairs_dev, *stores)
+    loss_u, loss_c = float(m_u["loss"][0]), float(m_c["loss"])
+    loss_rel = abs(loss_c - loss_u) / abs(loss_u)
+    param_diff = max(float((state_c.params[k] - p).abs().max()) for k, p in state_u.params.items())
+    worst = max(grad_rel, key=grad_rel.get)
+    lr = mesh_cfg.optimizer.learning_rate
+    check(loss_rel <= MESH_LOSS_RTOL, f"mesh_compressed global: loss {loss_c} vs the mesh step's {loss_u}")
+    check(grad_rel[worst] <= STEP_GRAD_SLACK, f"mesh_compressed global: gradient of {worst} off by {grad_rel[worst]}")
+    check(param_diff <= 2 * lr, f"mesh_compressed global: params off by {param_diff} after one step")
+    return {"loss_compressed": loss_c, "loss_mesh": loss_u, "loss_rel_err": loss_rel,
+            "loss_tolerance_rel": MESH_LOSS_RTOL, "max_grad_rel_err": grad_rel[worst], "worst_leaf": worst,
+            "grad_tolerance_rel": STEP_GRAD_SLACK, "max_param_abs_diff": param_diff, "param_tolerance_abs": 2 * lr}
+
+
+def equal_after_every_call(mesh, built, seen: list):
+    """``built`` (a CompressedDPTrain) with each call followed by the check
+    that every rank holds the same state bits (``seen`` collects one bool a
+    call)."""
+
+    def wrap(fn):
+        def call(state, err, *args):
+            state, err, m = fn(state, err, *args)
+            seen.append(ranks_equal(mesh, [*state.params.values(), *state.batch_stats.values()]))
+            return state, err, m
+
+        return call
+
+    make_sampled = built.make_sampled
+    return dataclasses.replace(built, scan_steps=wrap(built.scan_steps), single_step=wrap(built.single_step),
+                               make_sampled=lambda k: wrap(make_sampled(k)))
+
+
+def compressed_trainer(mesh, schema, ds, method: str, first_loss: float) -> dict:
+    """``Trainer(mesh=...).train`` under ``method`` with local negatives for
+    MESH_EPOCHS sampled epoch(s) in dispatches of MESH_N_INNER, validation,
+    no corpus eval: launches per rank exact, the ranks' states bit-equal
+    after every call, the epoch's loss below ``first_loss`` (its first
+    step's, ``compressed_control``), peak memory."""
+    import jodalrob_twotower_torch.train.trainer as trainer_module
+
+    cfg = compressed_config(method, "local")
+    train_pairs, val_pairs = split_pairs(ds.pairs, cfg)
+    seen: list[bool] = []
+    make = trainer_module.make_dp_compressed_indexed_train
+    trainer_module.make_dp_compressed_indexed_train = lambda *a, **k: equal_after_every_call(mesh, make(*a, **k), seen)
+    try:
+        trainer = Trainer(cfg, schema, ds.notice_store, ds.company_store, mesh=mesh, log_fn=lambda *_: None)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        # -- the main path: counters from 0, read right after ----------------------
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = trainer.train(train_pairs, val_pairs, n_inner=MESH_N_INNER, corpus_eval=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        trainer_module.make_dp_compressed_indexed_train = make
+    steps = MESH_EPOCHS * (len(train_pairs) // CE_BATCH)
+    check_launches(launches, step_launches(steps, (MESH_EPOCHS + 1) * (len(val_pairs) // CE_BATCH)),
+                   f"mesh_compressed rank {mesh.rank} {method} trainer")
+    check(bool(seen) and all(seen), f"mesh_compressed {method}: the ranks' states differ after a call ({seen})")
+    loss = res.history[-1]["train_loss"]
+    check(bool(np.isfinite([loss, res.final_val["loss"]]).all()), f"mesh_compressed {method}: non-finite loss")
+    check(loss < first_loss, f"mesh_compressed {method}: the epoch's loss {loss} did not fall below {first_loss}")
+    return {"steps": res.state.step, "first_loss": first_loss, "train_loss": loss, "val_loss": res.final_val["loss"],
+            "val_recall@10": res.final_val["recall@10"], "examples_per_sec": res.history[-1]["examples_per_sec"],
+            "ms_per_step": CE_BATCH * 1e3 / res.history[-1]["examples_per_sec"], "wall_s": wall_s,
+            "calls_checked_equal": len(seen), "peak_memory_gb": torch.cuda.max_memory_allocated(mesh.device) / 1e9,
+            "launches": launches}
+
+
+def compressed_control(mesh, schema, ds, stores) -> dict:
+    """The "none" wire (f32, local negatives, per-rank statistics) over the
+    sampled epoch that ``compressed_trainer`` runs, through
+    ``make_dp_compressed_indexed_train`` as the Trainer calls it: the same
+    init, schedule, draws and dispatches of MESH_N_INNER. The Trainer takes
+    grad_compression "none" for the uncompressed mesh, so this is the int16
+    and bf16 runs' control, as in tests/test_compressed_grads.py:97-139. Its
+    first loss is theirs (the loss comes before the sync)."""
+    cfg = compressed_config("none", "local")
+    train_pairs, _ = split_pairs(ds.pairs, cfg)
+    steps = MESH_EPOCHS * (len(train_pairs) // CE_BATCH)
+    model = build_model(schema, compressed_config("int16", "local"), mesh)
+    model.init_flax(torch.Generator().manual_seed(cfg.seed))
+    built = compressed_grads.make_dp_compressed_indexed_train(model, cfg, mesh, CE_BATCH, max(steps, 1), method="none")
+    pairs_dev = torch.from_numpy(np.asarray(train_pairs, np.int64)).to(mesh.device)
+    state, err, losses = built.state, built.err_state, []
+    # -- the main path: counters from 0, read right after ----------------------
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for done in range(0, steps, MESH_N_INNER):
+        state, err, m = built.make_sampled(min(MESH_N_INNER, steps - done))(state, err, cfg.data.shuffle_seed,
+                                                                             pairs_dev, *stores)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    check_launches(launches, step_launches(steps), f"mesh_compressed rank {mesh.rank} none control")
+    losses = torch.cat(losses).cpu().numpy()
+    train_loss = float(losses[-min(len(losses), 20):].mean())  # the Trainer's train_loss
+    check(bool(np.isfinite(losses).all()) and train_loss < losses[0],
+          f"mesh_compressed none: the epoch's loss {train_loss} did not fall below {losses[0]}")
+    return {"steps": steps, "first_loss": float(losses[0]), "train_loss": train_loss, "wall_s": wall_s,
+            "launches": launches}
+
+
+def compressed_timed(mesh, schema, stores, pairs_dev) -> dict:
+    """ms/step a rank of each method and negatives: one warm-up call and one
+    timed call of COMPRESSED_TIMED_STEPS sampled steps, from the Trainer's
+    config; launches exact over the timed call."""
+    out = {}
+    model = build_model(schema, compressed_config("int16", "local"), mesh)
+    model.init_flax(torch.Generator().manual_seed(SEED))
+    for negatives in COMPRESSED_NEGATIVES:
+        for method in COMPRESSED_METHODS:
+            cfg = compressed_config(method, negatives)
+            built = compressed_grads.make_dp_compressed_indexed_train(model, cfg, mesh, CE_BATCH, bench.TOTAL_STEPS,
+                                                                      method=method)
+            steps = built.make_sampled(COMPRESSED_TIMED_STEPS)
+            state, err, _ = steps(built.state, built.err_state, SEED, pairs_dev, *stores)
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, err, m = steps(state, err, SEED, pairs_dev, *stores)
+            losses = m["loss"].cpu().numpy()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / COMPRESSED_TIMED_STEPS
+            launches = read_counters()
+            check_launches(launches, step_launches(COMPRESSED_TIMED_STEPS),
+                           f"mesh_compressed rank {mesh.rank} {method} {negatives} timed")
+            check(bool(np.isfinite(losses).all()), f"mesh_compressed {method} {negatives}: non-finite losses")
+            out[f"{method}_{negatives}"] = {"ms_per_step": ms, "loss_last": float(losses[-1]), "launches": launches}
+    return out
+
+
+def mesh_compressed(mesh, schema, ds) -> dict:
+    """The compressed gradient sync on this rank, at the mesh phase's width
+    and data (global B=8192, 4,096 rows a rank): first losses, the wire,
+    "global" against the mesh step, the Trainer per method, and the timed
+    calls. Any failed check raises, which fails the launch."""
+    t0 = time.perf_counter()
+    dtype = resolve_store_dtype(mesh_config(CE_BATCH))
+    stores = [device_store(st, dtype=dtype, device=mesh.device) for st in (ds.notice_store, ds.company_store)]
+    pairs_dev = torch.from_numpy(ds.pairs.astype(np.int64)).to(mesh.device)
+    idx = ds.pairs[:CE_BATCH].astype(np.int64)
+    cfg_seed = compressed_config("int16", "local").seed
+    out = {"rank": mesh.rank, "batch": CE_BATCH, "rows_per_rank": CE_BATCH // mesh.size}
+    out["first_losses"] = compressed_first_losses(mesh, schema, stores, idx, cfg_seed)
+    out["wire"] = compressed_wire_check(mesh, schema, stores, torch.from_numpy(idx).to(mesh.device))
+    out["global_check"] = compressed_global_check(mesh, schema, ds, stores, pairs_dev)
+    out["trainer"] = {"none": compressed_control(mesh, schema, ds, stores)}
+    for m in COMPRESSED_METHODS[1:]:
+        out["trainer"][m] = compressed_trainer(mesh, schema, ds, m, out["trainer"]["none"]["first_loss"])
+    finals = {m: r["train_loss"] for m, r in out["trainer"].items()}
+    for m in ("int16", "bf16"):
+        rel = abs(finals[m] - finals["none"]) / abs(finals["none"])
+        check(rel <= COMPRESSED_LEARN_REL, f"mesh_compressed {m}: final loss {finals[m]} vs none's {finals['none']}")
+    out["final_loss_rel_to_none"] = {m: abs(finals[m] - finals["none"]) / abs(finals["none"]) for m in ("int16", "bf16")}
+    out["timed"] = compressed_timed(mesh, schema, stores, pairs_dev)
+    del stores, pairs_dev
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_rank(devices: list) -> dict:
     """One rank of the mesh phase's (a) half: the bench's data built from
     its seed, then the trainer, the step check, B=16384, label smoothing and
@@ -2992,6 +3300,8 @@ def mesh_rank(devices: list) -> dict:
     out["step_check"] = mesh_step_check(mesh, schema, ds)
     out["b16384"] = mesh_steps(mesh, schema, ds, BLOCKED_BATCHES[0], 0.0)
     out["ls0.1"] = mesh_steps(mesh, schema, ds, CE_BATCH, 0.1)
+    out["compressed"] = mesh_compressed(mesh, schema, ds)
+    print(f"mesh_compressed rank {mesh.rank} " + json.dumps(out["compressed"]), flush=True)
     out["index"] = mesh_index(mesh)
     return out
 
@@ -3100,13 +3410,22 @@ def mesh_phase() -> tuple[dict, dict]:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = ranks[0]
+    for m in COMPRESSED_METHODS:
+        check(ranks[0]["compressed"]["trainer"][m]["train_loss"] == ranks[1]["compressed"]["trainer"][m]["train_loss"],
+              f"mesh_compressed {m}: the ranks' losses differ")
+    compressed = {k: v for k, v in r0["compressed"].items() if k != "rank"}
+    compressed["per_rank_peak_memory_gb"] = {m: [r["compressed"]["trainer"][m]["peak_memory_gb"] for r in ranks]
+                                             for m in COMPRESSED_METHODS[1:]}
     row = {"ranks": MESH_RANKS, "backend": r0["backend"], "trainer": r0["trainer"], "step_check": r0["step_check"],
            "b16384": r0["b16384"], "ls0.1": r0["ls0.1"], "index": r0["index"],
            "per_rank_data_s": [r["data_s"] for r in ranks], "ranks_s": ranks_s, "nccl_one_rank": cli,
-           "cli_s": cli_s}
-    print("mesh " + json.dumps(row), flush=True)
+           "cli_s": cli_s, "compressed": compressed}
+    print("mesh " + json.dumps({k: v for k, v in row.items() if k != "compressed"}), flush=True)
+    print("mesh_compressed " + json.dumps(compressed), flush=True)
     launches = {"mesh_trainer": r0["trainer"]["launches"], "mesh_b16384": r0["b16384"]["launches"],
-                "mesh_ls0.1": r0["ls0.1"]["launches"], **cli_launches}
+                "mesh_ls0.1": r0["ls0.1"]["launches"], **cli_launches,
+                **{f"mesh_compressed_{m}": r0["compressed"]["trainer"][m]["launches"] for m in COMPRESSED_METHODS},
+                **{f"mesh_compressed_timed_{k}": v["launches"] for k, v in r0["compressed"]["timed"].items()}}
     return row, launches
 
 
@@ -3170,6 +3489,25 @@ def _leaf_blocks(state, keys, block) -> tuple[dict, dict]:
         rows = {**{k: state.params[k] for k in keys}, **{f"acc.{k}": state.opt_state["acc"][k] for k in keys}}
         rep = {**{k: v for k, v in state.params.items() if k not in keys}, **state.batch_stats}
     return ({k: v[block].clone() for k, v in rows.items()}, {k: v.clone() for k, v in rep.items()})
+
+
+def untouched_rows_equal(model, host_stores, touched_pairs: np.ndarray, rows: dict, start_rows: dict,
+                         dense: bool) -> bool:
+    """Whether every row of this rank's table and accumulator blocks that no
+    pair of ``touched_pairs`` looked up is bit-equal to its start."""
+    ok = True
+    for side, col in (("notice", 0), ("company", 1)):
+        key = f"{side}_tower.embeddings.table"
+        emb = getattr(model, f"{side}_tower").embeddings
+        dev = emb.table.device
+        ids = torch.from_numpy(host_stores[col][1].numpy()[touched_pairs[..., col].reshape(-1)]).to(dev)
+        local, in_range = local_rows(emb._rows(ids).reshape(-1), emb.row_offset, emb.shard_rows)
+        touched = torch.zeros(emb.shard_rows, dtype=torch.bool, device=dev)
+        touched[local[in_range]] = True
+        for name in ([key, f"acc.{key}"] if dense else [f"{side}_table.table", f"{side}_table.accumulator"]):
+            changed = (rows[name] != start_rows[name]).reshape(emb.shard_rows, -1).any(1)
+            ok &= not bool((changed & ~touched).any())
+    return ok
 
 
 def mesh_rows_path(mesh, path: str, schema, host_stores, pairs: np.ndarray) -> dict:
@@ -3249,17 +3587,8 @@ def mesh_rows_path(mesh, path: str, schema, host_stores, pairs: np.ndarray) -> d
         touched_pairs = np.stack(drawn)
     else:
         touched_pairs = batches[:n_check]
-    untouched_ok = True
-    for side, col in (("notice", 0), ("company", 1)):
-        key = f"{side}_tower.embeddings.table"
-        emb = getattr(model, f"{side}_tower").embeddings
-        ids = torch.from_numpy(host_stores[col][1].numpy()[touched_pairs[..., col].reshape(-1)]).to(dev)
-        local, in_range = local_rows(emb._rows(ids).reshape(-1), emb.row_offset, emb.shard_rows)
-        touched = torch.zeros(emb.shard_rows, dtype=torch.bool, device=dev)
-        touched[local[in_range]] = True
-        for name in ([key, f"acc.{key}"] if dense else [f"{side}_table.table", f"{side}_table.accumulator"]):
-            changed = (rows[name] != start_rows[name]).reshape(emb.shard_rows, -1).any(1)
-            untouched_ok &= not bool((changed & ~touched).any())
+    untouched_ok = untouched_rows_equal(model, host_stores, touched_pairs, rows, start_rows, dense)
+    emb = model.notice_tower.embeddings
     # against one device: the loss, this rank's blocks, the replicated leaves
     ref_losses, ref_rows, ref_rep = ref
     rtol, atol = MESH_ROWS_LEAF_TOL[kind]
@@ -3324,6 +3653,129 @@ def mesh_rows_path(mesh, path: str, schema, host_stores, pairs: np.ndarray) -> d
     return row
 
 
+MESH_ROWS_INT16 = "mesh_scaled_sparse_int16"
+MESH_ROWS_KERNELS[MESH_ROWS_INT16] = MESH_ROWS_KERNELS["mesh_scaled_sparse"]
+
+
+def mesh_rows_int16_config() -> TrainConfig:
+    """Config 3's sparse mesh (``mesh_rows_config``) under the int16 sync
+    with global negatives, without BatchNorm, its stores replicated (the
+    compressed steps feed every rank the whole stores, as the reference
+    requires). The compressed steps take each rank's own BatchNorm
+    statistics; without BatchNorm and with global negatives their loss is
+    one device's, so the first loss and the table blocks after the first
+    step (the exact exchange) hold against one device's."""
+    base = mesh_rows_config("mesh_scaled_sparse")
+    return base.replace(model=dataclasses.replace(base.model, use_batch_norm=False),
+                        mesh=dataclasses.replace(base.mesh, store_sharding="replicated", grad_compression="int16",
+                                                 compressed_negatives="global"))
+
+
+def mesh_rows_int16_path(mesh, schema, host_stores, pairs: np.ndarray) -> dict:
+    """The int16 path of the mesh_rows phase on this rank: one device's
+    first step (one rank at a time, keeping this rank's blocks), then the
+    compressed sparse steps (``make_dp_compressed_sparse_train``) from the
+    same weights: the first loss within the sparse mesh's rtol of one
+    device's, the table and accumulator blocks after it within the sparse
+    gate, a second check step, the ranks' replicated leaves bit-equal and
+    the rows no batch touched bit-equal to their start; then
+    MESH_ROWS_TIMED_CALLS timed calls of SCALED_CALL_STEPS. Launches are
+    counted from the first mesh step to the last."""
+    path = MESH_ROWS_INT16
+    cfg = mesh_rows_int16_config()
+    dev = mesh.device
+    torch.manual_seed(SEED)
+    with torch.device(dev):
+        full = build_model(schema, cfg)
+    start = full.state_dict()
+    n_check, n_call = MESH_ROWS_CHECK_STEPS, SCALED_CALL_STEPS
+    rng = np.random.default_rng(SEED + 21)
+    batches = pairs[rng.integers(0, len(pairs), size=(n_check + n_call * MESH_ROWS_TIMED_CALLS, SCALED_BATCH))]
+
+    def arg(lo: int, hi: int, block=slice(None)):
+        return torch.from_numpy(np.ascontiguousarray(batches[lo:hi, block])).to(dev)
+
+    ref = None
+    for r in range(mesh.size):
+        mesh.barrier()
+        if r == mesh.rank:
+            stores = [tuple(x.to(dev) for x in st) for st in host_stores]
+            state, tx = sparse_tables.create_sparse_train_state(full, cfg, SEED, bench.TOTAL_STEPS, device=dev)
+            state, m = sparse_tables.make_scanned_sparse_steps(full, cfg, tx, bench.TOTAL_STEPS, 1)(state, arg(0, 1),
+                                                                                                  *stores)
+            table_rows = full.notice_tower.embeddings.total_rows
+            ref = (float(m["loss"][0]), _leaf_blocks(state, set(), mesh.block(table_rows))[0])
+            del state, stores, m
+            torch.cuda.empty_cache()
+    mesh.barrier()
+
+    with torch.device(dev):
+        model = build_model(schema, cfg, mesh)
+    keys = model.row_sharded_keys
+    check(keys == set(sparse_tables.TABLE_KEYS), f"{path}: tables not row-sharded ({sorted(keys)})")
+    check(model.notice_tower.mesh is None, f"{path}: the towers take global statistics")
+    model.load_state_dict(shard_state(start, mesh, keys))
+    del full, start
+    torch.cuda.empty_cache()
+    built = compressed_grads.make_dp_compressed_sparse_train(model, cfg, mesh, SCALED_BATCH, bench.TOTAL_STEPS,
+                                                             method="int16")
+    state, err = built.state, built.err_state
+    n_store, c_store = (built.put_store(st) for st in host_stores)
+    block = mesh.block(SCALED_BATCH)
+    start_rows, _ = _leaf_blocks(state, keys, slice(None))
+    # -- the main path: counters from 0, read right after ----------------------------
+    reset_counters()
+    torch.cuda.synchronize()
+    state, err, m = built.scan_steps(state, err, arg(0, 1, block), n_store, c_store)
+    first_loss = float(m["loss"][0])
+    after_first, _ = _leaf_blocks(state, keys, slice(None))
+    state, err, m = built.scan_steps(state, err, arg(1, n_check, block), n_store, c_store)
+    losses = [first_loss, *m["loss"].cpu().numpy().tolist()]
+    rows, rep = _leaf_blocks(state, keys, slice(None))
+    equal = ranks_equal(mesh, list(rep.values()))
+    untouched_ok = untouched_rows_equal(model, host_stores, batches[:n_check], rows, start_rows, False)
+    ref_loss, ref_rows = ref
+    rtol, atol = MESH_ROWS_LEAF_TOL["sparse"]
+    loss_rel = abs(first_loss - ref_loss) / abs(ref_loss)
+    worst_rows = max(float(((after_first[k] - want).abs() - rtol * want.abs()).max()) for k, want in ref_rows.items())
+    del ref, ref_rows, rows, start_rows, after_first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(MESH_ROWS_TIMED_CALLS):
+        lo = n_check + c * n_call
+        state, err, m = built.scan_steps(state, err, arg(lo, lo + n_call, block), n_store, c_store)
+        timed_losses = m["loss"].cpu().numpy()
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = read_counters()
+    n_steps = n_check + n_call * MESH_ROWS_TIMED_CALLS
+    for name, per_step in MESH_ROWS_KERNELS[path].items():
+        check(launches[name] == per_step * n_steps,
+              f"{path} rank {mesh.rank}: kernel {name} launched {launches[name]} times in {n_steps} steps, "
+              f"expected {per_step} per step")
+    check(bool(np.isfinite(losses).all() and np.isfinite(timed_losses).all()), f"{path}: non-finite losses")
+    check(equal, f"{path}: the ranks' replicated leaves differ after the check steps")
+    check(untouched_ok, f"{path} rank {mesh.rank}: a row no batch touched changed")
+    check(loss_rel <= MESH_ROWS_LOSS_RTOL["sparse"], f"{path}: first loss {first_loss} vs one device {ref_loss}")
+    check(worst_rows <= atol, f"{path} rank {mesh.rank}: table blocks after the first step differ from one "
+                              f"device's by {worst_rows} past rtol {rtol}")
+    ms_per_step = timed_s * 1e3 / (n_call * MESH_ROWS_TIMED_CALLS)
+    row = {"rank": mesh.rank, "batch": SCALED_BATCH, "rows_per_rank": SCALED_BATCH // mesh.size,
+           "shard_rows": model.notice_tower.embeddings.shard_rows, "steps": n_steps, "ms_per_step": ms_per_step,
+           "examples_per_sec": SCALED_BATCH * 1e3 / ms_per_step, "loss_check": losses, "loss_one_device": ref_loss,
+           "loss_rel_err": loss_rel, "table_blocks_max_err_past_rtol": worst_rows,
+           "tolerance": {"rtol": rtol, "atol": atol}, "ranks_equal": equal, "untouched_rows_equal": untouched_ok,
+           "loss_last_call": float(timed_losses.mean()), "launches": launches,
+           "wire_bytes_per_rank": compressed_grads.ring_wire_bytes(built.sync.buffers, mesh.size),
+           "dense_params": int(sum(v.numel() for v in err.values())),
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del state, err, built, model, n_store, c_store
+    torch.cuda.empty_cache()
+    return row
+
+
 def mesh_rows_rank(devices: list) -> dict:
     """One rank of the mesh_rows phase: config 3's data built from its seed
     on the host, then every path of MESH_ROWS_PATHS. Any failed check
@@ -3336,9 +3788,12 @@ def mesh_rows_rank(devices: list) -> dict:
     dtype = resolve_store_dtype(mesh_rows_config("mesh_scaled_dense"))
     host_stores = [host_store(fs, dtype) for fs in (ds.notice_store, ds.company_store)]
     out = {"rank": mesh.rank, "backend": mesh.backend, "data_s": time.perf_counter() - t0}
-    for path in MESH_ROWS_PATHS:
+    for path in (*MESH_ROWS_PATHS, MESH_ROWS_INT16):
         t1 = time.perf_counter()
-        out[path] = mesh_rows_path(mesh, path, schema, host_stores, ds.pairs)
+        if path == MESH_ROWS_INT16:
+            out[path] = mesh_rows_int16_path(mesh, schema, host_stores, ds.pairs)
+        else:
+            out[path] = mesh_rows_path(mesh, path, schema, host_stores, ds.pairs)
         out[path]["path_s"] = time.perf_counter() - t1
         print(f"mesh_rows rank {mesh.rank} {path} " + json.dumps(out[path]), flush=True)
     return out
@@ -3354,13 +3809,13 @@ def mesh_rows_phase() -> tuple[dict, dict]:
     ranks = launch(mesh_rows_rank, MESH_RANKS, args=(["cuda:0"] * MESH_RANKS,), backend="gloo",
                    devices=["cuda:0"] * MESH_RANKS, timeout_s=MESH_PG_S, join_timeout_s=MESH_JOIN_S)
     ranks_s = time.perf_counter() - t0
-    for path in MESH_ROWS_PATHS:
+    paths = (*MESH_ROWS_PATHS, MESH_ROWS_INT16)
+    for path in paths:
         check(ranks[0][path]["loss_check"] == ranks[1][path]["loss_check"], f"{path}: the ranks' losses differ")
     row = {"ranks": MESH_RANKS, "backend": ranks[0]["backend"], "ranks_s": ranks_s,
-           "per_rank_data_s": [r["data_s"] for r in ranks],
-           **{path: [r[path] for r in ranks] for path in MESH_ROWS_PATHS}}
+           "per_rank_data_s": [r["data_s"] for r in ranks], **{path: [r[path] for r in ranks] for path in paths}}
     print("mesh_rows " + json.dumps(row), flush=True)
-    return row, {path: ranks[0][path]["launches"] for path in MESH_ROWS_PATHS}
+    return row, {path: ranks[0][path]["launches"] for path in paths}
 
 
 def kernel_record(name: str, tpu_kernel: str, source: str, replaces: str, rows: list[dict], launches: dict,
@@ -3542,8 +3997,18 @@ def main() -> int:
         "mesh_rows": {"ranks_s": mesh_rows["ranks_s"], **{
             path: [{k: r[k] for k in ("ms_per_step", "examples_per_sec", "peak_memory_gb", "loss_rel_err",
                                       "table_blocks_max_err_past_rtol", "replicated_share_past_tol",
-                                      "checkpoint_gather_s") if k in r} for r in mesh_rows[path]]
-            for path in MESH_ROWS_PATHS}},
+                                      "checkpoint_gather_s", "wire_bytes_per_rank", "path_s") if k in r}
+                   for r in mesh_rows[path]]
+            for path in (*MESH_ROWS_PATHS, MESH_ROWS_INT16)}},
+        "mesh_compressed": {
+            "phase_s": mesh["compressed"]["phase_s"], "first_losses": mesh["compressed"]["first_losses"],
+            "wire_bytes_per_rank": mesh["compressed"]["wire"]["wire_bytes_per_rank"],
+            "global_check": {k: mesh["compressed"]["global_check"][k] for k in ("loss_rel_err", "max_grad_rel_err",
+                                                                                 "max_param_abs_diff")},
+            "trainer": {m: {k: r[k] for k in ("train_loss", "val_loss", "ms_per_step", "peak_memory_gb", "wall_s")
+                            if k in r} for m, r in mesh["compressed"]["trainer"].items()},
+            "final_loss_rel_to_none": mesh["compressed"]["final_loss_rel_to_none"],
+            "timed_ms_per_step": {k: v["ms_per_step"] for k, v in mesh["compressed"]["timed"].items()}},
         "card": card}
     by_kernel = {rec["tpu_kernel"]: rec for rec in record["kernels"]}
     by_kernel["K6"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"

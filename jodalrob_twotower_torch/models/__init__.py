@@ -2,9 +2,6 @@ from jodalrob_twotower_torch.models.embedding import EmbeddingCollection  # noqa
 from jodalrob_twotower_torch.models.tower import Tower  # noqa: F401
 from jodalrob_twotower_torch.models.two_tower import TwoTowerModel
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP A12b item 4)")
-
 
 def build_model(schema, cfg, mesh=None) -> TwoTowerModel:
     """Construct the model the config asks for (reference
@@ -21,14 +18,22 @@ def build_model(schema, cfg, mesh=None) -> TwoTowerModel:
     (``parallel/sharded_embedding.make_sharded_lookup``). The reference's
     two modes differ only in who writes the exchange (XLA's GSPMD or the
     code); the port has one exchange for both. Sparse tables on a mesh are
-    row-sharded too. The compressed gradient sync raises
-    NotImplementedError (ROADMAP A12b item 4)."""
+    row-sharded too.
+
+    Under the compressed gradient sync (``grad_compression`` other than
+    "none", ``parallel/compressed_grads.py``) every rank trains its block as
+    a batch of its own, as the reference's explicit ``shard_map`` step does
+    with the plain lookup (its :15-21): BatchNorm takes the rank's
+    statistics, dropout the rank's masks, and the tables are replicated
+    (each rank's lookup as one device's), or row-sharded for sparse
+    tables, whose exchange stays exact."""
+    if mesh is not None and mesh.size > 1 and cfg.mesh.grad_compression != "none":
+        return TwoTowerModel(schema, cfg.model, cfg.mesh.use_pallas_lookup, mesh=mesh,
+                             row_sharded=bool(cfg.sparse_tables), per_rank=True)
     row_sharded = False
     if mesh is not None and mesh.size > 1:
         from jodalrob_twotower_torch.parallel.mesh import resolve_embedding_sharding
 
-        if cfg.mesh.grad_compression != "none":
-            raise _not_ported("the compressed gradient sync (grad_compression)")
         mode = resolve_embedding_sharding(cfg.mesh, schema)
         if cfg.model.embedding_lookup == "onehot" and mode == "shard_map":
             raise ValueError(

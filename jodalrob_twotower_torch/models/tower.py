@@ -13,7 +13,10 @@ statistics as flax does, and dropout follows each BatchNorm, drawn from the
 ``torch.Generator`` the caller passes. On a mesh (``parallel/mesh.py``) the
 tower runs on the rank's block of the global batch: BatchNorm's statistics
 are the global batch's and dropout keeps the rank's block of the global
-batch's masks, as one device's step on the whole batch has them.
+batch's masks, as one device's step on the whole batch has them; under the
+compressed gradient sync (``per_rank``) the rank's block is a batch of its
+own, with its own statistics and masks, as in the reference's explicit
+``shard_map`` step.
 """
 
 from __future__ import annotations
@@ -112,13 +115,15 @@ class Tower(nn.Module):
     [B, final_dim] float32 embedding."""
 
     def __init__(self, schema: SideSchema, config: ModelConfig, use_pallas_lookup: bool = False, *,
-                 mesh=None, row_sharded: bool = False) -> None:
+                 mesh=None, row_sharded: bool = False, per_rank: bool = False) -> None:
         super().__init__()
         self.schema = schema
         self.config = config
+        multi = mesh if mesh is not None and mesh.size > 1 else None
         # a mesh of more than one rank: the training form's BatchNorm takes
-        # global statistics and dropout the global batch's masks
-        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # global statistics and dropout the global batch's masks, unless
+        # each rank's block is a batch of its own (per_rank)
+        self.mesh = None if per_rank else multi
         self.compute_dtype = _DTYPES[config.compute_dtype]
         proj = config.dense_projection_dim
         self.blocks: list[tuple[str, int, int]] = []  # (layer name, start, width) in dense
@@ -140,7 +145,7 @@ class Tower(nn.Module):
                 grad_mode=config.embedding_grad,
                 lookup_mode=resolve_lookup_mode(config),
                 use_pallas=use_pallas_lookup,
-                row_mesh=self.mesh if row_sharded else None,
+                row_mesh=multi if row_sharded else None,
             )
         if not self.blocks and not schema.num_categorical:
             raise ValueError(f"tower {schema.table!r} has no features")

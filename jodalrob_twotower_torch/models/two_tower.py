@@ -26,15 +26,17 @@ class TwoTowerModel(nn.Module):
     kernel (models/embedding.EmbeddingCollection). ``mesh`` is the mesh
     model's (``models.build_model``): the towers then run on the rank's
     block of each global batch, and with ``row_sharded`` each table holds
-    the rank's block of rows (:attr:`row_sharded_keys`)."""
+    the rank's block of rows (:attr:`row_sharded_keys`); ``per_rank`` makes
+    the block a batch of its own in training form (the compressed sync)."""
 
     def __init__(self, schema: TwoTowerSchema, config: ModelConfig, use_pallas_lookup: bool = False, *,
-                 mesh=None, row_sharded: bool = False) -> None:
+                 mesh=None, row_sharded: bool = False, per_rank: bool = False) -> None:
         super().__init__()
         self.schema = schema
         self.config = config
-        self.notice_tower = Tower(schema.notice, config, use_pallas_lookup, mesh=mesh, row_sharded=row_sharded)
-        self.company_tower = Tower(schema.company, config, use_pallas_lookup, mesh=mesh, row_sharded=row_sharded)
+        kw = dict(mesh=mesh, row_sharded=row_sharded, per_rank=per_rank)
+        self.notice_tower = Tower(schema.notice, config, use_pallas_lookup, **kw)
+        self.company_tower = Tower(schema.company, config, use_pallas_lookup, **kw)
         # the state_dict keys of the row-sharded tables (empty off a mesh or
         # with replicated tables)
         self.row_sharded_keys = frozenset(f"{name}.table" for name, m in self.named_modules()

@@ -235,14 +235,7 @@ def launch_cli(fn: Callable, argv: list[str], n: int, force_cpu: bool):
 
 
 def refuse_unported(args) -> None:
-    """The CLIs' flags of the mesh forms not ported yet (the compressed
-    gradient sync, ROADMAP A12b item 4), and ``--store-sharding`` without
-    a mesh, which exits as the reference's CLIs do."""
-    for flag, value, ported in (("grad_compression", getattr(args, "grad_compression", None), (None, "none")),
-                                ("compressed_negatives", getattr(args, "compressed_negatives", None), (None,))):
-        if value not in ported:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {value} is not ported to the PyTorch package yet (ROADMAP A12b item 4)"
-            )
+    """``--store-sharding`` without a mesh exits, as the reference's CLIs
+    do."""
     if getattr(args, "store_sharding", None) and not args.mesh_devices:
         raise SystemExit("--store-sharding requires --mesh-devices")

@@ -38,10 +38,6 @@ from jodalrob_twotower_torch.train.train_step import (
 )
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP A12b item 4)")
-
-
 def _is_table_row_leaf(name: str, leaf: torch.Tensor, n_data: int) -> bool:
     """A leaf is row-sharded iff it is an embedding table whose (128-aligned)
     rows divide the data axis."""
@@ -67,8 +63,6 @@ def _check_mesh_config(model, cfg, mesh, batch_size: int) -> None:
         raise ValueError(
             f"batch_size {batch_size} must divide the data axis ({mesh.size}) to shard the batch dim"
         )
-    if cfg.mesh.grad_compression != "none":
-        raise _not_ported("the compressed gradient sync (grad_compression)")
 
 
 def replicated_state(model, cfg, mesh, total_steps: int) -> tuple[TrainState, object]:

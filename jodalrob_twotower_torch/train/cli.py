@@ -20,8 +20,12 @@ N-rank data-parallel mesh (``parallel/``): N cards over NCCL, or with
 ``--force-cpu`` N gloo ranks on the CPU; ``--batch-size`` is then the global
 batch. Tables above 65,536 rows are row-sharded over the mesh, and
 ``--store-sharding rows`` row-shards the feature stores too (it needs
-``--mesh-devices``). A run across hosts starts one process per card with
-``torchrun``.
+``--mesh-devices``). ``--grad-compression int16|bf16`` syncs the dense
+gradients of the mesh in that wire format with error feedback
+(``parallel/compressed_grads.py``; each rank then trains its block as a
+batch of its own), with ``--compressed-negatives`` "local" (each rank's
+in-batch negatives, the default) or "global". A run across hosts starts one
+process per card with ``torchrun``.
 
   python -m jodalrob_twotower_torch.train --synthetic --synthetic-scale bench \\
       --batch-size 8192 --epochs 8 --sample-on-device --epoch-corpus-eval \\
@@ -78,8 +82,12 @@ def parse_args(argv=None):
                    "up to 65,536 rows, row-sharded above)")
     p.add_argument("--store-sharding", choices=["replicated", "rows"],
                    help="feature-store placement under --mesh-devices ('rows': each device its block of rows)")
-    p.add_argument("--grad-compression", choices=["none", "int16", "bf16"], help="(not ported yet)")
-    p.add_argument("--compressed-negatives", choices=["local", "global"], help="(not ported yet)")
+    p.add_argument("--grad-compression", choices=["none", "int16", "bf16"],
+                   help="compressed dense-gradient sync with error feedback under --mesh-devices "
+                   "(int8 quanta summed exactly, or bf16)")
+    p.add_argument("--compressed-negatives", choices=["local", "global"],
+                   help="in-batch negatives under --grad-compression: 'local' (each device's block, "
+                   "the default) or 'global' (the whole batch, through the mesh's CE)")
     return p.parse_args(argv)
 
 
@@ -113,12 +121,20 @@ def configure(args):
     if args.fused_logits:
         resolved = {"auto": "auto", "on": True, "off": False}[args.fused_logits]
         cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, use_fused_logits=resolved))
+    if args.compressed_negatives:
+        if args.compressed_negatives != "local" and not args.grad_compression:
+            raise SystemExit("--compressed-negatives requires --grad-compression")
+        cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, compressed_negatives=args.compressed_negatives))
     if args.dropout_rng:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_rng_impl=args.dropout_rng))
     if args.store_sharding:
         if not args.mesh_devices:
             raise SystemExit("--store-sharding requires --mesh-devices")
         cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, store_sharding=args.store_sharding))
+    if args.grad_compression:
+        if not args.mesh_devices and args.grad_compression != "none":
+            raise SystemExit("--grad-compression requires --mesh-devices")
+        cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, grad_compression=args.grad_compression))
     return cfg
 
 
@@ -156,6 +172,7 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     refuse_unported(args)
+    configure(args)  # the flags' exits, before any rank starts
     if args.mesh_devices:
         return launch_cli(run, argv, args.mesh_devices, args.force_cpu)
     return run(argv)
@@ -184,8 +201,13 @@ def run(argv: list[str], devices: list | None = None) -> int:
     if mesh is not None:
         from jodalrob_twotower_torch.parallel.mesh import resolve_embedding_sharding
 
-        say(f"mesh: {mesh.size} devices over {mesh.backend} (tables {resolve_embedding_sharding(cfg.mesh, schema)}, "
-            f"stores {cfg.mesh.store_sharding}, batch dim sharded)")
+        tables = resolve_embedding_sharding(cfg.mesh, schema)
+        sync = ""
+        if cfg.mesh.grad_compression != "none":
+            tables = "gspmd_rows" if cfg.sparse_tables else "replicated"
+            sync = f", gradients {cfg.mesh.grad_compression} with {cfg.mesh.compressed_negatives} negatives"
+        say(f"mesh: {mesh.size} devices over {mesh.backend} (tables {tables}, "
+            f"stores {cfg.mesh.store_sharding}, batch dim sharded{sync})")
 
     trainer = Trainer(cfg, schema, notice_store, company_store, mesh=mesh,
                       device=None if mesh is not None else "cpu" if args.force_cpu else None, log_fn=say)

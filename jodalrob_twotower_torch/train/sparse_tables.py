@@ -43,6 +43,12 @@ shard's sentinel, a zero update) and applies the same dedup and rowwise
 Adagrad to its shard, so every row steps as on one device. A deferred
 window gathers its stacked occurrences once, into the same step-major
 order as one device's window.
+
+Under the compressed gradient sync (``sync``,
+``parallel/compressed_grads.py``) the lookup and the table update stay that
+exact exchange, while each rank's towers train on its block as a batch of
+its own: the dense gradients go through the compressed sum, and the compact
+cotangents carry the same objective scale before they are gathered.
 """
 
 from __future__ import annotations
@@ -60,12 +66,11 @@ from jodalrob_twotower_torch.parallel.sharded_embedding import exchange_rows, lo
 from jodalrob_twotower_torch.train.metrics import in_batch_metrics
 from jodalrob_twotower_torch.train.optimizer import Optimizer, build_optimizer, warmup_constant_schedule
 from jodalrob_twotower_torch.train.train_step import (
-    DROPOUT_STREAM,
     _forward_loss,
+    dropout_generator,
     make_sharded_ce,
     sampled_scan_fn,
     scanned_fn,
-    step_generator,
 )
 
 # the tables' state_dict keys and the state's fields that hold them
@@ -251,6 +256,7 @@ def make_sparse_train_step(
     defer_table_updates: bool = False,
     mesh=None,
     store_gather=None,
+    sync=None,
 ):
     """Indexed train step over device-resident stores with sparse tables:
     ``step(state, pair_idx [B, 2], notice_store, company_store) -> (state,
@@ -264,7 +270,9 @@ def make_sparse_train_step(
     With ``mesh`` (more than one rank) ``pair_idx`` is the rank's block of
     the global batch and the state's tables the rank's row blocks (module
     docstring); ``store_gather(store, rows) -> TowerBatch`` replaces the
-    plain gather (a row-sharded store, ``parallel/sharded_store.py``)."""
+    plain gather (a row-sharded store, ``parallel/sharded_store.py``).
+    ``sync`` (the compressed sync) keeps the mesh's lookup and table update
+    and makes the towers' step the rank's own (module docstring)."""
     n_rows = make_absolute_rows(model.schema.notice.vocab_sizes)
     c_rows = make_absolute_rows(model.schema.company.vocab_sizes)
     emb_dim = cfg.model.categorical_embedding_dim
@@ -273,7 +281,8 @@ def make_sparse_train_step(
     eps = cfg.optimizer.adagrad_eps
     dedup = cfg.optimizer.sparse_duplicate_handling == "exact"
     gather = store_gather or default_tower_gather
-    sharded_ce = make_sharded_ce(cfg, mesh)
+    sharded_ce = sync.sharded_ce if sync is not None else make_sharded_ce(cfg, mesh)
+    loss_mesh = None if sync is not None else mesh
     sharded = _on_mesh(mesh)
 
     def lookup(st: SparseTable, rows: torch.Tensor) -> torch.Tensor:
@@ -289,20 +298,25 @@ def make_sparse_train_step(
         rows_n, rows_c = n_rows(batch.notice.cat_ids), c_rows(batch.company.cat_ids)
         emb_n = lookup(state.notice_table, rows_n).reshape(b, -1).requires_grad_(True)
         emb_c = lookup(state.company_table, rows_c).reshape(b, -1).requires_grad_(True)
-        generator = None
-        if cfg.model.dropout_rate > 0:
-            generator = step_generator(state.device, state.seed, state.step, DROPOUT_STREAM)
+        generator = dropout_generator(cfg, state, sync)
         dense = {k: v.detach().requires_grad_(True) for k, v in state.dense_params.items()}
         # the tables complete the model's keys; with the overrides no tower reads them
         weights = {**dense, **state.batch_stats, **{k: getattr(state, f).table for k, f in TABLE_KEYS.items()}}
         loss, sim, _, _ = _forward_loss(model, cfg, weights, batch, generator, train=True,
-                                        emb_overrides=(emb_n, emb_c), mesh=mesh, sharded_ce=sharded_ce)
+                                        emb_overrides=(emb_n, emb_c), mesh=loss_mesh, sharded_ce=sharded_ce)
         *g_dense, g_n, g_c = torch.autograd.grad(loss, [*dense.values(), emb_n, emb_c])
         g_dense = dict(zip(dense, g_dense))
-        if mesh is not None:
+        scale = 1.0
+        if sync is not None:
+            g_dense, scale = sync(g_dense), sync.scale
+        elif mesh is not None:
             g_dense = sync_grads(g_dense, mesh)
         tx.update(state.dense_params, g_dense, state.opt_state)
         rows_n, rows_c = rows_n.reshape(-1), rows_c.reshape(-1)
+        if scale != 1.0:
+            # the cotangents carry the dense gradients' objective scale
+            # (reference compressed_grads.py:665-670)
+            g_n, g_c = g_n * scale, g_c * scale
         g_n, g_c = g_n.reshape(-1, emb_dim).float(), g_c.reshape(-1, emb_dim).float()
         if not defer_table_updates:
             lr_t = emb_schedule(state.step)
@@ -314,6 +328,8 @@ def make_sparse_train_step(
         metrics = {"loss": loss.detach()}
         if with_metrics and sim is not None:
             metrics.update(in_batch_metrics(sim.detach()))
+        if sync is not None:
+            metrics = sync.pmean_(metrics, state.batch_stats)
         if defer_table_updates:
             metrics.update(rows_n=rows_n, g_n=g_n, rows_c=rows_c, g_c=g_c)
         return state, metrics

@@ -31,6 +31,12 @@ table (``model.row_sharded_keys``) and its optimizer leaves are the rank's
 block of rows: the row exchange's backward gives each rank its block's
 whole gradient, which no sum touches. A row-sharded store enters through
 ``store_gather`` (``parallel/sharded_store.make_tower_batch_gather``).
+
+Under the compressed gradient sync (the steps' ``sync`` argument,
+``parallel/compressed_grads.CompressedSync``) each rank instead trains on its
+block as a batch of its own: its own loss ("local" negatives) or the mesh's
+CE ("global"), its own dropout stream, and the compressed sum with error
+feedback in place of the mesh's sum.
 """
 
 from __future__ import annotations
@@ -58,6 +64,8 @@ from jodalrob_twotower_torch.train.optimizer import Optimizer, build_optimizer
 
 DROPOUT_STREAM = 0
 SAMPLE_STREAM = 1
+RANK_DROPOUT_STREAM = 2  # a compressed step's per-rank dropout masks
+RANK_SAMPLE_STREAM = 3  # a compressed step's per-rank batch draws
 
 
 @dataclasses.dataclass
@@ -112,9 +120,12 @@ def resolve_dropout_rng_impl(model_cfg) -> str:
     return "threefry" if v == "auto" else v
 
 
-def step_generator(device: torch.device, seed: int, step: int, stream: int) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, stream, step) alone."""
-    words = np.random.SeedSequence([int(seed) & 0xFFFFFFFF, stream, int(step)]).generate_state(2, np.uint32)
+def step_generator(device: torch.device, seed: int, step: int, stream: int, rank: int | None = None) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, stream, step) alone, and
+    ``rank`` where a stream draws apart on every rank (the reference folds
+    the axis index into the step's key)."""
+    entropy = [int(seed) & 0xFFFFFFFF, stream, int(step)] + ([int(rank)] if rank is not None else [])
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     gen = torch.Generator(device=device)
     gen.manual_seed((int(words[0]) << 31) ^ int(words[1]))
     return gen
@@ -192,33 +203,49 @@ def _forward_loss(model, cfg, weights: Mapping[str, torch.Tensor], batch: PairBa
     return loss, sim, n_emb, c_emb
 
 
-def loss_and_grads(model, cfg, state: TrainState, batch: PairBatch, *, mesh=None, sharded_ce=None):
+def dropout_generator(cfg, state, sync=None) -> torch.Generator | None:
+    """The step's dropout generator, None without dropout: seeded from the
+    state's (seed, step), and under the compressed sync ``sync`` from the
+    rank's own stream, so that the ranks' blocks draw apart (reference
+    compressed_grads.py:213-220)."""
+    if cfg.model.dropout_rate <= 0:
+        return None
+    if sync is None:
+        return step_generator(state.device, state.seed, state.step, DROPOUT_STREAM)
+    return step_generator(state.device, state.seed, state.step, RANK_DROPOUT_STREAM, sync.mesh.rank)
+
+
+def loss_and_grads(model, cfg, state: TrainState, batch: PairBatch, *, mesh=None, sharded_ce=None, sync=None):
     """(loss, similarity or None, grads keyed as ``state.params``) of one
     training-form step on ``batch``, without the update. BatchNorm running
     statistics in ``state`` advance as in a step. On a mesh ``batch`` is the
     rank's block, the loss the global batch's and the gradients summed over
     the ranks (``parallel/mesh.sync_grads``): every rank holds the gradient
-    of one device's step on the whole batch."""
-    generator = None
-    if cfg.model.dropout_rate > 0:
-        generator = step_generator(state.device, state.seed, state.step, DROPOUT_STREAM)
+    of one device's step on the whole batch. ``sync`` (the compressed sync,
+    with ``mesh`` None) takes the sum's place: the rank's own gradients go
+    through it, and the loss stays the rank's."""
+    generator = dropout_generator(cfg, state, sync)
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
     loss, sim, _, _ = _forward_loss(model, cfg, {**params, **state.batch_stats}, batch, generator, train=True,
                                     mesh=mesh, sharded_ce=sharded_ce)
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-    if mesh is not None:
+    if sync is not None:
+        grads = sync(grads)
+    elif mesh is not None:
         grads = sync_grads(grads, mesh, sharded=model.row_sharded_keys)
     return loss.detach(), sim, grads
 
 
 def _train_on_batch(model, cfg, tx: Optimizer, state: TrainState, batch: PairBatch, with_metrics: bool,
-                    mesh=None, sharded_ce=None):
-    loss, sim, grads = loss_and_grads(model, cfg, state, batch, mesh=mesh, sharded_ce=sharded_ce)
+                    mesh=None, sharded_ce=None, sync=None):
+    loss, sim, grads = loss_and_grads(model, cfg, state, batch, mesh=mesh, sharded_ce=sharded_ce, sync=sync)
     tx.update(state.params, grads, state.opt_state, mesh=mesh, sharded=model.row_sharded_keys)
     state.step += 1
     metrics = {"loss": loss}
     if with_metrics and sim is not None:
         metrics.update(in_batch_metrics(sim.detach()))
+    if sync is not None:
+        metrics = sync.pmean_(metrics, state.batch_stats)
     return state, metrics
 
 
@@ -245,22 +272,26 @@ def make_indexed_train_step(
     with_metrics: bool = True,
     store_gather: Callable | None = None,
     mesh=None,
+    sync=None,
 ):
     """Train step over device-resident stores:
     ``step(state, pair_idx [B, 2], notice_store, company_store)``, each
     store a (dense, cat_ids) tuple of tensors on the state's device; the
     batch is gathered on the device. ``store_gather(store, rows) ->
     TowerBatch`` replaces the plain gather. With ``mesh``, ``pair_idx`` is
-    the rank's block of the global batch's indices (:func:`make_train_step`)."""
+    the rank's block of the global batch's indices (:func:`make_train_step`).
+    With ``sync`` (the compressed sync, no ``mesh``) it is the rank's block
+    trained as a batch of its own, its loss ``sync.sharded_ce`` where the
+    negatives are global."""
     gather = store_gather or default_tower_gather
-    sharded_ce = make_sharded_ce(cfg, mesh)
+    sharded_ce = sync.sharded_ce if sync is not None else make_sharded_ce(cfg, mesh)
 
     def step(state: TrainState, pair_idx: torch.Tensor, notice_store, company_store):
         batch = PairBatch(
             notice=gather(notice_store, pair_idx[:, 0]),
             company=gather(company_store, pair_idx[:, 1]),
         )
-        return _train_on_batch(model, cfg, tx, state, batch, with_metrics, mesh, sharded_ce)
+        return _train_on_batch(model, cfg, tx, state, batch, with_metrics, mesh, sharded_ce, sync)
 
     return step
 
@@ -298,20 +329,27 @@ def make_scanned_train_steps(
                                               store_gather=store_gather), n_inner)
 
 
-def sampled_scan_fn(inner, n_inner: int, batch_size: int, mesh=None):
+def sampled_scan_fn(inner, n_inner: int, batch_size: int, mesh=None, *, per_rank: bool = False):
     """The ``n_inner``-step body with on-device batch sampling: each step
     draws ``batch_size`` pairs IID with replacement from a generator seeded
     from (sample_seed, global step), so draws are replayable and
     resume-exact. On a mesh every rank draws the global batch and keeps its
-    block (reference train_step.py:340-352, where GSPMD shards the draw)."""
-    block = mesh.block(batch_size) if mesh is not None else slice(None)
+    block (reference train_step.py:340-352, where GSPMD shards the draw);
+    with ``per_rank`` each rank draws only its batch_size / n rows, from
+    (sample_seed, global step, rank) (the dense compressed steps, reference
+    compressed_grads.py:466-472)."""
+    block = mesh.block(batch_size) if mesh is not None and not per_rank else slice(None)
+    n_draw = batch_size // mesh.size if per_rank else batch_size
 
     def steps(state, sample_seed: int, pairs_dev: torch.Tensor, notice_store, company_store):
         n_pairs = pairs_dev.shape[0]
         out = []
         for _ in range(n_inner):
-            gen = step_generator(pairs_dev.device, sample_seed, state.step, SAMPLE_STREAM)
-            rows = torch.randint(0, n_pairs, (batch_size,), generator=gen, device=pairs_dev.device)[block]
+            if per_rank:
+                gen = step_generator(pairs_dev.device, sample_seed, state.step, RANK_SAMPLE_STREAM, mesh.rank)
+            else:
+                gen = step_generator(pairs_dev.device, sample_seed, state.step, SAMPLE_STREAM)
+            rows = torch.randint(0, n_pairs, (n_draw,), generator=gen, device=pairs_dev.device)[block]
             state, m = inner(state, pairs_dev.index_select(0, rows), notice_store, company_store)
             out.append(m)
         return state, _stack(out)

@@ -37,8 +37,13 @@ resolves (sparse tables always row-sharded), the stores replicated or, with
 ``store_sharding="rows"``, row-sharded and read through the exchange in
 training, validation and the corpus encode alike. Rank 0 alone writes
 checkpoints (the row-sharded leaves gathered whole first), the metrics,
-the results CSV and the log, and every rank restores its share. The
-compressed gradient sync waits for ROADMAP A12b item 4.
+the results CSV and the log, and every rank restores its share. With
+``MeshConfig.grad_compression`` the mesh steps are the compressed ones
+(``parallel/compressed_grads.py``): each rank trains its block as a batch of
+its own and the dense gradients sync through the compressed sum; its
+error-feedback residual is threaded through every call and not
+checkpointed, so a resume restarts it at zero. Off a mesh the setting is
+ignored, as in the reference.
 """
 
 from __future__ import annotations
@@ -61,6 +66,10 @@ from jodalrob_twotower_torch.evaluation.evaluator import (
     corpus_retrieval_eval,
     qualitative_assessment,
     sharded_corpus_retrieval_eval,
+)
+from jodalrob_twotower_torch.parallel.compressed_grads import (
+    make_dp_compressed_indexed_train,
+    make_dp_compressed_sparse_train,
 )
 from jodalrob_twotower_torch.parallel.sharded_sparse import make_sharded_sampled_sparse, make_sharded_sparse_train
 from jodalrob_twotower_torch.parallel.sharded_store import resolve_store_placement
@@ -103,10 +112,6 @@ def _count_params(params, mesh=None, sharded=frozenset()) -> int:
     blocks together)."""
     n = mesh.size if mesh is not None else 1
     return int(sum(p.numel() * (n if k in sharded else 1) for k, p in params.items()))
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
 
 
 class Trainer:
@@ -176,8 +181,6 @@ class Trainer:
         ``steps_per_epoch`` sizes the schedule."""
         cfg = self.cfg
         mesh = self.mesh
-        if cfg.mesh.grad_compression != "none":
-            raise _not_ported("the compressed gradient sync", "A12b item 4")
         if cfg.data.sample_on_device and batch_source is not None:
             raise ValueError(
                 "sample_on_device needs the whole pair set device-resident; "
@@ -192,7 +195,30 @@ class Trainer:
         model = self.model
 
         put_idx = None
-        if mesh is not None:
+        compressed = None  # CompressedDPTrain under grad_compression
+        if mesh is not None and cfg.mesh.grad_compression != "none":
+            self._check_compressed()
+            self.model.init_flax(torch.Generator().manual_seed(cfg.seed))
+            make_compressed = make_dp_compressed_sparse_train if cfg.sparse_tables else make_dp_compressed_indexed_train
+            compressed = make_compressed(model, cfg, mesh, b, total_steps, method=cfg.mesh.grad_compression)
+            state, tx, put_idx = compressed.state, compressed.tx, compressed.put_idx
+            # the rank's error-feedback residual threads through every call;
+            # the steps keep the (state, metrics) interface
+            err_cell = [compressed.err_state]
+
+            def threaded(fn: Callable) -> Callable:
+                def call(st, *args):
+                    st, err_cell[0], m = fn(st, err_cell[0], *args)
+                    return st, m
+
+                return call
+
+            scan_steps, single_step = threaded(compressed.scan_steps), threaded(compressed.single_step)
+            params = sparse_tables.merged_params(state) if cfg.sparse_tables else state.params
+            num_params = _count_params(params, mesh, model.row_sharded_keys)
+            if batch_source is not None:
+                put_idx = None  # a streamed source yields the rank's own blocks
+        elif mesh is not None:
             # the rank's share of the state (rank 0's replicated weights, its
             # own blocks of row-sharded tables) and the mesh steps on its
             # block of each global batch
@@ -226,7 +252,9 @@ class Trainer:
             # batches drawn on the device, IID with replacement, by a
             # generator keyed with the global step: draws are a function of
             # the step counter, so mid-epoch resume replays them exactly
-            if mesh is not None and cfg.sparse_tables:
+            if compressed is not None:
+                make_sampled = lambda k: threaded(compressed.make_sampled(k))  # noqa: E731
+            elif mesh is not None and cfg.sparse_tables:
                 make_sampled = lambda k: make_sharded_sampled_sparse(  # noqa: E731
                     model, cfg, mesh, state, k, b, total_steps, defer_updates=cfg.sparse_defer_updates)[0]
             elif mesh is not None:
@@ -476,6 +504,32 @@ class Trainer:
 
         return self.train(np.empty((0, 2), np.int64), val_pairs, batch_source=source,
                           steps_per_epoch=steps_per_epoch, **train_kwargs)
+
+    def _check_compressed(self) -> None:
+        """The reference's refusals of forms the compressed steps do not run
+        (its train/trainer.py:128-148)."""
+        cfg = self.cfg
+        if cfg.sparse_tables and cfg.sparse_defer_updates:
+            raise ValueError(
+                "grad_compression with sparse_tables runs per-step "
+                "table updates; sparse_defer_updates (windowed "
+                "staleness) composed with quantized dense sync has no "
+                "tested semantics — disable one of the two"
+            )
+        if cfg.mesh.store_sharding != "replicated":
+            raise ValueError(
+                "grad_compression requires store_sharding='replicated' "
+                "(its explicit shard_map step feeds each shard the full "
+                "stores)"
+            )
+        if cfg.model.embedding_lookup == "onehot":
+            raise ValueError(
+                "grad_compression uses the plain per-shard gather "
+                "inside its explicit shard_map step (build_model "
+                "installs no mesh lookup_fn in this mode) — "
+                "embedding_lookup='onehot' cannot be honored; use "
+                "'auto' or 'gather'"
+            )
 
     def prepare_device_eval(self) -> None:
         """Place both feature stores on the device, so validate() and

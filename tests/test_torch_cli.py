@@ -6,8 +6,8 @@ weights-only format): the same keys at every level, the same validation
 split, and the metrics within bf16 resolution of each other (both run the
 default bf16 towers, rounded at other places). Then ``--resume`` of a
 finished run trains nothing and keeps its weights, the headline script's
-smoke holds its gate, and the flags of the mesh forms not ported yet
-(ROADMAP A12b) raise; ``--mesh-devices`` itself runs in
+smoke holds its gate, and the mesh flags without ``--mesh-devices`` exit
+as scripts/train.py does; ``--mesh-devices`` itself runs in
 tests/test_torch_mesh_cli.py. The parquet
 ``--data-dir`` and ``--stream`` run in tests/test_torch_data_cli.py."""
 
@@ -142,13 +142,23 @@ def test_headline_smoke_holds_its_gate(tmp_path):
 @pytest.mark.parametrize("flag", [["--mesh-devices", "2", "--store-sharding", "rows"], ["--grad-compression", "int16"],
                                   ["--store-sharding", "rows"], ["--compressed-negatives", "global"]])
 def test_unported_train_flags_raise(flag):
-    """The compressed sync's flags raise (ROADMAP A12b item 4);
-    ``--store-sharding`` needs ``--mesh-devices`` and exits without it, as
-    scripts/train.py:226-228 does, and sets the store placement with it
-    (the mesh runs: tests/test_torch_mesh_cli.py)."""
-    if "--store-sharding" not in flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP A12b item 4"):
+    """The mesh flags exit without ``--mesh-devices`` as
+    scripts/train.py:214-237 does: ``--grad-compression`` other than "none"
+    needs it, ``--compressed-negatives global`` needs
+    ``--grad-compression``, ``--store-sharding`` needs ``--mesh-devices``;
+    with it ``--store-sharding`` sets the store placement (the mesh runs:
+    tests/test_torch_mesh_cli.py)."""
+    if "--grad-compression" in flag:
+        with pytest.raises(SystemExit, match="--grad-compression requires --mesh-devices"):
             ttrain.main(["--force-cpu"] + flag)
+        cfg = tcli.configure(tcli.parse_args(["--force-cpu", "--grad-compression", "none"]))
+        assert cfg.mesh.grad_compression == "none"
+    elif "--compressed-negatives" in flag:
+        with pytest.raises(SystemExit, match="--compressed-negatives requires --grad-compression"):
+            ttrain.main(["--force-cpu"] + flag)
+        cfg = tcli.configure(tcli.parse_args(["--force-cpu", "--mesh-devices", "2", "--grad-compression", "int16"]
+                                             + flag))
+        assert (cfg.mesh.grad_compression, cfg.mesh.compressed_negatives) == ("int16", "global")
     elif "--mesh-devices" not in flag:
         with pytest.raises(SystemExit, match="--store-sharding requires --mesh-devices"):
             ttrain.main(["--force-cpu"] + flag)

@@ -15,9 +15,13 @@ in-process on conftest's virtual devices).
 * ``--store-sharding rows`` (A12b item 2): the training CLI's run on the
   mesh bit-equal to its replicated-store run (the exchange reads exact
   rows), the eval CLI's report against the reference CLI's with the same
-  flag (the tolerances above). The compressed sync's flags (A12b item 4)
-  still raise, and a mesh larger than the visible cards is refused as the
-  reference refuses it."""
+  flag (the tolerances above).
+* ``--grad-compression int16`` (A12b item 4): the training CLI on the mesh
+  trains with the compressed sync and checkpoints, its final weights
+  restoring on one device; ``--compressed-negatives global`` without
+  ``--grad-compression`` exits, as does ``--grad-compression`` without
+  ``--mesh-devices`` (scripts/train.py:214-237). A mesh larger than the
+  visible cards is refused as the reference refuses it."""
 
 import contextlib
 import csv
@@ -39,6 +43,7 @@ from jodalrob_twotower_torch.convert import flax_to_state_dict
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.schema import tiny_synthetic_schema
 from jodalrob_twotower_torch.train.checkpoint import CheckpointManager
+from jodalrob_twotower_torch.train.train_step import create_train_state
 from jodalrob_twotower_tpu import config as j_config
 from jodalrob_twotower_tpu.models import build_model as j_build_model
 from jodalrob_twotower_tpu.schema import tiny_synthetic_schema as j_tiny_schema
@@ -173,14 +178,37 @@ def test_serve_cli_on_the_mesh_matches_the_reference_cli(dirs, index):
     (teval.main, ["--model-dir", "missing", "--store-sharding", "rows"]),
 ])
 def test_a12b_flags_still_raise(main, flags, request):
-    """The compressed sync's flags raise (A12b item 4); ``--store-sharding
-    rows`` runs (items 1-2): training bit-equal to the replicated-store
-    run, the eval report as the reference CLI's."""
-    if "--store-sharding" not in flags:
-        with pytest.raises(NotImplementedError, match="ROADMAP A12b item 4"):
+    """The A12b flags on the mesh: ``--grad-compression int16`` trains
+    with the compressed sync (item 4) and checkpoints, its weights finite
+    and restoring on one device; ``--compressed-negatives global`` alone
+    exits as the reference CLI exits; ``--store-sharding rows`` runs (items
+    1-2): training bit-equal to the replicated-store run, the eval report
+    as the reference CLI's."""
+    tmp = request.getfixturevalue("tmp_path")
+    if "--compressed-negatives" in flags:
+        with pytest.raises(SystemExit, match="--compressed-negatives requires --grad-compression"):
             main(["--force-cpu", *MESH, *flags])
         return
-    tmp = request.getfixturevalue("tmp_path")
+    if "--grad-compression" in flags:
+        capfd = request.getfixturevalue("capfd")
+        out = tmp / "int16"
+        assert main([str(a) for a in ["--force-cpu", *TRAIN_ARGS, *MESH, *flags, "--output-dir", out,
+                                      "--results-csv", tmp / "int16.csv", "--no-corpus-eval",
+                                      "--save-every-steps", "4"]]) == 0
+        assert "gradients int16 with local negatives" in capfd.readouterr().out
+        assert {"final", "weights", "best", "epoch_0", "config.json"} <= {p.name for p in out.iterdir()}
+        cfg = TrainConfig.from_json(out / "config.json")
+        assert (cfg.mesh.grad_compression, cfg.mesh.compressed_negatives) == ("int16", "local")
+        one = build_model(tiny_synthetic_schema(), cfg)
+        state, _ = create_train_state(one, cfg, cfg.seed, 10, device="cpu")
+        restored = CheckpointManager(out, cfg.checkpoint).restore("final", state)
+        assert all(torch.isfinite(v).all() for v in restored.params.values())
+        assert any(not torch.equal(restored.params[k], v) for k, v in state.params.items())
+        with open(tmp / "int16.csv") as f:
+            assert len(list(csv.DictReader(f))) == 1
+        return
+    if "--store-sharding" not in flags:
+        raise AssertionError(flags)
     if main is ttrain.main:
         runs, capfd = {}, request.getfixturevalue("capfd")
         for tag, extra in (("replicated", []), ("rows", flags)):
@@ -201,6 +229,22 @@ def test_a12b_flags_still_raise(main, flags, request):
     for k, v in want["in_batch"].items():
         assert abs(got["in_batch"][k] - v) <= 1e-4 * max(1.0, abs(v)), (k, got["in_batch"][k], v)
     assert got["corpus"] == want["corpus"]
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--grad-compression", "int16"], "--grad-compression requires --mesh-devices"),
+    ([*MESH, "--compressed-negatives", "global"], "--compressed-negatives requires --grad-compression"),
+])
+def test_compressed_flags_exit_before_any_rank_starts(flags, message, monkeypatch):
+    """scripts/train.py:214-237's exits, taken before the launcher runs."""
+    from jodalrob_twotower_torch.parallel import distributed
+
+    def no_launch(*_, **__):
+        raise AssertionError("a rank started")
+
+    monkeypatch.setattr(distributed, "launch_cli", no_launch)
+    with pytest.raises(SystemExit, match=message):
+        ttrain.main(["--force-cpu", *flags])
 
 
 def test_a_mesh_beyond_the_visible_cards_is_refused(monkeypatch):

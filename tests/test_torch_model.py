@@ -156,8 +156,14 @@ def test_build_model_single_device_only():
     assert rows.row_sharded_keys == {"notice_tower.embeddings.table", "company_tower.embeddings.table"}
     emb = rows.notice_tower.embeddings
     assert emb.table.shape == (emb.total_rows // 2, emb.embed_dim) and emb.row_offset == emb.total_rows // 2
-    with pytest.raises(NotImplementedError, match="A12b item 4"):
-        build_model(t_schema, cfg.replace(mesh=MeshConfig(grad_compression="int16")), mesh=two)
+    # under the compressed sync each rank's block is a batch of its own: no
+    # global statistics or masks, tables replicated (row-sharded if sparse)
+    per_rank = build_model(t_schema, cfg.replace(mesh=MeshConfig(grad_compression="int16")), mesh=two)
+    assert per_rank.notice_tower.mesh is None and not per_rank.row_sharded_keys
+    assert all(m.mesh is None for m in per_rank.modules() if hasattr(m, "running_mean"))
+    sparse = build_model(t_schema, cfg.replace(mesh=MeshConfig(grad_compression="bf16"), sparse_tables=True),
+                         mesh=two)
+    assert sparse.company_tower.mesh is None and sparse.row_sharded_keys == rows.row_sharded_keys
     assert not any(m.use_pallas for m in model.modules() if isinstance(m, EmbeddingCollection))
     # the training form follows the module's flag and needs a generator for dropout
     model.train()

@@ -436,3 +436,188 @@ def sparse_runs(schema, cfgs: dict, start: dict, stores: dict, batches: dict, pa
         out[name] = result(state, losses, mesh)
         out[name]["replicated"] = _np({**state.dense_params, **state.batch_stats})
     return out
+
+
+# -- the compressed gradient sync (test_torch_compressed.py) -------------------------
+
+
+def compressed_wire(leaves: dict, errs: dict, methods: tuple, feedback=None) -> dict:
+    """On this rank: ``compressed_psum_tree`` of its row of every leaf of
+    ``leaves`` and ``errs`` ([n, ...] each) under each method (the sums, the
+    new residuals and the collectives' input bytes), the one-leaf form, and
+    with ``feedback`` = (g [n, d], steps) the running total of ``steps``
+    int16 syncs of g with the residual fed back and without it."""
+    from jodalrob_twotower_torch.parallel.compressed_grads import compressed_psum_leaf, compressed_psum_tree
+
+    mesh = _mesh()
+    r = mesh.rank
+    mine = {k: torch.from_numpy(v[r].copy()) for k, v in leaves.items()}
+    err = {k: torch.from_numpy(v[r].copy()) for k, v in errs.items()}
+    out = {}
+    for method in methods:
+        buffers = []
+        synced, new_err = compressed_psum_tree(mine, err, mesh, method, buffers=buffers)
+        k0 = next(iter(mine))
+        leaf_sum, leaf_err = compressed_psum_leaf(mine[k0], err[k0], mesh, method)
+        out[method] = {"synced": _np(synced), "err": _np(new_err), "buffers": list(buffers),
+                       "leaf": (leaf_sum.numpy(), leaf_err.numpy())}
+    if feedback is not None:
+        g_all, steps = feedback
+        g = {"g": torch.from_numpy(g_all[r].copy())}
+        e = {"g": torch.zeros_like(g["g"])}
+        acc, lost = torch.zeros_like(g["g"]), torch.zeros_like(g["g"])
+        for _ in range(steps):
+            total, e = compressed_psum_tree(g, e, mesh, "int16")
+            acc += total["g"]
+            total, _ = compressed_psum_tree(g, {"g": torch.zeros_like(g["g"])}, mesh, "int16")
+            lost += total["g"]
+        out["feedback"] = (acc.numpy(), lost.numpy())
+    return out
+
+
+def _compressed_state(state) -> dict:
+    """A dense or sparse state's leaves under the model's keys, the tables
+    whole (a sparse state's row blocks gathered from every rank)."""
+    from jodalrob_twotower_torch.train import sparse_tables as tst
+
+    if isinstance(state, tst.SparseTrainState):
+        keys = set(tst.TABLE_KEYS)
+        return _joined({**tst.merged_params(state), **state.batch_stats}, _mesh(), keys)
+    return _np({**state.params, **state.batch_stats})
+
+
+def compressed_runs(schema, jobs: dict, start: dict, stores: dict, batches: dict, pairs: np.ndarray,
+                    sample_seed: int) -> dict:
+    """Per job name, on this rank, from the one-device state dict ``start``
+    (each job ``dict(cfg, kind, method, batches, ...)``), one step per
+    global batch of ``batches[job["batches"]]``:
+
+    * kind "full": ``make_dp_compressed_train_step`` on the rank's blocks
+      of host-assembled batches;
+    * "single": ``make_dp_compressed_indexed_train``'s ``single_step``
+      (``make_dp_compressed_sparse_train``'s where ``job["sparse"]``);
+    * "scan": one ``scan_steps`` call over the batches;
+    * "sampled": ``make_sampled(len)`` from a fresh build; the dense
+      form's rank-drawn rows are returned and replayed through
+      ``single_step`` from another fresh build ("replay");
+    * "mesh" / "mesh_sparse": the uncompressed mesh steps
+      (``make_sharded_indexed_train``, ``make_sharded_sparse_train``).
+
+    Each result: the losses, the metric keys of the last step, the final
+    state (tables whole), and for the compressed kinds the rank's residual
+    and the last sum's collectives. The compressed kinds run on a model
+    built without the mesh, as the reference's tests build theirs."""
+    from jodalrob_twotower_torch.models import build_model
+    from jodalrob_twotower_torch.parallel import compressed_grads as cg
+    from jodalrob_twotower_torch.parallel.mesh import shard_state
+    from jodalrob_twotower_torch.parallel.sharded_sparse import make_sharded_sparse_train
+    from jodalrob_twotower_torch.parallel.sharded_train import make_sharded_indexed_train
+    from jodalrob_twotower_torch.train.train_step import RANK_SAMPLE_STREAM, step_generator
+
+    mesh = _mesh()
+    s = _stores(stores)
+    out = {}
+    for name, job in jobs.items():
+        cfg, kind, idx = job["cfg"], job["kind"], batches[job["batches"]]
+        b = idx.shape[1]
+        sd = {k: torch.from_numpy(v) for k, v in start.items()}
+        if kind.startswith("mesh"):
+            model = build_model(schema, cfg, mesh)
+            model.load_state_dict(shard_state(sd, mesh, model.row_sharded_keys))
+        else:
+            model = TwoTowerModel(schema, cfg.model)
+            model.load_state_dict(sd)
+        res = {"losses": []}
+        if kind == "mesh":
+            state, _, _, step, put_idx, put_store = make_sharded_indexed_train(model, cfg, mesh, b, 10, n_inner=1)
+        elif kind == "mesh_sparse":
+            state, step, put_idx, put_store = make_sharded_sparse_train(model, cfg, mesh, b, 10, with_metrics=True)
+        if kind.startswith("mesh"):
+            ns, cs = put_store(stores["notice"]), put_store(stores["company"])
+            for i in idx:
+                state, m = step(state, put_idx(i), ns, cs)
+                res["losses"].append(float(m["loss"]))
+            res.update(keys=sorted(m), state=_compressed_state(state))
+            out[name] = res
+            continue
+        if kind == "full":
+            from jodalrob_twotower_torch.train.optimizer import build_optimizer
+
+            state, err, step, put_batch = cg.make_dp_compressed_train_step(
+                model, cfg, build_optimizer(cfg.optimizer, 10), mesh, b, 10, method=job["method"])
+            for i in idx:
+                rows = torch.from_numpy(i)
+                batch = PairBatch(TowerBatch(*(x[rows[:, 0]] for x in s["notice"])),
+                                  TowerBatch(*(x[rows[:, 1]] for x in s["company"])))
+                state, err, m = step(state, err, put_batch(batch))
+                res["losses"].append(float(m["loss"]))
+            res.update(keys=sorted(m), state=_compressed_state(state), err=_np(err))
+            out[name] = res
+            continue
+        sparse = job.get("sparse", False)
+        make = cg.make_dp_compressed_sparse_train if sparse else cg.make_dp_compressed_indexed_train
+        built = make(model, cfg, mesh, b, 10, method=job["method"])
+        ns, cs = built.put_store(stores["notice"]), built.put_store(stores["company"])
+        state, err = built.state, built.err_state
+        if kind == "scan":
+            state, err, m = built.scan_steps(state, err, built.put_idx(idx), ns, cs)
+            res["losses"] = m["loss"].tolist()
+        elif kind == "sampled":
+            pairs_dev = torch.from_numpy(pairs)
+            state, err, m = built.make_sampled(len(idx))(state, err, sample_seed, pairs_dev, ns, cs)
+            res["losses"] = m["loss"].tolist()
+        if kind == "sampled" and not sparse:
+            rows = [pairs[torch.randint(0, len(pairs), (b // mesh.size,), generator=step_generator(
+                torch.device("cpu"), sample_seed, t, RANK_SAMPLE_STREAM, mesh.rank)).numpy()] for t in range(len(idx))]
+            res["rows"] = np.stack(rows)
+            model.load_state_dict(sd)
+            again = make(model, cfg, mesh, b, 10, method=job["method"])
+            st2, er2, replay = again.state, again.err_state, []
+            for r in rows:
+                st2, er2, m2 = again.single_step(st2, er2, torch.from_numpy(r), ns, cs)
+                replay.append(float(m2["loss"]))
+            res["replay"] = replay
+            res["replay_state"] = _compressed_state(st2)
+        elif kind == "single":
+            for i in idx:
+                state, err, m = built.single_step(state, err, built.put_idx(i), ns, cs)
+                res["losses"].append(float(m["loss"]))
+        res.update(keys=sorted(m), state=_compressed_state(state), err=_np(err), buffers=list(built.sync.buffers),
+                   step=int(state.step))
+        out[name] = res
+    return out
+
+
+def compressed_trainer(schema, cfgs: dict, ds_arrays: dict, train_pairs, val_pairs, refused: dict) -> dict:
+    """On this rank: ``Trainer.train`` under each config of ``cfgs`` on the
+    port's synthetic dataset (``ds_arrays``: the stores' dense, cat_ids and
+    keys), without the corpus eval: the history, the final validation, the
+    step, and whether the ranks' final states are bit-equal; then each
+    config of ``refused``, whose train must raise ValueError (its message)."""
+    from jodalrob_twotower_torch.data.feature_store import FeatureStore
+    from jodalrob_twotower_torch.train.trainer import Trainer
+
+    mesh = _mesh()
+    fs = [FeatureStore(schema.side(side), *ds_arrays[side]) for side in ("notice", "company")]
+    out = {}
+    for name, cfg in cfgs.items():
+        res = Trainer(cfg, schema, *fs, mesh=mesh, log_fn=lambda *_: None).train(train_pairs, val_pairs,
+                                                                                corpus_eval=False, n_inner=4)
+        flat = torch.cat([torch.from_numpy(v).reshape(-1).float() for v in _compressed_state(res.state).values()])
+        every = mesh.all_gather_rows(flat[None])
+        out[name] = {"history": res.history, "final_val": res.final_val, "step": int(res.state.step),
+                     "ranks_equal": all(torch.equal(every[0], every[r]) for r in range(1, mesh.size))}
+    for name, cfg in refused.items():
+        try:
+            Trainer(cfg, schema, *fs, mesh=mesh, log_fn=lambda *_: None).train(train_pairs, val_pairs,
+                                                                              corpus_eval=False)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def compressed_all(parts: dict) -> dict:
+    """Each (function name, args) of ``parts`` run on this rank, in order:
+    one launch for a test module's every rank function."""
+    return {name: globals()[fn](*args) for name, (fn, args) in parts.items()}
