@@ -166,6 +166,29 @@ NVIDIA card.
    replicated; its first loss and the table blocks after it against one
    device's, then the same checks and timed calls. The kernel phase holds K4's zero form on a rank's
    block (ids over the whole table, rows outside the block zero) bit-exact.
+17. A model axis above 1 (``mesh_model_phase``): four gloo ranks on the card
+   as a (2, 2) (data, model) mesh, ``TrainConfig()`` on the bench's data at
+   global B=8192 (4,096 rows a data index): two sampled steps and one eval
+   batch, and the same on ranks 0 and 1 as a (2, 1) mesh from the same
+   state. The losses, eval metrics and state digests of the two ranks of
+   each data index bit-equal to each other and to the (2, 1) rank of that
+   index; launches exact on every rank.
+18. ``python -m jodalrob_twotower_torch.multihost_smoke`` (two processes,
+   the streaming leg fed from memory): every check of the reference's.
+19. The mesh scripts on two gloo ranks: ``sharded_serving_bench`` (200,000
+   x 128, recall equal to one device's but at ties), ``rowsharded_store_bench``
+   (the reference's 1,266.5 MiB store, "rows" against "replicated": the
+   losses bit-equal, half the rows a rank) and ``scaling_sweep`` (1 and 2
+   ranks at B=4096; the mesh of one's launches exact).
+20. The one-device studies: ``onehot_rowsharded_study`` (K1 at three
+   shapes), ``embgrad_microbench`` (K2 against K3, K3's first path),
+   ``topk_microbench`` and ``scatter_microbench`` (plain PyTorch); each
+   kernel launched exactly as the scripts' timings ask.
+21. ``python -m jodalrob_twotower_torch.reference_scale_demo`` at its
+   defaults (BASELINE config 2's migration at B=256) on a metadata
+   directory written here in the reference's format: the reference's
+   schema, launches exact, the metrics finite and above random. Each of
+   phases 17-21 prints its seconds.
 
 Run from the repository root: ``python3 chip_smoke.py``. Any failure exits
 nonzero; so does a machine without a CUDA device. The second-to-last line is
@@ -178,6 +201,7 @@ import contextlib
 import copy
 import dataclasses
 import gzip
+import hashlib
 import io
 import itertools
 import json
@@ -194,6 +218,17 @@ import numpy as np
 import torch
 
 from jodalrob_twotower_torch import bench, profile_step, quickstart, serve, train, train_headline
+from jodalrob_twotower_torch import (
+    embgrad_microbench,
+    multihost_smoke,
+    onehot_rowsharded_study,
+    reference_scale_demo,
+    rowsharded_store_bench,
+    scaling_sweep,
+    scatter_microbench,
+    sharded_serving_bench,
+    topk_microbench,
+)
 from jodalrob_twotower_torch import eval as eval_cli
 from jodalrob_twotower_torch.etl.pipeline import preprocess_in_memory
 from jodalrob_twotower_torch.etl.text import HashTextEmbedder
@@ -225,25 +260,18 @@ from jodalrob_twotower_torch.ops import embedding_grad as eg
 from jodalrob_twotower_torch.ops import fused_logits as fl
 from jodalrob_twotower_torch.ops.embedding_grad import (
     TILE_ROWS,
-    dense_table_grad,
-    dense_table_grad_bmajor,
     dense_table_grad_bmajor_plain,
     dense_table_grad_plain,
-    dense_table_lookup,
     dense_table_lookup_plain,
     table_grad_launch_shape,
 )
 from jodalrob_twotower_torch.ops import embedding_lookup as el
-from jodalrob_twotower_torch.ops.embedding_lookup import embedding_lookup_pallas, embedding_lookup_pallas_plain
+from jodalrob_twotower_torch.ops.embedding_lookup import embedding_lookup_pallas_plain
 from jodalrob_twotower_torch.ops.fused_logits import (
     _bwd_constants,
-    fused_ce_bwd,
     fused_ce_bwd_plain,
-    fused_lean_lse,
     fused_lean_lse_plain,
-    fused_stats_sweep,
     fused_stats_sweep_plain,
-    same_tile_diag,
     same_tile_diag_plain,
 )
 from jodalrob_twotower_torch.schema import (
@@ -274,6 +302,7 @@ from jodalrob_twotower_torch.train.train_step import (
     device_store,
     loss_and_grads,
     make_encode_fn,
+    make_indexed_eval_steps,
     make_sampled_train_steps,
     make_sharded_ce,
     make_scanned_train_steps,
@@ -286,7 +315,8 @@ from jodalrob_twotower_torch.train.cli import split_pairs
 from jodalrob_twotower_torch.train.optimizer import build_optimizer
 from jodalrob_twotower_torch.train.trainer import Trainer, host_store
 from jodalrob_twotower_torch.utils.flops import H100_PEAK_BF16_FLOPS
-from jodalrob_twotower_torch.utils.profiling import device_breakdown, device_flops_estimate
+from jodalrob_twotower_torch.utils.profiling import (device_breakdown, device_flops_estimate, kernel_launches, median_ms,
+                                                     reset_kernel_launches)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at the 700 W limit
 # the special-function units' exponentials: 16 per clock and SM (CUDA C++
@@ -294,8 +324,6 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at the 700 W limit
 # at the 1.98 GHz boost clock (H100 SXM data sheet)
 H100_EXP_PER_S = 132 * 16 * 1.98e9
 KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd", "fused_stats", "row_gather"]  # csrc/<name>.cu
-LAUNCH_COUNTERS = (dense_table_lookup, dense_table_grad, dense_table_grad_bmajor, embedding_lookup_pallas,
-                   fused_lean_lse, fused_ce_bwd, same_tile_diag, fused_stats_sweep)
 TIMED_RUNS = 100
 LARGE_TIMED_RUNS = 20  # B >= 16384, where the plain versions take tens of ms
 CE_BATCH, CE_DIM = 8192, 128  # the training path's loss shape
@@ -470,24 +498,6 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip smoke check failed: {what}")
 
 
-def median_ms(fn, flush: torch.Tensor, runs: int = TIMED_RUNS) -> float:
-    """Median over ``runs`` launches, each timed alone with CUDA events
-    after the L2 cache is flushed (the bound assumes device-memory traffic).
-    The flush keeps the card busy long enough for the host to enqueue the
-    events and the launch behind it, so no host time falls between them."""
-    fn()  # warm-up
-    pairs = []
-    for _ in range(runs):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
-
-
 # -- kernel phase --------------------------------------------------------------
 
 
@@ -539,6 +549,8 @@ def lookup_phase(flush: torch.Tensor | None, runs: int = TIMED_RUNS) -> dict:
         lookup_case("ragged bf16 table B=1000 K=32", schema.notice.vocab_sizes, 1000, torch.bfloat16, gen, ragged=True),
         # D=24: three 16-byte pieces a row, so a warp's pieces are not a multiple of 32
         lookup_case("ragged D=24 B=1000 K=32", schema.notice.vocab_sizes, 1000, torch.float32, gen, ragged=True, d=24),
+        # D=8: one 16-byte piece a row (the multihost smoke's compressed Trainer)
+        lookup_case("ragged D=8 B=1000 K=32", schema.notice.vocab_sizes, 1000, torch.float32, gen, ragged=True, d=8),
     ]
     results = []
     for c in cases:
@@ -909,17 +921,20 @@ def table_grad_inputs(batch: int = CE_BATCH) -> list[tuple[str, torch.Tensor, to
     cluster-correlated as the step sees them, a bf16 cotangent ~ N(0, 1));
     a skewed batch whose every id of a feature hits one row (8192 values of
     scale 0.01 on each of 32 rows); the dense envelope's edge, R = 65,536
-    (64 features of vocab 1,000, ids uniform); and a ragged B=1000 batch whose
+    (64 features of vocab 1,000, ids uniform); a ragged B=1000 batch whose
     ids reach other features' blocks, their own block's padding, -1 and
-    past the table (agreement only: the library call takes no such ids)."""
+    past the table (agreement only: the library call takes no such ids);
+    and the multihost smoke's compressed Trainer shape, B=32 at D=8, with
+    the ragged batch at D=24 and D=40 (agreement only: the widths whose
+    g rows the kernel reads in 8-byte pieces)."""
     gen = np.random.default_rng(SEED + 2)
     schema = reference_shaped_schema()
     ds = make_synthetic_dataset(schema, n_notices=20_000, n_companies=20_000, n_pairs=batch,
                                 n_clusters=bench.N_CLUSTERS, seed=SEED)
 
-    def case(name, vocabs, rows, scale=1.0, timed=True):
-        g = gen.normal(0.0, scale, size=(*rows.shape, 32)).astype(np.float32)
-        return (f"{name} B={rows.shape[0]} K={rows.shape[1]} R={table_layout(vocabs)[1]} D=32",
+    def case(name, vocabs, rows, scale=1.0, timed=True, d=32):
+        g = gen.normal(0.0, scale, size=(*rows.shape, d)).astype(np.float32)
+        return (f"{name} B={rows.shape[0]} K={rows.shape[1]} R={table_layout(vocabs)[1]} D={d}",
                 torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to("cuda"),
                 torch.from_numpy(g).to("cuda", torch.bfloat16),
                 torch.from_numpy(tile_feature_map(vocabs)).to("cuda"), timed)
@@ -936,6 +951,14 @@ def table_grad_inputs(batch: int = CE_BATCH) -> list[tuple[str, torch.Tensor, to
     out.append(case("envelope", wide, ids + table_layout(wide)[0][None, :]))
     ragged = lookup_case("ragged", vocabs, 1000, torch.float32, gen, ragged=True)["rows"].cpu().numpy()
     out.append(case("notice ragged", vocabs, ragged, timed=False))
+    small = make_synthetic_dataset(seed=0, n_notices=multihost_smoke.N_ROWS, n_companies=multihost_smoke.N_ROWS,
+                                   n_pairs=multihost_smoke.N_PAIRS)
+    side = small.schema.notice
+    small_rows = small.notice_store.cat_ids[small.pairs[:multihost_smoke.BATCH // 2, 0]]
+    out.append(case("multihost compressed notice", side.vocab_sizes,
+                    small_rows + table_layout(side.vocab_sizes)[0][None, :], timed=False, d=8))
+    for d in (24, 40):
+        out.append(case("notice ragged", vocabs, ragged, timed=False, d=d))
     return out
 
 
@@ -960,7 +983,7 @@ def table_grad_phase(flush: torch.Tensor | None, runs: int = TIMED_RUNS) -> tupl
         got_t, again_t = eg.dense_table_grad_bmajor(rows, g, tf), eg.dense_table_grad_bmajor(rows, g, tf)
         want_t = dense_table_grad_bmajor_plain(rows, g, tf)
         torch.cuda.synchronize()
-        nbytes = rows.numel() * 4 + g.numel() * 2 + total * 32 * 4 + tf.numel() * 4
+        nbytes = rows.numel() * 4 + g.numel() * 2 + total * g.shape[2] * 4 + tf.numel() * 4
         row = {"case": name, "cluster": cluster, "grid": grid, "two_calls_equal": torch.equal(got, again),
                "max_abs_err": float((got - want).abs().max()), "tolerance": GRAD_ATOL, **bound(0, nbytes)}
         row_t = {"case": name, "cluster": cluster, "grid": grid, "equal_to_k2_transposed": torch.equal(got_t, got.t()),
@@ -1204,12 +1227,11 @@ def calibration_check(corpus: torch.Tensor, queries: torch.Tensor) -> dict:
 
 
 def reset_counters() -> None:
-    for counter in LAUNCH_COUNTERS:
-        counter.launches = 0
+    reset_kernel_launches()
 
 
 def read_counters() -> dict[str, int]:
-    return {c.__name__: c.launches for c in LAUNCH_COUNTERS}
+    return kernel_launches()
 
 
 def step_launches(steps: int, val_batches: int = 0) -> dict[str, int]:
@@ -3818,6 +3840,264 @@ def mesh_rows_phase() -> tuple[dict, dict]:
     return row, {path: ranks[0][path]["launches"] for path in paths}
 
 
+# -- a model axis above 1: four gloo ranks on the card as a (2, 2) mesh --------------
+
+MESH_MODEL_RANKS = 4
+MESH_MODEL_AXES = MeshConfig(data_axis=2, model_axis=2)
+MESH_MODEL_STEPS = 2  # sampled steps, then one eval batch, from one state
+MESH_MODEL_SAMPLE_SEED = SEED + 41
+
+
+def state_digest(state) -> str:
+    """sha256 of every param, BatchNorm statistic and optimizer leaf's bytes,
+    in key order: two ranks hold the same state iff their digests agree."""
+    h = hashlib.sha256()
+    leaves = {**state.params, **state.batch_stats,
+              **{f"opt.{k}.{n}": v for k, tree in state.opt_state.items() if isinstance(tree, dict)
+                 for n, v in tree.items() if isinstance(v, torch.Tensor)}}
+    for k in sorted(leaves):
+        h.update(k.encode())
+        h.update(leaves[k].detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_model_run(mesh, schema, ds, stores, pairs_dev, eval_idx) -> dict:
+    """MESH_MODEL_STEPS sampled steps at global B = CE_BATCH from the seeded
+    state, then one eval batch of ``eval_idx`` (each rank its data index's
+    block): the losses, the eval metrics and the state's digest, and the
+    launches (counters from 0 just before, read just after)."""
+    cfg = mesh_config(CE_BATCH)
+    model = build_model(schema, cfg, mesh).init_flax(torch.Generator().manual_seed(SEED))
+    state, tx = create_train_state(model, cfg, SEED, bench.TOTAL_STEPS, device=mesh.device)
+    steps = make_sampled_train_steps(model, cfg, tx, MESH_MODEL_STEPS, CE_BATCH, mesh=mesh)
+    evaluate = make_indexed_eval_steps(model, cfg, mesh=mesh)
+    # -- the main path: counters from 0, read right after ----------------------
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = steps(state, MESH_MODEL_SAMPLE_SEED, pairs_dev, *stores)
+    ev = evaluate(state, eval_idx, *stores)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    return {"losses": metrics["loss"].tolist(), "eval": {k: float(v[0]) for k, v in ev.items()},
+            "digest": state_digest(state), "wall_s": wall_s, "launches": launches,
+            "rows_per_rank": CE_BATCH // mesh.size}
+
+
+def mesh_model_rank(devices: list) -> dict:
+    """One of four gloo ranks on the card: the bench's data from its seed,
+    then ``mesh_model_run`` on the (2, 2) mesh twice (the first warms the
+    process up; the two must agree bit for bit) and, on ranks 0 and 1, on a
+    (2, 1) mesh of those two. The group of ranks 0 and 1 is created by every
+    rank, as ``new_group`` asks."""
+    import torch.distributed as dist
+
+    pair_group = dist.new_group([0, 1])
+    mesh = make_mesh(devices, MESH_MODEL_AXES)
+    torch.cuda.set_device(mesh.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    schema = reference_shaped_schema()
+    ds = make_synthetic_dataset(schema, n_notices=bench.N_NOTICES, n_companies=bench.N_COMPANIES,
+                                n_pairs=bench.N_PAIRS, n_clusters=bench.N_CLUSTERS, seed=SEED)
+    cfg = mesh_config(CE_BATCH)
+    stores = [device_store(st, dtype=resolve_store_dtype(cfg), device=mesh.device)
+              for st in (ds.notice_store, ds.company_store)]
+    pairs_dev = torch.from_numpy(ds.pairs.astype(np.int64)).to(mesh.device)
+    rng = np.random.default_rng(SEED + 43)
+    eval_idx = torch.from_numpy(ds.pairs[rng.integers(0, len(ds.pairs), size=CE_BATCH)][None].astype(np.int64))
+    eval_idx = eval_idx.to(mesh.device)
+    out = {"rank": dist.get_rank(), "data_index": mesh.rank, "model_index": mesh.model_index,
+           "shape": dict(mesh.shape), "is_main": mesh.is_main, "backend": mesh.backend,
+           "data_s": time.perf_counter() - t0}
+    # the first run in each process pays its warm-up (cuBLAS, the kernels'
+    # modules, gloo's buffers); the second, from a fresh state, is the one read
+    warm = mesh_model_run(mesh, schema, ds, stores, pairs_dev, eval_idx)
+    out["mesh22"] = mesh_model_run(mesh, schema, ds, stores, pairs_dev, eval_idx)
+    out["mesh22"]["warmup_wall_s"] = warm["wall_s"]
+    check(warm["digest"] == out["mesh22"]["digest"], f"mesh_model rank {out['rank']}: two runs from one state differ")
+    print(f"mesh_model rank {out['rank']} (2, 2) " + json.dumps(out["mesh22"]), flush=True)
+    if out["rank"] < 2:
+        mesh21 = make_mesh(devices[:2], MeshConfig(), group=pair_group)
+        out["mesh21"] = mesh_model_run(mesh21, schema, ds, stores, pairs_dev, eval_idx)
+        print(f"mesh_model rank {out['rank']} (2, 1) " + json.dumps(out["mesh21"]), flush=True)
+    return out
+
+
+def mesh_model_phase() -> tuple[dict, dict]:
+    """MESH_MODEL_RANKS gloo ranks on the one card, through the port's
+    launcher: the (2, 2) mesh's steps and eval batch bit-equal across the
+    model axis (the two ranks of each data index: losses, eval metrics,
+    state digests) and to the (2, 1) mesh's rank of the same data index;
+    launches exact on every rank (``step_launches`` of the steps and the
+    eval batch, each on its data index's 4096 rows)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(mesh_model_rank, MESH_MODEL_RANKS, args=(["cuda:0"] * MESH_MODEL_RANKS,), backend="gloo",
+                   devices=["cuda:0"] * MESH_MODEL_RANKS, timeout_s=MESH_PG_S, join_timeout_s=MESH_JOIN_S)
+    ranks_s = time.perf_counter() - t0
+    expected = step_launches(MESH_MODEL_STEPS, 1)
+    for r, rank in enumerate(ranks):
+        check((rank["data_index"], rank["model_index"]) == (r // 2, r % 2) and rank["is_main"] == (r == 0)
+              and rank["shape"] == {"data": 2, "model": 2}, f"mesh_model: rank {r} sits at {rank}")
+        for mesh_name in ("mesh22", "mesh21") if r < 2 else ("mesh22",):
+            check_launches(rank[mesh_name]["launches"], expected, f"mesh_model rank {r} {mesh_name}")
+        want = ranks[r // 2]["mesh21"]
+        for key in ("losses", "eval", "digest"):
+            check(rank["mesh22"][key] == want[key],
+                  f"mesh_model: rank {r}'s (2, 2) {key} differs from the (2, 1) rank {r // 2}'s")
+    check(bool(np.isfinite(ranks[0]["mesh22"]["losses"]).all()), "mesh_model: non-finite loss")
+    row = {"ranks": MESH_MODEL_RANKS, "axes": {"data": 2, "model": 2}, "backend": ranks[0]["backend"],
+           "ranks_s": ranks_s, "per_rank_data_s": [r["data_s"] for r in ranks], "batch": CE_BATCH,
+           "rows_per_data_index": CE_BATCH // 2, "losses": ranks[0]["mesh22"]["losses"],
+           "eval": ranks[0]["mesh22"]["eval"], "bit_equal_across_model_axis": True, "bit_equal_to_2x1": True,
+           "wall_s": {"mesh22": [r["mesh22"]["wall_s"] for r in ranks],
+                      "mesh22_warmup": [r["mesh22"]["warmup_wall_s"] for r in ranks],
+                      "mesh21": [r["mesh21"]["wall_s"] for r in ranks[:2]]},
+           "ms_per_step_incl_eval": ranks[0]["mesh22"]["wall_s"] * 1e3 / MESH_MODEL_STEPS,
+           "examples_per_sec": MESH_MODEL_STEPS * CE_BATCH / ranks[0]["mesh22"]["wall_s"],
+           "launches": ranks[0]["mesh22"]["launches"]}
+    print("mesh_model " + json.dumps(row), flush=True)
+    return row, {"mesh_model": ranks[0]["mesh22"]["launches"]}
+
+
+# -- the JAX package's scripts, ported: the multihost smoke, the mesh scripts,
+#    the one-device studies and BASELINE config 2's demo ----------------------------
+
+
+def cli_json(stdout: str) -> list[dict]:
+    """The JSON lines a script printed."""
+    return [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+
+
+def multihost_phase() -> tuple[dict, dict]:
+    """``python -m jodalrob_twotower_torch.multihost_smoke`` in-process: two
+    processes sharing the card over gloo, the streaming leg fed from memory
+    (the card machine has no pyarrow); the script checks every leg of the
+    reference's and raises on a failure, also where the compressed
+    Trainer's launches on any process differ from K2 twice a step and
+    nothing else (replicated tables of embed width 8 under float32 towers:
+    the dense table gradient behind the gather, as the reference's "auto"
+    takes it). Returns the summary and rank 0's launches on that leg."""
+    t0 = time.perf_counter()
+    stdout, _ = run_cli(multihost_smoke.main, ["--processes", 2])
+    out = cli_json(stdout)[-1]
+    check(out["bench"] == "multihost_smoke" and out["ok"] is True, f"multihost_smoke: {out}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out, {"multihost_compressed": out["compressed_launches"]}
+
+
+def mesh_scripts_phase() -> tuple[dict, dict]:
+    """The mesh scripts in-process, two ranks sharing the card over gloo:
+    ``sharded_serving_bench`` (the recall of exact and int8 equal to one
+    device's but at ties, the rescore's no lower), ``rowsharded_store_bench``
+    (the modes' losses bit-equal, "rows" holding 1/2 of the padded rows a
+    rank) and ``scaling_sweep`` at 1 and 2 ranks (the mesh of one in this
+    process: its timed steps' launches are read from the counters, K1 and
+    K2 twice a step and nothing else). Each script raises on a failed
+    check of its own."""
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    stdout, _ = run_cli(sharded_serving_bench.main, ["--ranks", 2])
+    out["sharded_serving"] = {row["bench"].rsplit("_mesh_", 1)[1]: row for row in cli_json(stdout)}
+    out["sharded_serving"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stdout, _ = run_cli(rowsharded_store_bench.main, ["--ranks", 2])
+    rows, replicated, compare = cli_json(stdout)
+    check(rows["store_rows_per_rank"] == rowsharded_store_bench.N_ROWS // 2 and compare["losses_equal"],
+          f"rowsharded_store_bench: {compare}")
+    out["rowsharded_store"] = {"rows": rows, "replicated": replicated, "compare": compare,
+                               "phase_s": time.perf_counter() - t0}
+    launches["rowsharded_store_rows"] = rows["launches"]
+    launches["rowsharded_store_replicated"] = replicated["launches"]
+    t0 = time.perf_counter()
+    reset_counters()
+    stdout, _ = run_cli(scaling_sweep.main, ["--devices", 1, 2])
+    sweep = cli_json(stdout)
+    counted = read_counters()  # the mesh of one ran here; the two ranks count in their own processes
+    n = scaling_sweep.STEPS + 1  # the warm-up and the timed steps
+    check_launches(counted, {**step_launches(n), "fused_lean_lse": 0, "fused_ce_bwd": 0}, "scaling_sweep one device")
+    check(all(np.isfinite(r["loss"]) for r in sweep), f"scaling_sweep: {sweep}")
+    out["scaling_sweep"] = {"rows": sweep, "phase_s": time.perf_counter() - t0}
+    launches["scaling_sweep"] = sweep[0]["launches"]
+    launches["scaling_sweep_2_ranks_rank0"] = sweep[1]["launches"]
+    return out, launches
+
+
+def studies_phase() -> tuple[dict, dict]:
+    """The one-device studies in-process: ``onehot_rowsharded_study`` (K1 at
+    (R, B), (R/8, B), (R, B/8)), ``embgrad_microbench`` (K2 against K3: K3's
+    first driven path), ``topk_microbench`` and ``scatter_microbench``
+    (plain PyTorch; each scatter variant held to its group's first). The
+    counters run from 0 across each script: K1 on the study, K2 and K3
+    on the microbench, exactly as its warm-up, check and timed launches
+    ask; none on the plain ones."""
+    out, launches = {}, {}
+    for name, module, expect in (
+            ("onehot_study", onehot_rowsharded_study,
+             {"dense_table_lookup": len(onehot_rowsharded_study.SHAPES) * (onehot_rowsharded_study.RUNS + 2)}),
+            ("embgrad", embgrad_microbench, {"dense_table_grad": embgrad_microbench.RUNS + 2,
+                                             "dense_table_grad_bmajor": embgrad_microbench.RUNS + 2}),
+            ("topk", topk_microbench, {}),
+            ("scatter", scatter_microbench, {})):
+        t0 = time.perf_counter()
+        reset_counters()
+        stdout, _ = run_cli(module.main, [])
+        counted = read_counters()
+        check_launches(counted, {k: expect.get(k, 0) for k in counted}, name)
+        out[name] = {"rows": cli_json(stdout), "phase_s": time.perf_counter() - t0}
+        launches[name] = counted
+    return out, launches
+
+
+REFERENCE_CONFIGS = {  # of the form tests/test_reference_configs.py uses
+    "numeric": {"num_0": {"fill": "median", "log1p": True, "scale": "zscore", "add_flag": True, "clip": [0.5, 99.5]},
+                "num_1": {"fill": 0, "log1p": False, "scale": "none", "add_flag": True, "clip_abs": [0.0, 100.0]},
+                "num_2": {"fill": "mode", "log1p": False, "scale": "none", "add_flag": True}},
+    "categorical": {"cat_0": {"encoding_method": "label"},
+                    "cat_1": {"encoding_method": "label", "rare_threshold": 0.5}},
+    "text": {"bidntcenm": {"use": True, "embedding_model": "some/model", "max_length": 32, "normalize": True,
+                           "add_flag": True, "null_strategy": "empty"}},
+}
+REFERENCE_DEMO_ROWS, REFERENCE_DEMO_PAIRS, REFERENCE_DEMO_BATCH = 20_000, 100_000, 256  # the demo's defaults
+
+
+def reference_scale_phase() -> tuple[dict, dict]:
+    """``python -m jodalrob_twotower_torch.reference_scale_demo`` at its
+    defaults (20,000 rows a side, 100,000 pairs, one epoch at B = 256) on a
+    metadata directory written here in the reference's format
+    (``etl_metadata_csv``, the configs of REFERENCE_CONFIGS): the
+    reference's schema, the trainer with its corpus eval; launches exact
+    (``trainer_launches`` at B = 256), the metrics finite and validation
+    recall@10 above random."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_reference_"))
+    try:
+        meta = tmp / "meta"
+        meta.mkdir()
+        etl_metadata_csv(meta / "metadata.csv")
+        for name, cfg in REFERENCE_CONFIGS.items():
+            (meta / f"notice_{name}_config.json").write_text(json.dumps(cfg))
+        t0 = time.perf_counter()
+        # -- the main path: counters from 0, read right after ----------------------
+        reset_counters()
+        stdout, _ = run_cli(reference_scale_demo.main, ["--meta", meta, "--workdir", tmp / "work"])
+        launches = read_counters()
+        wall_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check("schema: notice 29 num / 32 cat / 1 text; company 1 / 6 / 0" in stdout,
+          "reference_scale_demo: not the reference's schema")
+    out = cli_json(stdout)[-1]
+    n_val = min(REFERENCE_DEMO_PAIRS // 5, 4096)
+    check_launches(launches, trainer_launches(1, REFERENCE_DEMO_PAIRS - REFERENCE_DEMO_PAIRS // 5, n_val,
+                                              REFERENCE_DEMO_ROWS, REFERENCE_DEMO_BATCH), "reference_scale_demo")
+    check(bool(np.isfinite([out["mrr"], out["auc"], out["recall@10"], out["corpus_mrr"]]).all())
+          and out["recall@10"] > 10 / REFERENCE_DEMO_BATCH, f"reference_scale_demo: {out}")
+    out.update(wall_s=wall_s, launches=launches)
+    return out, {"reference_scale": launches}
+
+
 def kernel_record(name: str, tpu_kernel: str, source: str, replaces: str, rows: list[dict], launches: dict,
                   counter: str, path: str) -> dict:
     """The record of one TPU kernel's port: ``launches`` counts the wrapper
@@ -3906,17 +4186,38 @@ def main() -> int:
     mesh["card"] = card
     mesh_rows, mesh_rows_launches = mesh_rows_phase()
     mesh_rows["card"] = card
+    phase_s = {}
+    t0 = time.perf_counter()
+    mesh_model, mesh_model_launches = mesh_model_phase()
+    phase_s["mesh_model"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    multihost, multihost_launches = multihost_phase()
+    phase_s["multihost"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_scripts, mesh_scripts_launches = mesh_scripts_phase()
+    phase_s["mesh_scripts"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    studies, studies_launches = studies_phase()
+    phase_s["studies"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reference_scale, reference_launches = reference_scale_phase()
+    phase_s["reference_scale"] = time.perf_counter() - t0
+    for name, row in (("multihost", multihost), ("mesh_scripts", mesh_scripts), ("studies", studies),
+                      ("reference_scale", reference_scale)):
+        print(f"{name} " + json.dumps({**row, "card": card}), flush=True)
+    print("new phases s " + json.dumps(phase_s), flush=True)
 
     launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches,
                 **headline_counts, **serve_launches, **resume_launches, **profile_launches, **hostfed_launches_by_path,
-                **etl_launches, **scaled_launches, **mesh_launches, **mesh_rows_launches}
+                **etl_launches, **scaled_launches, **mesh_launches, **mesh_rows_launches, **mesh_model_launches, **multihost_launches,
+                **mesh_scripts_launches, **studies_launches, **reference_launches}
     record = {"kernels": [
         kernel_record("onehot_lookup", "K1", "onehot_lookup.cu", "embedding_grad.py:358",
                       kernels["onehot_lookup"], launches, "dense_table_lookup", "training"),
         kernel_record("table_grad", "K2", "table_grad.cu", "embedding_grad.py:45",
                       kernels["table_grad"], launches, "dense_table_grad", "training"),
         kernel_record("table_grad_bmajor", "K3", "table_grad.cu", "embedding_grad.py:227",
-                      kernels["table_grad_bmajor"], launches, "dense_table_grad_bmajor", None),
+                      kernels["table_grad_bmajor"], launches, "dense_table_grad_bmajor", "embgrad"),
         kernel_record("row_gather", "K4", "row_gather.cu", "embedding_lookup.py:46",
                       kernels["row_gather"], launches, "embedding_lookup_pallas", "scaled_dense"),
         kernel_record("fused_stats", "K5", "fused_stats.cu", "fused_logits.py:95",
@@ -4009,6 +4310,26 @@ def main() -> int:
                             if k in r} for m, r in mesh["compressed"]["trainer"].items()},
             "final_loss_rel_to_none": mesh["compressed"]["final_loss_rel_to_none"],
             "timed_ms_per_step": {k: v["ms_per_step"] for k, v in mesh["compressed"]["timed"].items()}},
+        "mesh_model": {k: mesh_model[k] for k in ("ranks", "axes", "backend", "ranks_s", "losses", "eval",
+                                                  "bit_equal_across_model_axis", "bit_equal_to_2x1",
+                                                  "ms_per_step_incl_eval", "examples_per_sec")},
+        "multihost": {k: multihost[k] for k in ("ok", "processes", "backend", "losses", "fused_loss",
+                                                "stream_batches", "stream_loss", "compressed_loss",
+                                                "compressed_launches", "compressed_global_loss",
+                                                "store_gather_exact")},
+        "sharded_serving": {k: {m: r[m] for m in ("wall_ms_per_1024q", "recall_vs_exact_at100", "single_device_recall")}
+                            for k, r in mesh_scripts["sharded_serving"].items() if isinstance(r, dict)},
+        "rowsharded_store": {m: {k: mesh_scripts["rowsharded_store"][m][k]
+                                 for k in ("ms_per_step", "examples_per_sec", "store_total_mb", "store_per_rank_mb")}
+                             for m in ("rows", "replicated")},
+        "scaling_sweep": [{k: r[k] for k in ("devices", "backend", "examples_per_sec", "step_ms", "vs_1dev")}
+                          for r in mesh_scripts["scaling_sweep"]["rows"]],
+        "studies": {name: [{k: v for k, v in r.items() if k in ("bench", "variant", "ms_per_call", "ms")}
+                           for r in studies[name]["rows"]] for name in studies},
+        "reference_scale": {k: reference_scale[k] for k in ("steps", "train_loss", "val_loss", "recall@10", "mrr",
+                                                            "auc", "corpus_recall", "corpus_mrr", "examples_per_sec",
+                                                            "wall_s")},
+        "new_phases_s": phase_s,
         "card": card}
     by_kernel = {rec["tpu_kernel"]: rec for rec in record["kernels"]}
     by_kernel["K6"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"

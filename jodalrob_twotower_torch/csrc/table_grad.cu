@@ -35,7 +35,8 @@
 //     matches land grouped by row, in batch order (a stable counting sort);
 //   - each row's list is cut into sub-lists of at most 8 matches; in rounds
 //     of 128, thread pair p (half of D each) adds the g rows of sub-list p in
-//     f32, in batch order, sixteen 16-byte loads in flight a thread, into a
+//     f32, in batch order, sixteen loads in flight a thread (16-byte pieces
+//     where half of D is a multiple of 8 dims, else 8-byte ones), into a
 //     slot; then the pair that owns the row adds its sub-lists' slots, in
 //     order, to the row's sum in the CTA's [128, D] f32 partial (shared
 //     memory), which carries it across chunks. A row hit by thousands of ids
@@ -70,6 +71,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -105,21 +107,29 @@ size_t smem_bytes(int chunk) {
 template <int D>
 constexpr int kMinBlocks = D <= 32 ? 2 : 1;
 
+// The piece a thread loads of its half of a g row: 16 bytes (8 dims) where
+// the half is a multiple of 8 dims, else 8 bytes (4 dims), since a half of
+// 4, 12, 20, ... dims starts only 8-byte aligned (D = 8, 24, 40, ...)
+template <int D>
+using GPiece = typename std::conditional<(D / 2) % 8 == 0, uint4, uint2>::type;
+
 // part[0..D/2) += f32(g rows order[beg..end) of `feature`, this thread's half
-// of D), in that order, with kInFlight rows' 16-byte loads in flight
+// of D), in that order, with kInFlight rows' loads in flight
 template <int D>
 __device__ __forceinline__ void add_g_rows(float* part, const __nv_bfloat16* __restrict__ g,
                                            const int32_t* order, int beg, int end, int k, int feature,
                                            int half) {
+  using Piece = GPiece<D>;
   constexpr int kHalf = D / 2;
-  constexpr int kVecs = kHalf / 8;                 // 16-byte pieces per thread and g row
+  constexpr int kPieceDims = static_cast<int>(sizeof(Piece)) / 2;
+  constexpr int kVecs = kHalf / kPieceDims;  // pieces per thread and g row
   constexpr int kInFlight = kVecs >= 16 ? 1 : 16 / kVecs;
   for (int m0 = beg; m0 < end; m0 += kInFlight) {
-    uint4 v[kInFlight][kVecs];
+    Piece v[kInFlight][kVecs];
 #pragma unroll
     for (int q = 0; q < kInFlight; ++q) {
       if (m0 + q < end) {
-        const uint4* src = reinterpret_cast<const uint4*>(
+        const Piece* src = reinterpret_cast<const Piece*>(
             g + (static_cast<int64_t>(order[m0 + q]) * k + feature) * D + half * kHalf);
 #pragma unroll
         for (int p = 0; p < kVecs; ++p) v[q][p] = __ldg(src + p);
@@ -132,10 +142,10 @@ __device__ __forceinline__ void add_g_rows(float* part, const __nv_bfloat16* __r
         for (int p = 0; p < kVecs; ++p) {
           const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[q][p]);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
+          for (int e = 0; e < kPieceDims / 2; ++e) {
             const float2 f = __bfloat1622float2(h[e]);
-            part[p * 8 + 2 * e] += f.x;
-            part[p * 8 + 2 * e + 1] += f.y;
+            part[p * kPieceDims + 2 * e] += f.x;
+            part[p * kPieceDims + 2 * e + 1] += f.y;
           }
         }
       }
@@ -366,13 +376,17 @@ int dispatch(const void* rows, const void* g, const void* tile_feature, void* ou
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch<16, kTransposed>(rows, g, tile_feature, out, b, k, total_rows, cluster, s);
-    case 32: return launch<32, kTransposed>(rows, g, tile_feature, out, b, k, total_rows, cluster, s);
-    case 64: return launch<64, kTransposed>(rows, g, tile_feature, out, b, k, total_rows, cluster, s);
-    case 128: return launch<128, kTransposed>(rows, g, tile_feature, out, b, k, total_rows, cluster, s);
+#define TABLE_GRAD_WIDTH(W) \
+  case W:                   \
+    return launch<W, kTransposed>(rows, g, tile_feature, out, b, k, total_rows, cluster, s);
+  switch (d) {  // every multiple of 8 up to 128
+    TABLE_GRAD_WIDTH(8) TABLE_GRAD_WIDTH(16) TABLE_GRAD_WIDTH(24) TABLE_GRAD_WIDTH(32)
+    TABLE_GRAD_WIDTH(40) TABLE_GRAD_WIDTH(48) TABLE_GRAD_WIDTH(56) TABLE_GRAD_WIDTH(64)
+    TABLE_GRAD_WIDTH(72) TABLE_GRAD_WIDTH(80) TABLE_GRAD_WIDTH(88) TABLE_GRAD_WIDTH(96)
+    TABLE_GRAD_WIDTH(104) TABLE_GRAD_WIDTH(112) TABLE_GRAD_WIDTH(120) TABLE_GRAD_WIDTH(128)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef TABLE_GRAD_WIDTH
 }
 
 }  // namespace
@@ -381,7 +395,7 @@ extern "C" {
 
 // rows [b, k] i32 absolute table rows, g [b, k, d] bf16, tile_feature
 // [total_rows / 128] i32 -> out [total_rows, d] f32 (every row written).
-// d in {16, 32, 64, 128}; cluster (C) divides 128 and the card must accept
+// d a multiple of 8 up to 128; cluster (C) divides 128 and the card must accept
 // it as a cluster size (1, 2, 4, 8 portably); g and out 16-byte aligned (the
 // wrapper checks).
 int table_grad(const void* rows, const void* g, const void* tile_feature, void* out, int b, int k,

@@ -161,7 +161,7 @@ def _grad_lib() -> ctypes.CDLL:
     return lib
 
 
-GRAD_KERNEL_DIMS = (16, 32, 64, 128)  # the embed widths table_grad.cu is built for
+GRAD_KERNEL_DIMS = tuple(range(8, 129, 8))  # the embed widths table_grad.cu is built for
 # Each tile's id scan is split over a cluster of C CTAs (table_grad.cu). C
 # doubles, up to the portable cluster size, while each CTA keeps at least
 # CLUSTER_IDS ids to scan and the grid stays within CLUSTER_MAX_CTAS (four
@@ -209,7 +209,7 @@ def _table_grad_launch(rows: torch.Tensor, g: torch.Tensor, tile_feature: torch.
         raise ValueError(f"{what} runs on CUDA or CPU tensors, got {g.device}")
     d = g.shape[2]
     if d not in GRAD_KERNEL_DIMS:
-        raise ValueError(f"the table gradient kernel takes D in {GRAD_KERNEL_DIMS}, got {d}")
+        raise ValueError(f"the table gradient kernel takes D a multiple of 8 up to 128, got {d}")
     total_rows = TILE_ROWS * tile_feature.shape[0]
     gb = g.to(torch.bfloat16).contiguous()
     rows = rows.contiguous()

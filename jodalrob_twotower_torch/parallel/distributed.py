@@ -10,9 +10,10 @@ within one host as across hosts:
      arguments, or from the environment ``torchrun`` sets) or through
      :func:`launch`, which spawns N ranks on this host;
   2. ``parallel/mesh.make_mesh`` gives each rank its device and collectives;
-  3. each rank feeds its own block of every global batch, and a streamed
-     pair set splits across ranks (:func:`host_shard_pairs`, the
-     ``host_index``/``host_count`` arguments of ``data/parquet_stream.py``).
+  3. each rank feeds its own block of every global batch
+     (:func:`host_local_batch_to_global` puts it on the rank's device), and
+     a streamed pair set splits across the data axis (:func:`host_shard_pairs`,
+     the ``host_index``/``host_count`` arguments of ``data/parquet_stream.py``).
 
 A multi-host or multi-card run starts one process per card with
 ``torchrun``; :func:`launch` is the local launcher the CLIs, the tests and
@@ -76,14 +77,17 @@ def process_info() -> tuple[int, int]:
     return dist.get_rank(), dist.get_world_size()
 
 
-def host_shard_pairs(pairs: np.ndarray) -> np.ndarray:
+def host_shard_pairs(pairs: np.ndarray, mesh=None) -> np.ndarray:
     """Strided split of the pair list across processes (every process ends
     up with the same number of batches; trimmed to the common multiple).
+    With a ``mesh`` the split is over its data axis (``mesh.rank`` of
+    ``mesh.size``), so the ranks of one data index, which train the same
+    block, take the same pairs; without one, over every process.
 
     Strided (pairs[idx::count]) rather than contiguous blocks: pair lists
     commonly arrive sorted by notice id, and a block split would hand each
     process a distributionally skewed slice."""
-    idx, count = process_info()
+    idx, count = (mesh.rank, mesh.size) if mesh is not None else process_info()
     if count == 1:
         return pairs
     per_host = len(pairs) // count
@@ -93,6 +97,25 @@ def host_shard_pairs(pairs: np.ndarray) -> np.ndarray:
             "host would train on nothing (collectives would hang, not error)"
         )
     return pairs[idx::count][:per_host]
+
+
+def host_local_batch_to_global(mesh, host_arrays):
+    """This process's block of a global batch as the mesh steps take it:
+    each leaf of ``host_arrays`` (an array, or a PairBatch, TowerBatch,
+    tuple, list or dict of them) as a tensor on the rank's device. The
+    reference assembles one global array from every host's rows
+    (``make_array_from_process_local_data``); a port rank's rows already
+    are its block of the batch, so they are put on its device as they
+    are."""
+    if isinstance(host_arrays, dict):
+        return {k: host_local_batch_to_global(mesh, v) for k, v in host_arrays.items()}
+    if isinstance(host_arrays, tuple) and hasattr(host_arrays, "_fields"):  # PairBatch, TowerBatch
+        return type(host_arrays)(*(host_local_batch_to_global(mesh, v) for v in host_arrays))
+    if isinstance(host_arrays, (tuple, list)):
+        return type(host_arrays)(host_local_batch_to_global(mesh, v) for v in host_arrays)
+    if not isinstance(host_arrays, torch.Tensor):
+        host_arrays = torch.from_numpy(np.ascontiguousarray(host_arrays))
+    return host_arrays.to(mesh.device)
 
 
 def free_port() -> int:
@@ -213,25 +236,53 @@ def launch(
     return [out[r] for r in range(nprocs)]
 
 
-def launch_cli(fn: Callable, argv: list[str], n: int, force_cpu: bool):
-    """A CLI's ``--mesh-devices n``: ``fn(argv, devices)`` on n ranks, and
-    rank 0's result. On the card the ranks take cards 0..n-1 over NCCL, and
-    n above the visible cards is refused (a silently smaller mesh would run
-    unsharded while claiming otherwise); with ``force_cpu`` n gloo ranks run
-    on the CPU, as the reference's virtual CPU devices do, each on its share
-    of the CPU threads."""
+def script_ranks(n: int, force_cpu: bool) -> tuple[list, str]:
+    """The devices and backend of ``n`` ranks: with ``force_cpu`` n gloo
+    ranks on the CPU. On the card rank r takes card r % (the visible cards),
+    over NCCL when every rank has a card of its own and over gloo when ranks
+    share one (NCCL refuses two ranks on one device): so on one card the
+    ranks' collectives are gloo's, staged through the host, and their times
+    no claim about scaling. The mesh scripts' ``--ranks`` take this as it is,
+    to run their checks on one card; :func:`launch_cli` refuses more ranks
+    than cards first. Without a card and without ``force_cpu`` it raises."""
     if force_cpu:
-        devices = ["cpu"] * n
-        return launch(fn, n, args=(argv, devices), backend="gloo",
-                      threads=max(1, torch.get_num_threads() // n))[0]
-    avail = torch.cuda.device_count()
-    if avail < n:
+        return ["cpu"] * n, "gloo"
+    from jodalrob_twotower_torch.device import resolve_device
+
+    resolve_device(None)
+    count = torch.cuda.device_count()
+    return [f"cuda:{r % count}" for r in range(n)], ("nccl" if n <= count else "gloo")
+
+
+def launch_script(fn: Callable, n: int, args: tuple, force_cpu: bool, *, join_timeout_s: float = JOIN_TIMEOUT_S):
+    """``fn(devices, *args)`` on the ``n`` ranks of :func:`script_ranks`;
+    returns (each rank's result in rank order, the backend). The kernels
+    are built here first on the card; on the CPU each rank takes its share
+    of the threads."""
+    devices, backend = script_ranks(n, force_cpu)
+    return launch(fn, n, args=(devices, *args), backend=backend, devices=devices, threads=_rank_threads(n, force_cpu),
+                  join_timeout_s=join_timeout_s), backend
+
+
+def launch_cli(fn: Callable, argv: list[str], n: int, force_cpu: bool):
+    """A CLI's ``--mesh-devices n``: ``fn(argv, devices)`` on the n ranks of
+    :func:`script_ranks`, and rank 0's result. On the card n above the
+    visible cards is refused (a silently smaller mesh would run unsharded
+    while claiming otherwise), so the ranks take cards 0..n-1 over NCCL;
+    with ``force_cpu`` n gloo ranks run on the CPU, as the reference's
+    virtual CPU devices do, each on its share of the CPU threads."""
+    if not force_cpu and torch.cuda.device_count() < n:
         raise SystemExit(
-            f"--mesh-devices {n} but only {avail} device(s) available (cuda) - a silently smaller mesh "
-            "would run unsharded while claiming otherwise"
+            f"--mesh-devices {n} but only {torch.cuda.device_count()} device(s) available (cuda) - a silently "
+            "smaller mesh would run unsharded while claiming otherwise"
         )
-    devices = [f"cuda:{i}" for i in range(n)]
-    return launch(fn, n, args=(argv, devices), backend="nccl", devices=devices)[0]
+    devices, backend = script_ranks(n, force_cpu)
+    return launch(fn, n, args=(argv, devices), backend=backend, devices=devices, threads=_rank_threads(n, force_cpu))[0]
+
+
+def _rank_threads(n: int, force_cpu: bool) -> int | None:
+    """Each spawned CPU rank's share of this process's torch threads."""
+    return max(1, torch.get_num_threads() // n) if force_cpu else None
 
 
 def refuse_unported(args) -> None:

@@ -1,4 +1,4 @@
-"""The data-parallel mesh (port of ``jodalrob_twotower_tpu/parallel/mesh.py``).
+"""The (data, model) mesh (port of ``jodalrob_twotower_tpu/parallel/mesh.py``).
 
 The reference's mesh is one controller driving N devices under GSPMD: the
 batch dim shards over the ``data`` axis and XLA inserts the collectives. The
@@ -15,9 +15,18 @@ tables and stores (the reference's ``P("data", None)``: rank r holds rows
 ``sharded_store.py``.
 
 A :class:`Mesh` is one rank's view: its group, rank, world size, device and
-collectives. Both backends take the same tensor collectives: NCCL on the
-card, and gloo (the CPU tests, the CLIs' ``--force-cpu`` and two ranks
-sharing one card, which NCCL refuses as a duplicate GPU) carries
+collectives. The reference's mesh is a (data, model) grid of the devices,
+reshaped row-major (``make_mesh``): rank r of the group sits at data index
+r // model and model index r % model. Nothing is placed on the model axis
+(the towers are too small for tensor parallelism), so the ranks of one data
+index hold the same batch block and the same state: a :class:`Mesh` keeps
+two groups, the data group (the ranks of its model index, one per data
+index: every collective of the steps) and the world group (every rank:
+``put_replicated``'s broadcast and ``barrier``).
+
+Both backends take the same tensor collectives: NCCL on the card, and gloo
+(the CPU tests, the CLIs' ``--force-cpu`` and two ranks sharing one card,
+which NCCL refuses as a duplicate GPU) carries
 all-reduce, broadcast, ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor`` for CUDA tensors too, staged through the host
 (torch 2.11 on the H100 machine). The row exchange moves int32 and int64
@@ -45,32 +54,47 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 
 
 class Mesh:
-    """One rank of a data-parallel mesh over ``group`` (None: the default
-    group). A group of one rank still runs its collectives (NCCL's launch on
-    the card and leave the values as they are); with no process group at
-    all the mesh has one rank and its collectives leave their tensors as
-    they are. ``shape`` maps the reference's axis names to their sizes, so
-    ``mesh.shape[DATA_AXIS]`` reads as there."""
+    """One rank of a (data, model) mesh. ``group`` is the data group (None:
+    the default group), over which every collective of the steps runs;
+    ``rank`` and ``size`` are the rank's data index and the data axis, so a
+    rank's block of a batch or of a table's rows is its data index's.
+    ``world_group`` holds every rank of the mesh, the ``model_size`` ranks
+    of each data index among them (None: the default group; without a
+    model axis it is ``group``): the broadcast that makes a replicated
+    value rank 0's everywhere and the barrier run over it, and ``is_main``
+    is its rank 0. A group of one rank still runs its
+    collectives (NCCL's launch on the card and leave the values as they
+    are); with no process group at all the mesh has one rank and its
+    collectives leave their tensors as they are. ``shape`` maps the
+    reference's axis names to their sizes, so ``mesh.shape[DATA_AXIS]``
+    reads as there."""
 
-    def __init__(self, device: str | torch.device, group=None) -> None:
+    def __init__(self, device: str | torch.device, group=None, *, world_group=None, model_index: int = 0,
+                 model_size: int = 1) -> None:
         self.device = torch.device(device)
         self.group = group
+        self.world_group = world_group if model_size > 1 else group
+        self.model_index, self.model_size = model_index, model_size
         self.live = dist.is_initialized()  # a process group carries the collectives
         if self.live:
             self.rank = dist.get_rank(group)
             self.size = dist.get_world_size(group)
             self.backend = str(dist.get_backend(group))
+            self.world_rank = dist.get_rank(self.world_group)
         else:
-            self.rank, self.size, self.backend = 0, 1, "none"
-        self.shape = {DATA_AXIS: self.size, MODEL_AXIS: 1}
+            self.rank, self.size, self.backend, self.world_rank = 0, 1, "none", 0
+        self.shape = {DATA_AXIS: self.size, MODEL_AXIS: model_size}
 
     def __repr__(self) -> str:
-        return f"Mesh(rank={self.rank}, size={self.size}, device={self.device}, backend={self.backend})"
+        return (f"Mesh(rank={self.rank}, size={self.size}, model_index={self.model_index}, "
+                f"model_size={self.model_size}, device={self.device}, backend={self.backend})")
 
     @property
     def is_main(self) -> bool:
-        """Whether this rank writes the run's files and logs (rank 0)."""
-        return self.rank == 0
+        """Whether this rank writes the run's files and logs: rank 0 of the
+        world group (under a model axis, data index 0 holds ``model_size``
+        ranks, and only the first of them writes)."""
+        return self.world_rank == 0
 
     def block(self, n: int) -> slice:
         """This rank's contiguous block of ``n`` rows (``n`` a multiple of
@@ -89,10 +113,11 @@ class Mesh:
         return t
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank ``src``'s ``t`` on every rank, in place; returns ``t``."""
+        """World rank ``src``'s ``t`` on every rank of the mesh, both axes, in
+        place; returns ``t``."""
         if self.live:
-            dist.broadcast(t, dist.get_global_rank(self.group, src) if self.group is not None else src,
-                           group=self.group)
+            g = self.world_group
+            dist.broadcast(t, dist.get_global_rank(g, src) if g is not None else src, group=g)
         return t
 
     def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -112,11 +137,12 @@ class Mesh:
         return out
 
     def barrier(self) -> None:
+        """Every rank of the mesh, both axes, waits for the others."""
         if self.live:
             if self.backend == "nccl":
-                dist.barrier(group=self.group, device_ids=[self.device.index or 0])
+                dist.barrier(group=self.world_group, device_ids=[self.device.index or 0])
             else:
-                dist.barrier(group=self.group)
+                dist.barrier(group=self.world_group)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -199,7 +225,11 @@ def make_mesh(devices: Sequence | None = None, cfg: MeshConfig | None = None, *,
     default group): rank r runs on ``devices[r]``. ``devices=None`` puts
     each rank on the card of its local index. The reference's axis checks
     hold: the device count must divide ``model_axis`` and equal data x
-    model. The port's mesh has one axis, so a model axis above 1 raises."""
+    model. The devices form the reference's grid, reshaped row-major into
+    (data, model): rank r has data index r // model and model index
+    r % model. With a model axis above 1 the mesh creates one data group
+    per model index (``dist.new_group``, which every rank of the default
+    group must call alike: so every rank of it calls ``make_mesh``)."""
     cfg = cfg or MeshConfig()
     world = dist.get_world_size(group) if dist.is_initialized() else 1
     rank = dist.get_rank(group) if dist.is_initialized() else 0
@@ -213,14 +243,17 @@ def make_mesh(devices: Sequence | None = None, cfg: MeshConfig | None = None, *,
     data = cfg.data_axis if cfg.data_axis > 0 else n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} devices")
-    if model > 1:
-        raise NotImplementedError(
-            "a model axis above 1 is not ported: the port's mesh shards the batch over one "
-            "data axis (ROADMAP A12b item 6)"
-        )
     if n != world:
         raise ValueError(f"make_mesh: {n} devices but the process group has {world} ranks (one device each)")
-    return Mesh(devices[rank], group)
+    if model == 1:
+        return Mesh(devices[rank], group)
+    global_ranks = [dist.get_global_rank(group, r) if group is not None else r for r in range(world)]
+    data_group = None
+    for m in range(model):  # the ranks of model index m, in data order
+        g = dist.new_group([global_ranks[d * model + m] for d in range(data)])
+        if rank % model == m:
+            data_group = g
+    return Mesh(devices[rank], data_group, world_group=group, model_index=rank % model, model_size=model)
 
 
 def batch_sharding(mesh: Mesh, batch_size: int) -> slice:
@@ -248,9 +281,9 @@ def replicated(mesh: Mesh) -> torch.device:
 
 
 def put_replicated(x, mesh: Mesh) -> torch.Tensor:
-    """``x`` on this rank's device, rank 0's value on every rank: a
-    broadcast from rank 0 (the reference places one host value on every
-    device)."""
+    """``x`` on this rank's device, rank 0's value on every rank of both
+    axes: a broadcast from world rank 0 (the reference places one host
+    value on every device)."""
     t = torch.as_tensor(x).to(mesh.device).contiguous()
     return mesh.broadcast_(t)
 

@@ -16,6 +16,11 @@
 * :func:`device_flops_estimate` and :func:`utilization`: achieved over
   measured-peak matmul throughput, so a utilization is relative to the card
   attached, not to a data sheet.
+* :func:`median_ms`: a kernel's time on the card, the median of launches
+  each timed alone with CUDA events after the L2 cache is flushed (the
+  studies and ``chip_smoke.py``); :func:`kernel_launches` and
+  :func:`reset_kernel_launches`: each kernel wrapper's launch count in this
+  process, read and zeroed (the mesh scripts' ranks report theirs).
 """
 
 from __future__ import annotations
@@ -214,3 +219,46 @@ def device_flops_estimate(*, dtype: str = "bfloat16", n: int = 2048, device=None
 def utilization(step_time_s: float, flops_per_step: float, **peak_kwargs) -> float:
     """Achieved fraction of the measured peak."""
     return (flops_per_step / step_time_s) / device_flops_estimate(**peak_kwargs)
+
+
+def median_ms(fn, flush: torch.Tensor, runs: int = 100) -> float:
+    """Median over ``runs`` launches of ``fn``, each timed alone with CUDA
+    events after ``flush`` (a card tensor larger than the 50 MB L2 cache) is
+    zeroed, so that a bound that assumes device-memory traffic applies. The
+    flush keeps the card busy long enough for the host to enqueue the events
+    and the launch behind it, so no host time falls between them."""
+    fn()  # warm-up
+    pairs = []
+    for _ in range(runs):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def _kernel_wrappers() -> tuple:
+    """Every CUDA kernel wrapper that counts its launches (K1, K2, K3, K4,
+    K6/K7, K11/K10, K8, K5/K9)."""
+    from jodalrob_twotower_torch.ops import embedding_grad as eg
+    from jodalrob_twotower_torch.ops import embedding_lookup as el
+    from jodalrob_twotower_torch.ops import fused_logits as fl
+
+    return (eg.dense_table_lookup, eg.dense_table_grad, eg.dense_table_grad_bmajor, el.embedding_lookup_pallas,
+            fl.fused_lean_lse, fl.fused_ce_bwd, fl.same_tile_diag, fl.fused_stats_sweep)
+
+
+def kernel_launches() -> dict[str, int]:
+    """Each CUDA kernel wrapper's launches so far in this process: the
+    ``launches`` count a wrapper raises by one where it launches its kernel.
+    All stay 0 on the CPU."""
+    return {f.__name__: f.launches for f in _kernel_wrappers()}
+
+
+def reset_kernel_launches() -> None:
+    """Sets every wrapper's ``launches`` count to 0."""
+    for f in _kernel_wrappers():
+        f.launches = 0

@@ -15,8 +15,9 @@ conftest's virtual devices.
 * ``ShardedIndex``, exact and int8 (and int8 with a bf16 rescore): the rows
   found equal the reference ShardedIndex's except at ties, scores within
   1e-5.
-* The mesh itself: the reference's axis errors, a rank's exception and a
-  missed deadline each fail the launch (the ranks are killed).
+* The mesh itself: the reference's axis errors and a live (1, 2) mesh's
+  shape; a rank's exception and a missed deadline each fail the launch
+  (the ranks are killed).
 
 Each spawn gives its ranks one torch thread, a process-group timeout and a
 join deadline (``SPAWN_S``), so a hung collective fails its test."""
@@ -169,8 +170,11 @@ def test_make_mesh_keeps_the_reference_axis_errors():
         tmesh.make_mesh(["cpu"] * 3, TMeshConfig(model_axis=2))
     with pytest.raises(ValueError, match=r"mesh 3x1 != 4 devices"):
         tmesh.make_mesh(["cpu"] * 4, TMeshConfig(data_axis=3))
-    with pytest.raises(NotImplementedError, match="A12b"):
+    with pytest.raises(ValueError, match="process group has 1 ranks"):
         tmesh.make_mesh(["cpu"] * 2, TMeshConfig(model_axis=2))
+    live = spawn(workers.mesh_shape, 2, TMeshConfig(model_axis=2))  # a (1, 2) mesh
+    assert [r["shape"] for r in live] == [{"data": 1, "model": 2}] * 2
+    assert [(r["rank"], r["model_index"], r["is_main"]) for r in live] == [(0, 0, True), (0, 1, False)]
     with pytest.raises(ValueError, match="process group has 1 ranks"):
         tmesh.make_mesh(["cpu"] * 2)
     one = tmesh.make_mesh(["cpu"])  # no process group: a mesh of one

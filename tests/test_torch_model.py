@@ -139,6 +139,21 @@ def test_forced_onehot_raises_where_it_cannot_run(kw, match):
         coll(torch.zeros(2, len(vocabs), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("dim,onehot", [(8, True), (24, True), (40, True), (128, True), (12, False)])
+def test_auto_takes_the_dense_kernels_at_the_reference_widths(dim, onehot):
+    """On the card "auto" takes the one-hot lookup at every embed width % 8
+    == 0 and the dense table gradient at every width, as the reference's
+    gates do (``jodalrob_twotower_tpu/models/embedding.py:204-228``); the
+    gradient kernel is built for every multiple of 8 up to 128 and raises at
+    another width rather than handing the step to the scatter. The CPU keeps
+    the gather and its scatter at every width."""
+    emb = EmbeddingCollection((50, 70), dim)
+    on_card, on_cpu = SimpleNamespace(is_cuda=True), SimpleNamespace(is_cuda=False)
+    assert emb._onehot_lookup_active(on_card) == onehot
+    assert emb._dense_grad_active(on_card)
+    assert not emb._onehot_lookup_active(on_cpu) and not emb._dense_grad_active(on_cpu)
+
+
 def test_build_model_single_device_only():
     _, t_schema = schemas()
     cfg = TorchTrainConfig()

@@ -621,3 +621,86 @@ def compressed_all(parts: dict) -> dict:
     """Each (function name, args) of ``parts`` run on this rank, in order:
     one launch for a test module's every rank function."""
     return {name: globals()[fn](*args) for name, (fn, args) in parts.items()}
+
+
+# -- a model axis above 1 (test_torch_model_axis.py) ---------------------------
+
+
+def _axis_steps(schema, cfg, start: dict, stores: dict, idx: np.ndarray, mesh) -> dict:
+    """``make_sharded_train`` steps on ``mesh`` from the one-device state dict
+    ``start`` (cut to the rank's blocks): per step the loss, the summed
+    gradients at the step's start (``loss_and_grads`` on a copy of the
+    state) and the state after, the row-sharded leaves joined whole."""
+    import copy
+
+    from jodalrob_twotower_torch.models import build_model
+    from jodalrob_twotower_torch.parallel.mesh import shard_state
+    from jodalrob_twotower_torch.parallel.sharded_train import make_sharded_train
+    from jodalrob_twotower_torch.train.train_step import loss_and_grads, make_sharded_ce
+
+    model = build_model(schema, cfg, mesh)
+    keys = model.row_sharded_keys
+    model.load_state_dict(shard_state({k: torch.from_numpy(v) for k, v in start.items()}, mesh, keys))
+    state, step, shard_batch = make_sharded_train(model, cfg, mesh, idx.shape[1], 10)
+    s = _stores(stores)
+    losses, grads, states = [], [], []
+    for i in idx:
+        batch = shard_batch(PairBatch(TowerBatch(*(x[torch.from_numpy(i[:, 0])] for x in s["notice"])),
+                                      TowerBatch(*(x[torch.from_numpy(i[:, 1])] for x in s["company"]))))
+        _, _, g = loss_and_grads(model, cfg, copy.deepcopy(state), batch, mesh=mesh,
+                                 sharded_ce=make_sharded_ce(cfg, mesh))
+        grads.append(_joined(g, mesh, keys))
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        states.append(_joined({**state.params, **state.batch_stats}, mesh, keys))
+    return {"losses": losses, "grads": grads, "states": states, "row_sharded": sorted(keys),
+            "shard_rows": {k: int(state.params[k].shape[0]) for k in keys}}
+
+
+def model_axis_runs(schema, cfgs: dict, start: dict, stores: dict, idx: np.ndarray, trainer_cfg,
+                    pairs: np.ndarray, tmp: str) -> dict:
+    """On each of 4 ranks: the (2, 2) mesh's steps under each config of
+    ``cfgs``, and on ranks 0 and 1 the same steps on a (2, 1) mesh of those
+    two ranks; the rank's coordinates, its ``host_shard_pairs`` of
+    ``pairs``, and the files a (2, 2) mesh Trainer leaves in the rank's own
+    directory under ``tmp`` (checkpoints and results CSV)."""
+    import dataclasses
+    from pathlib import Path
+
+    from jodalrob_twotower_torch.config import MeshConfig
+    from jodalrob_twotower_torch.parallel.distributed import host_shard_pairs
+
+    rank = torch.distributed.get_rank()
+    pair_group = torch.distributed.new_group([0, 1])  # every rank creates it, as new_group asks
+    axes = MeshConfig(data_axis=2, model_axis=2)
+    mesh = make_mesh(["cpu"] * 4, axes)
+    out = {"rank": rank, "data_index": mesh.rank, "data_size": mesh.size, "model_index": mesh.model_index,
+           "shape": dict(mesh.shape), "is_main": mesh.is_main, "pairs": host_shard_pairs(pairs, mesh),
+           "pairs_no_mesh": host_shard_pairs(pairs)}
+    out["mesh22"] = {name: _axis_steps(schema, cfg.replace(mesh=dataclasses.replace(cfg.mesh, data_axis=2,
+                                                                                   model_axis=2)),
+                                       start, stores, idx, mesh)
+                     for name, cfg in cfgs.items()}
+    if rank < 2:
+        mesh21 = make_mesh(["cpu"] * 2, MeshConfig(), group=pair_group)
+        out["mesh21"] = {name: _axis_steps(schema, cfg, start, stores, idx, mesh21) for name, cfg in cfgs.items()}
+    d = Path(tmp) / f"rank{rank}"
+    cfg = trainer_cfg.replace(results_csv=str(d / "results.csv"),
+                              mesh=dataclasses.replace(trainer_cfg.mesh, data_axis=2, model_axis=2))
+    keys = np.arange(len(stores["notice"][0])).astype(str)
+    from jodalrob_twotower_torch.data.feature_store import FeatureStore
+    from jodalrob_twotower_torch.train.trainer import Trainer
+
+    fs = [FeatureStore(schema.side(side), *stores[side], keys) for side in ("notice", "company")]
+    res = Trainer(cfg, schema, *fs, mesh=mesh, log_fn=lambda *_: None).train(
+        pairs[:64], pairs[64:96], checkpoint_dir=d / "ckpt", corpus_eval=False, n_inner=1)
+    out["trainer"] = {"history": res.history, "state": _np({**res.state.params, **res.state.batch_stats}),
+                      "files": sorted(str(p.relative_to(d)) for p in d.rglob("*") if p.is_file())}
+    return out
+
+
+def mesh_shape(cfg) -> dict:
+    """A live mesh of this rank under ``cfg``: its shape, data index and
+    model index."""
+    mesh = make_mesh(["cpu"] * torch.distributed.get_world_size(), cfg)
+    return {"shape": dict(mesh.shape), "rank": mesh.rank, "model_index": mesh.model_index, "is_main": mesh.is_main}
