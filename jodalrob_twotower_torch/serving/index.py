@@ -25,12 +25,14 @@ reference's, so an index saved by either package loads in the other.
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from jodalrob_twotower_torch.device import resolve_device
+from jodalrob_twotower_torch.utils.profiling import span
 
 
 class SearchResult(NamedTuple):
@@ -43,18 +45,22 @@ _NEG = float(np.finfo(np.float32).min)
 
 class HostCopy:
     """Device-to-host copies of result tensors into pinned memory, started
-    with ``non_blocking`` at construction and waited on in :meth:`result`."""
+    with ``non_blocking`` at construction and waited on in :meth:`result`.
+    The construction is a root span, ``serve.copy``."""
+
+    _count = itertools.count()
 
     def __init__(self, *tensors: torch.Tensor) -> None:
-        self.event = None
-        if tensors[0].is_cuda:
-            self.hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-            for host, t in zip(self.hosts, tensors):
-                host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(tensors[0].device))
-        else:
-            self.hosts = [t.detach() for t in tensors]
+        with span("serve.copy", root=next(HostCopy._count)):
+            self.event = None
+            if tensors[0].is_cuda:
+                self.hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+                for host, t in zip(self.hosts, tensors):
+                    host.copy_(t, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record(torch.cuda.current_stream(tensors[0].device))
+            else:
+                self.hosts = [t.detach() for t in tensors]
 
     def result(self) -> list[np.ndarray]:
         if self.event is not None:
@@ -103,36 +109,43 @@ def _rescore_topk(queries, cand_scores, cand_idx, k: int, rescore_rows, rescore_
     full-precision copy, or the int8 values with ``rescore_scales`` for a
     dequantized rescore). The R candidate rows per query are gathered and
     scored exactly (the query rounded to the rows' type, or to bf16 for int8
-    rows) before the final top-k."""
-    cand = rescore_rows[cand_idx]  # [Q, R, D]
-    dtype = torch.bfloat16 if cand.dtype == torch.int8 else cand.dtype
-    q = queries.to(dtype).float()
-    s = torch.bmm(cand.to(dtype).float(), q[:, :, None])[..., 0]
-    if rescore_scales is not None:
-        s = s * rescore_scales[:, 0][cand_idx]
-    # first-pass padding sentinels stay unselectable
-    s = torch.where(cand_scores <= _NEG, _NEG, s)
-    s2, sel = torch.topk(s, k, dim=1)
-    return s2, torch.gather(cand_idx, 1, sel)
+    rows) before the final top-k. A span, ``serve.rescore``."""
+    with span("serve.rescore"):
+        cand = rescore_rows[cand_idx]  # [Q, R, D]
+        dtype = torch.bfloat16 if cand.dtype == torch.int8 else cand.dtype
+        q = queries.to(dtype).float()
+        s = torch.bmm(cand.to(dtype).float(), q[:, :, None])[..., 0]
+        if rescore_scales is not None:
+            s = s * rescore_scales[:, 0][cand_idx]
+        # first-pass padding sentinels stay unselectable
+        s = torch.where(cand_scores <= _NEG, _NEG, s)
+        s2, sel = torch.topk(s, k, dim=1)
+        return s2, torch.gather(cand_idx, 1, sel)
 
 
-def _scanned_topk(chunk_sims_fn, n_chunks: int, chunk_rows: int, n_valid: int,
+def _scanned_topk(chunk_sims_fn, n_chunks: int | None, chunk_rows: int, n_valid: int,
                   queries: torch.Tensor, k: int):
-    """Running top-k over corpus chunks; peak memory is one [Q, chunk] block.
+    """An index's first pass, a span (``serve.scan``): the running top-k
+    over corpus chunks; peak memory is one [Q, chunk] block.
 
     ``chunk_sims_fn(queries, ci) -> [Q, chunk_rows] f32`` scores chunk ci.
-    Padding rows (global row >= n_valid) are masked to the float32 minimum."""
-    q = queries.shape[0]
-    best_s = torch.full((q, k), _NEG, dtype=torch.float32, device=queries.device)
-    best_i = torch.zeros((q, k), dtype=torch.int64, device=queries.device)
-    cols = torch.arange(chunk_rows, device=queries.device)
-    for ci in range(n_chunks):
-        sims = chunk_sims_fn(queries, ci)
-        if (ci + 1) * chunk_rows > n_valid:
-            sims = torch.where(ci * chunk_rows + cols[None, :] < n_valid, sims, _NEG)
-        s, i = torch.topk(sims, k, dim=1)
-        best_s, best_i = _merge_topk(best_s, best_i, s, i + ci * chunk_rows, k)
-    return best_s, best_i
+    Padding rows (global row >= n_valid) are masked to the float32 minimum.
+    ``n_chunks`` None is the unchunked corpus: one top-k over
+    ``chunk_sims_fn(queries, None)``, the scores of every row."""
+    with span("serve.scan"):
+        if n_chunks is None:
+            return torch.topk(chunk_sims_fn(queries, None), k, dim=1)
+        q = queries.shape[0]
+        best_s = torch.full((q, k), _NEG, dtype=torch.float32, device=queries.device)
+        best_i = torch.zeros((q, k), dtype=torch.int64, device=queries.device)
+        cols = torch.arange(chunk_rows, device=queries.device)
+        for ci in range(n_chunks):
+            sims = chunk_sims_fn(queries, ci)
+            if (ci + 1) * chunk_rows > n_valid:
+                sims = torch.where(ci * chunk_rows + cols[None, :] < n_valid, sims, _NEG)
+            s, i = torch.topk(sims, k, dim=1)
+            best_s, best_i = _merge_topk(best_s, best_i, s, i + ci * chunk_rows, k)
+        return best_s, best_i
 
 
 def _search(index, queries, k: int) -> SearchResult:
@@ -176,7 +189,7 @@ class BruteForceIndex:
         kk = max(k, self.rescore_depth or 0)
         if self.corpus_chunk is None:
             kk = max(k, min(kk, corpus.shape[0]))
-            s, i = torch.topk(q32 @ corpus.T, kk, dim=1)
+            s, i = _scanned_topk(lambda qs, _: qs @ corpus.T, None, corpus.shape[0], self.n_valid, q32, kk)
             flat = corpus
         else:
             nc, c, _ = corpus.shape
@@ -286,8 +299,11 @@ class Int8Index:
         kk = max(k, self.rescore_depth or 0)
         if self.corpus_chunk is None:
             kk = max(k, min(kk, values.shape[0]))
-            sims = (qbf @ values.float().T).mul_(scales[:, 0][None, :])
-            s, i = torch.topk(sims, kk, dim=1)
+
+            def flat_sims(qs, _):
+                return (qs @ values.float().T).mul_(scales[:, 0][None, :])
+
+            s, i = _scanned_topk(flat_sims, None, values.shape[0], self.n_valid, qbf, kk)
             values_flat, scales_flat = values, scales
         else:
             nc, c, _ = values.shape
@@ -382,14 +398,18 @@ class ShardedIndex:
         """Search of one query block, the same on every rank: (scores [Q, k]
         f32, global rows [Q, k] int32)."""
         kk = max(k, min(self.rescore_depth or 0, self.shard_rows))
-        if self.kind == "int8":
-            sims = (queries.to(torch.bfloat16).float() @ self.values.float().T).mul_(self.scales[:, 0][None, :])
-        else:
-            sims = queries.float() @ self.corpus.T
-        if self.row0 + self.shard_rows > self.n_valid:
-            cols = torch.arange(self.shard_rows, device=sims.device)
-            sims = torch.where(self.row0 + cols[None, :] < self.n_valid, sims, _NEG)
-        s, i = torch.topk(sims, kk, dim=1)
+
+        def shard_sims(qs, _):
+            if self.kind == "int8":
+                sims = (qs.to(torch.bfloat16).float() @ self.values.float().T).mul_(self.scales[:, 0][None, :])
+            else:
+                sims = qs.float() @ self.corpus.T
+            if self.row0 + self.shard_rows > self.n_valid:
+                cols = torch.arange(self.shard_rows, device=sims.device)
+                sims = torch.where(self.row0 + cols[None, :] < self.n_valid, sims, _NEG)
+            return sims
+
+        s, i = _scanned_topk(shard_sims, None, self.shard_rows, self.n_valid, queries, kk)
         if self.rescore_depth:
             if self.kind == "exact":  # fixes the selection only
                 s, i = _rescore_topk(queries.float(), s, i, k, self.corpus)

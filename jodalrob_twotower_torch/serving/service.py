@@ -11,6 +11,7 @@ copies overlap the card's work.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Literal
 
@@ -29,6 +30,7 @@ from jodalrob_twotower_torch.serving.index import (
     SearchResult,
     ShardedIndex,
 )
+from jodalrob_twotower_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +133,7 @@ class RetrievalService:
                     device=self.device,
                 )
         self._encode_notice = self._evaluator._encode_notice
+        self._requests = itertools.count()  # the ids of search_device's root spans
 
     def encode_queries(self, batch: TowerBatch) -> torch.Tensor:
         return self._encode_notice(self.state, batch.to(self.device))
@@ -138,8 +141,13 @@ class RetrievalService:
     @torch.inference_mode()
     def search_device(self, batch: TowerBatch, k: int = 10) -> tuple[torch.Tensor, torch.Tensor]:
         """Encode + search; returns device tensors (scores [Q, k] f32,
-        rows [Q, k] int32) without waiting for the card."""
-        return self.index.topk_body(self.encode_queries(batch), k)
+        rows [Q, k] int32) without waiting for the card. One request: a
+        root span, ``serve.search``, around ``serve.encode`` and the index's
+        spans."""
+        with span("serve.search", root=next(self._requests)):
+            with span("serve.encode"):
+                queries = self.encode_queries(batch)
+            return self.index.topk_body(queries, k)
 
     def search(self, batch: TowerBatch, k: int = 10) -> SearchResult:
         """notice features -> top-k company rows + scores."""

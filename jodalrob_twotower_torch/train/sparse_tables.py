@@ -272,7 +272,9 @@ def make_sparse_train_step(
     docstring); ``store_gather(store, rows) -> TowerBatch`` replaces the
     plain gather (a row-sharded store, ``parallel/sharded_store.py``).
     ``sync`` (the compressed sync) keeps the mesh's lookup and table update
-    and makes the towers' step the rank's own (module docstring)."""
+    and makes the towers' step the rank's own (module docstring).
+    ``pair_idx`` may also be a function of the state that draws the indices
+    (``train_step.sampled_scan_fn``'s)."""
     n_rows = make_absolute_rows(model.schema.notice.vocab_sizes)
     c_rows = make_absolute_rows(model.schema.company.vocab_sizes)
     emb_dim = cfg.model.categorical_embedding_dim
@@ -290,7 +292,9 @@ def make_sparse_train_step(
             return exchange_rows(mesh, st.table, rows.reshape(-1))
         return st.table.index_select(0, rows.reshape(-1))
 
-    def step(state: SparseTrainState, pair_idx: torch.Tensor, notice_store, company_store):
+    def step(state: SparseTrainState, pair_idx, notice_store, company_store):
+        if callable(pair_idx):
+            pair_idx = pair_idx(state)
         batch = PairBatch(notice=gather(notice_store, pair_idx[:, 0]),
                           company=gather(company_store, pair_idx[:, 1]))
         b = pair_idx.shape[0]

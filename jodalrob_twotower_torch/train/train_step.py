@@ -61,6 +61,7 @@ from jodalrob_twotower_torch.parallel.mesh import gather_replicated, sync_grads
 from jodalrob_twotower_torch.train.loss import compute_loss, resolve_use_fused
 from jodalrob_twotower_torch.train.metrics import in_batch_metrics
 from jodalrob_twotower_torch.train.optimizer import Optimizer, build_optimizer
+from jodalrob_twotower_torch.utils.profiling import span
 
 DROPOUT_STREAM = 0
 SAMPLE_STREAM = 1
@@ -226,26 +227,36 @@ def loss_and_grads(model, cfg, state: TrainState, batch: PairBatch, *, mesh=None
     through it, and the loss stays the rank's."""
     generator = dropout_generator(cfg, state, sync)
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-    loss, sim, _, _ = _forward_loss(model, cfg, {**params, **state.batch_stats}, batch, generator, train=True,
-                                    mesh=mesh, sharded_ce=sharded_ce)
-    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-    if sync is not None:
-        grads = sync(grads)
-    elif mesh is not None:
-        grads = sync_grads(grads, mesh, sharded=model.row_sharded_keys)
+    with span("train.forward"):
+        loss, sim, _, _ = _forward_loss(model, cfg, {**params, **state.batch_stats}, batch, generator, train=True,
+                                        mesh=mesh, sharded_ce=sharded_ce)
+    with span("train.backward"):
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        if sync is not None:
+            grads = sync(grads)
+        elif mesh is not None:
+            grads = sync_grads(grads, mesh, sharded=model.row_sharded_keys)
     return loss.detach(), sim, grads
 
 
-def _train_on_batch(model, cfg, tx: Optimizer, state: TrainState, batch: PairBatch, with_metrics: bool,
+def _train_on_batch(model, cfg, tx: Optimizer, state: TrainState, batch, with_metrics: bool,
                     mesh=None, sharded_ce=None, sync=None):
-    loss, sim, grads = loss_and_grads(model, cfg, state, batch, mesh=mesh, sharded_ce=sharded_ce, sync=sync)
-    tx.update(state.params, grads, state.opt_state, mesh=mesh, sharded=model.row_sharded_keys)
-    state.step += 1
-    metrics = {"loss": loss}
-    if with_metrics and sim is not None:
-        metrics.update(in_batch_metrics(sim.detach()))
-    if sync is not None:
-        metrics = sync.pmean_(metrics, state.batch_stats)
+    """One step under its root span ``train.step``: ``batch`` is a
+    PairBatch, or a function that draws and gathers one (an indexed step's),
+    which then runs inside the step's span as ``train.batch``."""
+    with span("train.step", root=state.step):
+        if callable(batch):
+            with span("train.batch"):
+                batch = batch()
+        loss, sim, grads = loss_and_grads(model, cfg, state, batch, mesh=mesh, sharded_ce=sharded_ce, sync=sync)
+        with span("train.update"):
+            tx.update(state.params, grads, state.opt_state, mesh=mesh, sharded=model.row_sharded_keys)
+        state.step += 1
+        metrics = {"loss": loss}
+        if with_metrics and sim is not None:
+            metrics.update(in_batch_metrics(sim.detach()))
+        if sync is not None:
+            metrics = sync.pmean_(metrics, state.batch_stats)
     return state, metrics
 
 
@@ -282,15 +293,17 @@ def make_indexed_train_step(
     the rank's block of the global batch's indices (:func:`make_train_step`).
     With ``sync`` (the compressed sync, no ``mesh``) it is the rank's block
     trained as a batch of its own, its loss ``sync.sharded_ce`` where the
-    negatives are global."""
+    negatives are global. ``pair_idx`` may also be a function of the state
+    that draws the indices (:func:`sampled_scan_fn`'s), so that the draw
+    falls inside the step's span."""
     gather = store_gather or default_tower_gather
     sharded_ce = sync.sharded_ce if sync is not None else make_sharded_ce(cfg, mesh)
 
-    def step(state: TrainState, pair_idx: torch.Tensor, notice_store, company_store):
-        batch = PairBatch(
-            notice=gather(notice_store, pair_idx[:, 0]),
-            company=gather(company_store, pair_idx[:, 1]),
-        )
+    def step(state: TrainState, pair_idx, notice_store, company_store):
+        def batch() -> PairBatch:
+            idx = pair_idx(state) if callable(pair_idx) else pair_idx
+            return PairBatch(notice=gather(notice_store, idx[:, 0]), company=gather(company_store, idx[:, 1]))
+
         return _train_on_batch(model, cfg, tx, state, batch, with_metrics, mesh, sharded_ce, sync)
 
     return step
@@ -343,14 +356,18 @@ def sampled_scan_fn(inner, n_inner: int, batch_size: int, mesh=None, *, per_rank
 
     def steps(state, sample_seed: int, pairs_dev: torch.Tensor, notice_store, company_store):
         n_pairs = pairs_dev.shape[0]
-        out = []
-        for _ in range(n_inner):
+
+        def draw(state) -> torch.Tensor:
             if per_rank:
                 gen = step_generator(pairs_dev.device, sample_seed, state.step, RANK_SAMPLE_STREAM, mesh.rank)
             else:
                 gen = step_generator(pairs_dev.device, sample_seed, state.step, SAMPLE_STREAM)
             rows = torch.randint(0, n_pairs, (n_draw,), generator=gen, device=pairs_dev.device)[block]
-            state, m = inner(state, pairs_dev.index_select(0, rows), notice_store, company_store)
+            return pairs_dev.index_select(0, rows)
+
+        out = []
+        for _ in range(n_inner):
+            state, m = inner(state, draw, notice_store, company_store)
             out.append(m)
         return state, _stack(out)
 

@@ -1,9 +1,9 @@
 """Profiling and observability (port of
 ``jodalrob_twotower_tpu/utils/profiling.py``).
 
-* :class:`StepTimer`: step timing whose ``stop(fetch)`` waits for the
-  fetched tensor's device before it reads the clock, since a CUDA call
-  returns before the card has finished.
+* :class:`span` and :func:`span_record`: the program's own host spans (the
+  names in :data:`SPANS`), kept in memory always and put on the profiler's
+  trace while a session is on (below).
 * :class:`MetricsLogger`: a structured JSONL metrics stream, one row per
   :meth:`MetricsLogger.log` with the step, the seconds since the logger was
   made and the metric dict. Numbers, numpy scalars and 0-dim tensors are
@@ -13,74 +13,132 @@
 * :func:`device_table` and :func:`device_breakdown`: where the card's time
   went in a profiled span (device time by kernel name, the busy share of the
   wall time), the one reader the profiler CLI and ``chip_smoke.py`` share.
-* :func:`device_flops_estimate` and :func:`utilization`: achieved over
-  measured-peak matmul throughput, so a utilization is relative to the card
-  attached, not to a data sheet.
+* :func:`device_flops_estimate`: measured matmul throughput of the card
+  attached, not its data sheet's.
 * :func:`median_ms`: a kernel's time on the card, the median of launches
   each timed alone with CUDA events after the L2 cache is flushed (the
   studies and ``chip_smoke.py``); :func:`kernel_launches` and
   :func:`reset_kernel_launches`: each kernel wrapper's launch count in this
   process, read and zeroed (the mesh scripts' ranks report theirs).
+
+Spans. A *root* is one training step (``train.step``, its id the global
+step) or one request (``serve.search``, its id the service's request count;
+``serve.copy``, the process's count of result copies); the other spans are
+its children, opened inside it on the same thread. Each span stamps its
+start and end with ``time.time_ns()``, the Unix clock the profiler stamps
+its host events with, so an in-memory span can be placed on a trace. The
+last :data:`RING` roots stay in a ring, each with its children's times and
+whether a profiler session was on when it began. While a session is on, a
+span also opens a function-scope range on the trace
+(``torch._C._profiler._RecordFunctionFast``): a host event, which names the
+card's idle gaps under it and, unlike ``record_function``'s user annotation,
+puts no range on the card. With no session on that costs one attribute read.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
+import threading
 import time
 from pathlib import Path
 from typing import Mapping
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
+
+SPANS = (
+    "train.step",  # root: one step, its batch's draw and gather included (train/train_step._train_on_batch)
+    "train.batch",  # the draw and the store gather (make_indexed_train_step)
+    "train.forward",  # functional_call of the towers and the loss (loss_and_grads)
+    "train.backward",  # torch.autograd.grad and any gradient sync (loss_and_grads)
+    "train.update",  # the optimizer's update, whichever the config picks (_train_on_batch)
+    "serve.search",  # root: one RetrievalService.search_device
+    "serve.encode",  # the notice tower (search_device)
+    "serve.scan",  # the index's first pass (serving/index._scanned_topk)
+    "serve.rescore",  # the exact second pass (serving/index._rescore_topk)
+    "serve.copy",  # root: a HostCopy's page-locked buffers and enqueued copies
+)
+RING = 8192  # roots kept
+
+_NAME, _PARENT, _START, _END, _INNER = range(5)  # a span's record: [name, parent, start ns, end ns, children's ns]
+_roots: collections.deque = collections.deque(maxlen=RING)  # [id, profiled, record, children's records]
 
 
-def _first_tensor(tree) -> torch.Tensor | None:
-    if isinstance(tree, torch.Tensor):
-        return tree
-    values = tree.values() if isinstance(tree, Mapping) else tree if isinstance(tree, (list, tuple)) else ()
-    for v in values:
-        t = _first_tensor(v)
-        if t is not None:
-            return t
-    return None
-
-
-class StepTimer:
-    """Wall-clock step timer; ``stop(fetch)`` first waits for the device of
-    ``fetch`` (a tensor, or a dict/list/tuple holding one)."""
-
+class _Open(threading.local):
     def __init__(self) -> None:
-        self.times: list[float] = []
-        self._t0: float | None = None
+        self.stack: list[span] = []
 
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
 
-    def stop(self, fetch=None) -> float:
-        t = _first_tensor(fetch) if fetch is not None else None
-        if t is not None and t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        if self._t0 is None:
-            raise RuntimeError("StepTimer.stop() before start()")
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        self._t0 = None
-        return dt
+_open = _Open()
 
-    @property
-    def mean(self) -> float:
-        return float(np.mean(self.times)) if self.times else float("nan")
 
-    @property
-    def p50(self) -> float:
-        return float(np.percentile(self.times, 50)) if self.times else float("nan")
+class span:
+    """``with span(name):`` a child of the innermost open span of this
+    thread's root; ``with span(name, root=id):`` a root. A child opened
+    with no root open (a step's forward called alone) is put on the trace
+    but kept nowhere in memory."""
 
-    def summary(self, batch_size: int | None = None) -> dict:
-        out = {"steps": len(self.times), "mean_ms": self.mean * 1e3, "p50_ms": self.p50 * 1e3}
-        if batch_size and self.times:
-            out["examples_per_sec"] = batch_size / self.mean
-        return out
+    __slots__ = ("name", "root", "_rec", "_entry", "_range")
+
+    def __init__(self, name: str, root: int | None = None) -> None:
+        self.name, self.root = name, root
+
+    def __enter__(self) -> "span":
+        stack = _open.stack
+        profiled = _autograd_profiler._is_profiler_enabled
+        if self.root is not None:
+            self._rec = [self.name, None, 0, 0, 0]
+            self._entry = [self.root, profiled, self._rec, []]
+        elif stack and stack[-1]._entry is not None:
+            parent = stack[-1]
+            self._rec = [self.name, parent.name, 0, 0, 0]
+            self._entry = parent._entry
+            self._entry[3].append(self._rec)
+        else:
+            self._rec = self._entry = None
+        stack.append(self)
+        if self._rec is not None:
+            self._rec[_START] = time.time_ns()
+        if profiled:
+            self._range = _RecordFunctionFast(self.name)
+            self._range.__enter__()
+        else:
+            self._range = None
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        stack = _open.stack
+        stack.pop()
+        rec = self._rec
+        if rec is None:
+            return
+        rec[_END] = end = time.time_ns()
+        if stack and stack[-1]._entry is self._entry:
+            stack[-1]._rec[_INNER] += end - rec[_START]
+        if self.root is not None:
+            _roots.append(self._entry)
+
+
+def span_record() -> list[dict]:
+    """The ring of the last :data:`RING` roots, oldest first, as plain data:
+    per root its ``name``, ``id``, ``profiled`` (a profiler session was on
+    when it began), ``start_ns`` and ``end_ns`` (Unix ns), ``self_ns`` (its
+    time outside its children) and ``children``, in the order they opened,
+    each with its ``name``, ``parent``, ``root`` (the root's id),
+    ``start_ns``, ``end_ns`` and ``self_ns``."""
+
+    def times(rec) -> dict:
+        return {"start_ns": rec[_START], "end_ns": rec[_END], "self_ns": rec[_END] - rec[_START] - rec[_INNER]}
+
+    return [{"name": rec[_NAME], "id": rid, "profiled": profiled, **times(rec),
+             "children": [{"name": c[_NAME], "parent": c[_PARENT], "root": rid, **times(c)} for c in children]}
+            for rid, profiled, rec, children in list(_roots)]
 
 
 class MetricsLogger:
@@ -135,24 +193,31 @@ def trace(log_dir: str | Path):
 def device_table(prof, wall_us: float, repeats: int = 1, top: int = 8, host_top: int = 0) -> dict:
     """Where the card's time went in a profiled span of ``repeats`` calls
     that took ``wall_us`` on the host clock (ended by a synchronize): device
-    events (kernels and copies) summed by name per call, the busy share of
-    the wall time (None without device events) and, with ``host_top``, the
-    host operators with the most self CPU time (inflated by the profiler's
-    own cost)."""
+    events (kernels, copies and sets) summed by name per call; the card's
+    busy ms per call and busy share of the wall time (None without device
+    events), both from the union of the events' intervals, so work
+    overlapping on two streams counts once; and, with ``host_top``, the host
+    operators with the most self CPU time (inflated by the profiler's own
+    cost). The ranges that annotations (``record_function``) put on the
+    card are left out, as they cover work, not do it."""
     by_name: dict[str, float] = {}
-    n_events = 0
+    intervals = []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
             name = e.name[:90]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / repeats
-            n_events += 1
-    busy_us = sum(by_name.values())
+            intervals.append((e.time_range.start, e.time_range.end))
+    busy_us = 0.0
+    at = float("-inf")
+    for a, b in sorted(intervals):
+        busy_us += max(0.0, b - max(a, at))
+        at = max(at, b)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "wall_ms_per_call": wall_us / repeats / 1e3,
-        "device_ms_per_call": busy_us / 1e3,
-        "busy_share": busy_us * repeats / wall_us if busy_us else None,
-        "device_events_per_call": n_events / repeats,
+        "device_ms_per_call": busy_us / repeats / 1e3,
+        "busy_share": busy_us / wall_us if busy_us else None,
+        "device_events_per_call": len(intervals) / repeats,
         "top_ms": {name: us / 1e3 for name, us in ranked},
         "host_top": [
             {"op": a.key[:60], "calls": a.count / repeats, "self_cpu_ms": a.self_cpu_time_total / repeats / 1e3}
@@ -214,11 +279,6 @@ def device_flops_estimate(*, dtype: str = "bfloat16", n: int = 2048, device=None
     peak = 2 * n**3 / seconds
     _PEAK_CACHE[key] = peak
     return peak
-
-
-def utilization(step_time_s: float, flops_per_step: float, **peak_kwargs) -> float:
-    """Achieved fraction of the measured peak."""
-    return (flops_per_step / step_time_s) / device_flops_estimate(**peak_kwargs)
 
 
 def median_ms(fn, flush: torch.Tensor, runs: int = 100) -> float:

@@ -1,7 +1,7 @@
-"""The port's profiling utilities and step profiler against the JAX
-package's: ``StepTimer``'s summary keys, ``utilization`` with a fixed peak,
-``trace`` writing a Chrome trace that ``device_table`` reads, the measured
-peak cached per device, and ``python -m jodalrob_twotower_torch.profile_step``:
+"""The port's profiling utilities and step profiler: ``trace`` writing a
+Chrome trace that ``device_table`` reads, ``device_table``'s busy time as
+the union of the card's intervals, the measured peak cached per device, and
+``python -m jodalrob_twotower_torch.profile_step``:
 its variant list and config toggles equal ``scripts/profile_step.py``'s (read
 from the script's source), and every variant runs one call of 2 steps at
 B = 64 on the CPU with a finite loss and updated params."""
@@ -9,14 +9,13 @@ B = 64 on the CPU with a finite loss and updated params."""
 import ast
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
-import numpy as np
 import pytest
 import torch
 
 from jodalrob_twotower_torch import profile_step
 from jodalrob_twotower_torch.utils import profiling as t_prof
-from jodalrob_twotower_tpu.utils import profiling as j_prof
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -29,30 +28,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def test_step_timer_summary_matches_reference():
-    summaries = []
-    for module, fetch in ((t_prof, torch.ones(3)), (j_prof, np.ones(3))):
-        timer = module.StepTimer()
-        for _ in range(3):
-            timer.start()
-            timer.stop(fetch)
-        summaries.append(timer.summary(batch_size=8))
-        assert timer.summary().keys() == {"steps", "mean_ms", "p50_ms"}
-    assert summaries[0].keys() == summaries[1].keys() == {"steps", "mean_ms", "p50_ms", "examples_per_sec"}
-    assert summaries[0]["steps"] == summaries[1]["steps"] == 3
-    timer = t_prof.StepTimer()
-    timer.start()
-    assert timer.stop({"loss": torch.zeros(())}) >= 0.0
-    with pytest.raises(RuntimeError, match="before start"):
-        timer.stop()
-
-
-def test_utilization_with_a_fixed_peak(monkeypatch):
-    for module in (t_prof, j_prof):
-        monkeypatch.setattr(module, "device_flops_estimate", lambda **kw: 1e12)
-        assert module.utilization(0.5, 1e11) == pytest.approx(0.2, rel=1e-12)
 
 
 def test_device_flops_estimate_is_measured_and_cached():
@@ -69,6 +44,26 @@ def test_trace_writes_a_chrome_trace_the_table_reads(tmp_path):
     table = t_prof.device_table(prof, wall_us=1e3, repeats=1, host_top=3)
     assert table["busy_share"] is None and table["device_events_per_call"] == 0  # no card here
     assert len(table["host_top"]) == 3
+
+
+def _device_event(name, start, end, annotation=False):
+    return SimpleNamespace(name=name, device_type=torch.autograd.DeviceType.CUDA, is_user_annotation=annotation,
+                           time_range=SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start))
+
+
+def test_device_table_busy_is_the_union_of_the_cards_intervals():
+    """Two kernels overlapping on two streams count once, a range an
+    annotation puts on the card not at all, host events not at all."""
+    events = [_device_event("k1", 0.0, 100.0), _device_event("k2", 50.0, 150.0), _device_event("k3", 300.0, 350.0),
+              _device_event("window", 0.0, 1000.0, annotation=True),
+              SimpleNamespace(name="aten::mm", device_type=torch.autograd.DeviceType.CPU, is_user_annotation=False,
+                              time_range=SimpleNamespace(start=0.0, end=1000.0, elapsed_us=lambda: 1000.0))]
+    prof = SimpleNamespace(events=lambda: events, key_averages=lambda: [])
+    table = t_prof.device_table(prof, wall_us=1000.0, repeats=2)
+    assert table["busy_share"] == pytest.approx(0.2)  # 200 us of the 1000, not the 250 the durations sum to
+    assert table["device_ms_per_call"] == pytest.approx(0.1)
+    assert table["device_events_per_call"] == 1.5
+    assert table["top_ms"] == pytest.approx({"k1": 0.05, "k2": 0.05, "k3": 0.025})
 
 
 def _script_constants() -> dict:
