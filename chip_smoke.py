@@ -14,7 +14,13 @@ NVIDIA card.
    kernel's bound: the row gather (K4) at config 3's shape, on a bf16 table,
    a ragged batch and int64 rows past 2^31, and its zero form on a mesh
    rank's block with the block's edge ids planted (one CUDA kernel per
-   masked gather, counted by the profiler); the table gradient (K2) and its [D, R] form (K3,
+   masked gather, counted by the profiler); the index scan's top-k
+   (``ops/chunk_topk``, which replaces no TPU kernel) bit-equal to its plain
+   version on drawn shapes, then over the serving cells' 39 [256, 262,144]
+   chunks at k 100 and 400 on random, ascending and tied scores, timed a
+   chunk beside torch.topk and the merge, with its device tally, and in
+   ``_scanned_topk`` with no torch top-k kernel on the profiler's trace;
+   the table gradient (K2) and its [D, R] form (K3,
    equal to K2's output transposed) at the training path's two shapes, on a
    skewed batch and at R=65,536 (K2 also at each cluster size), with a
    ragged batch for agreement and a cluster launch the card refuses, which
@@ -24,8 +30,8 @@ NVIDIA card.
    (K8); all of K5-K11 again at D=256 and 512 (the backward also at
    D=1024, its chunked branch past the wgmma one, for agreement only), and
    K8's diagonal against the sweep's S_ii bit for bit at D=128, 256 and 512;
-   the backward's, the lean forward's, the statistics', the lookup's and
-   the row gather's builds must not spill, nor the wgmma ones serialize (their ptxas reports
+   the backward's, the lean forward's, the statistics', the lookup's, the
+   row gather's and the top-k's builds must not spill, nor the wgmma ones serialize (their ptxas reports
    are printed); at
    B=65536 the statistics forward against the lean forward, and the
    label-smoothed loss and its gradients finite.
@@ -182,8 +188,9 @@ NVIDIA card.
    ranks at B=4096; the mesh of one's launches exact).
 20. The one-device studies: ``onehot_rowsharded_study`` (K1 at three
    shapes), ``embgrad_microbench`` (K2 against K3, K3's first path),
-   ``topk_microbench`` and ``scatter_microbench`` (plain PyTorch); each
-   kernel launched exactly as the scripts' timings ask.
+   ``topk_microbench`` (with the scan's top-k kernel) and
+   ``scatter_microbench`` (plain PyTorch); each kernel launched exactly as
+   the scripts' timings ask.
 21. ``python -m jodalrob_twotower_torch.reference_scale_demo`` at its
    defaults (BASELINE config 2's migration at B=256) on a metadata
    directory written here in the reference's format: the reference's
@@ -256,6 +263,7 @@ from jodalrob_twotower_torch.evaluation.evaluator import (
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.models.embedding import table_layout, tile_feature_map
 from jodalrob_twotower_torch.ops import _build
+from jodalrob_twotower_torch.ops import chunk_topk as ct
 from jodalrob_twotower_torch.ops import embedding_grad as eg
 from jodalrob_twotower_torch.ops import fused_logits as fl
 from jodalrob_twotower_torch.ops.embedding_grad import (
@@ -292,7 +300,8 @@ from jodalrob_twotower_torch.parallel.sharded_embedding import local_rows, maske
 from jodalrob_twotower_torch.parallel.sharded_sparse import make_sharded_sampled_sparse, make_sharded_sparse_train
 from jodalrob_twotower_torch.parallel.sharded_store import resolve_store_placement
 from jodalrob_twotower_torch.parallel.sharded_train import make_sharded_indexed_train
-from jodalrob_twotower_torch.serving.index import BruteForceIndex, Int8Index, ShardedIndex, recall_vs_exact
+from jodalrob_twotower_torch.serving.index import (BruteForceIndex, Int8Index, ShardedIndex, _merge_topk,
+                                                   _scanned_topk, recall_vs_exact)
 from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
 from jodalrob_twotower_torch.train.metrics import diagonal_ranks, in_batch_metrics, random_baselines
 from jodalrob_twotower_torch.train import sparse_tables
@@ -323,7 +332,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at the 700 W limit
 # Programming Guide, arithmetic throughput, compute capability 9.0), 132 SMs
 # at the 1.98 GHz boost clock (H100 SXM data sheet)
 H100_EXP_PER_S = 132 * 16 * 1.98e9
-KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd", "fused_stats", "row_gather"]  # csrc/<name>.cu
+KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd", "fused_stats", "row_gather",
+                  "chunk_topk"]  # csrc/<name>.cu
 TIMED_RUNS = 100
 LARGE_TIMED_RUNS = 20  # B >= 16384, where the plain versions take tens of ms
 CE_BATCH, CE_DIM = 8192, 128  # the training path's loss shape
@@ -440,6 +450,14 @@ COMPRESSED_NEGATIVES = ("local", "global")
 COMPRESSED_TIMED_STEPS = 16
 COMPRESSED_LEARN_REL = 0.05  # tests/test_compressed_grads.py's rel: int16 and bf16 final losses against "none"
 COMPRESSED_WIRE_RANKS = (2, 4, 8)  # the wire bytes a rank sends per step, from the buffers, at each mesh size
+# the serving cells' scan (benchmark/traffic/*_b256_k100*.json): 256 notices
+# against 10,000,000 companies in 39 chunks of 262,144 rows, k 100 (exact)
+# and 400 (int8, the rescore depth)
+TOPK_QUERIES, TOPK_ROWS, TOPK_CHUNKS, TOPK_VALID = 256, 262_144, 39, 10_000_000
+TOPK_KS = (100, 400)
+TOPK_TIMED_RUNS = 10  # timed scans of 39 chunks (the plain version's: 3)
+# torch's top-k kernels, by name (benchmark/metrics/topk_share.py's pattern)
+TORCH_TOPK_KERNELS = re.compile(r"at::native::mbtopk::|at::native::sbtopk::|at::native::radixSortKVInPlace<")
 N_COMPANIES = 1_000_000
 N_NOTICES = 20_000
 QUERY_BATCH = 1024
@@ -1134,6 +1152,193 @@ def row_gather_phase(flush: torch.Tensor | None) -> list[dict]:
     return results
 
 
+def topk_blocks(order: str, seed: int = SEED) -> list[torch.Tensor]:
+    """The serving cells' 39 [256, 262,144] float32 score blocks in one of
+    three orders: ``random``, products of unit vectors (D = 128) drawn on
+    the card from ``seed``; ``ascending``, every score its row's number, so
+    every chunk beats the running threshold and every slice runs the
+    select; ``tied``, every score 0.5, so ties decide every place."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    queries = torch.nn.functional.normalize(
+        torch.randn(TOPK_QUERIES, CE_DIM, generator=gen, device="cuda"), dim=1)
+    blocks = []
+    for ci in range(TOPK_CHUNKS):
+        if order == "random":
+            rows = torch.randn(TOPK_ROWS, CE_DIM, generator=gen, device="cuda")
+            blocks.append(queries @ torch.nn.functional.normalize(rows, dim=1).T)
+        elif order == "ascending":
+            row = torch.arange(ci * TOPK_ROWS, (ci + 1) * TOPK_ROWS, device="cuda").float()
+            blocks.append(row.expand(TOPK_QUERIES, -1).contiguous())
+        else:
+            blocks.append(torch.full((TOPK_QUERIES, TOPK_ROWS), 0.5, device="cuda"))
+    return blocks
+
+
+def topk_scan(blocks: list[torch.Tensor], k: int, how: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The running top-k over ``blocks`` (chunk ci is rows ci x 262,144 on,
+    valid below 10,000,000): ``kernel`` through ``ct.chunk_topk``,
+    ``plain`` through its plain version, ``library`` as the scan was before
+    the kernel (``torch.topk`` of each block, the last masked, and
+    ``_merge_topk``)."""
+    best_s = torch.full((TOPK_QUERIES, k), ct.NEG, device="cuda")
+    best_i = torch.zeros((TOPK_QUERIES, k), dtype=torch.int64, device="cuda")
+    work = ct.workspace(TOPK_QUERIES, k, TOPK_ROWS, best_s.device)
+    cols = torch.arange(TOPK_ROWS, device="cuda")
+    for ci, block in enumerate(blocks):
+        row0 = ci * TOPK_ROWS
+        if how == "kernel":
+            best_s, best_i = ct.chunk_topk(best_s, best_i, block, row0, TOPK_VALID, work)
+        elif how == "plain":
+            best_s, best_i = ct.chunk_topk_plain(best_s, best_i, block, row0, TOPK_VALID)
+        else:
+            if row0 + TOPK_ROWS > TOPK_VALID:
+                block = torch.where(row0 + cols[None, :] < TOPK_VALID, block, ct.NEG)
+            s, i = torch.topk(block, k, dim=1)
+            best_s, best_i = _merge_topk(best_s, best_i, s, i + row0, k)
+    return best_s, best_i
+
+
+def topk_index_check(k: int) -> dict:
+    """``_scanned_topk`` on the card over a chunked exact index of 2,000,000
+    rows (8 chunks of 262,144, the last part padding), profiled: no kernel
+    of torch's top-k runs, the kernel's two launches a chunk do, and the
+    wrapper counts them; then the unchunked block (the flat indexes and a
+    ShardedIndex rank's form: 8 steps of 262,144 columns) and an odd width
+    (1,001 columns, scalar loads), each equal to the plain version."""
+    from torch.profiler import profile
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    q = torch.nn.functional.normalize(torch.randn(TOPK_QUERIES, CE_DIM, generator=gen, device="cuda"), dim=1)
+    n = 2_000_000
+    index = BruteForceIndex(torch.nn.functional.normalize(torch.randn(n, CE_DIM, generator=gen, device="cuda"), dim=1),
+                            corpus_chunk=TOPK_ROWS, device="cuda")
+    corpus = index.corpus
+    nc = corpus.shape[0]
+
+    def scan():
+        return _scanned_topk(lambda qs, ci: qs @ corpus[ci].T, nc, TOPK_ROWS, n, q, k)
+
+    scan()
+    torch.cuda.synchronize()
+    before = ct.chunk_topk.launches
+    with profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = scan()
+        torch.cuda.synchronize()
+    launches = ct.chunk_topk.launches - before
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    library = sorted({x for x in names if TORCH_TOPK_KERNELS.search(x)})
+    ours = sum("slice_select_kernel" in x or "merge_kernel" in x for x in names)
+    check(not library, f"the chunked scan ran torch's top-k kernels: {library}")
+    check(ours == launches == 2 * nc, f"the chunked scan: {ours} kernel events, {launches} counted, {2 * nc} expected")
+    flat = corpus.reshape(-1, CE_DIM)
+    want = ct.chunk_topk_plain(torch.full((TOPK_QUERIES, k), ct.NEG, device="cuda"),
+                               torch.zeros((TOPK_QUERIES, k), dtype=torch.int64, device="cuda"), q @ flat.T, 0, n)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "chunked _scanned_topk != one plain step over the whole corpus")
+    whole = _scanned_topk(lambda qs, _: qs @ flat.T, None, flat.shape[0], n, q, k)
+    check(torch.equal(whole[0], want[0]) and torch.equal(whole[1], want[1]),
+          "unchunked _scanned_topk != the plain version")
+    odd = (q @ flat[:1001].T)[:, :1001]
+    got_odd = _scanned_topk(lambda qs, _: odd, None, 1001, 999, q, min(k, 999))
+    want_odd = ct.chunk_topk_plain(torch.full((TOPK_QUERIES, min(k, 999)), ct.NEG, device="cuda"),
+                                   torch.zeros((TOPK_QUERIES, min(k, 999)), dtype=torch.int64, device="cuda"),
+                                   odd, 0, 999)
+    check(torch.equal(got_odd[0], want_odd[0]) and torch.equal(got_odd[1], want_odd[1]),
+          "_scanned_topk over 1,001 columns (999 valid) != the plain version")
+    return {"k": k, "chunks": nc, "kernel_events": ours, "launches": launches, "torch_topk_kernels": library}
+
+
+def topk_fuzz_check(cases: int = 48, seed: int = SEED + 22) -> dict:
+    """Chains of three steps at drawn shapes: queries 1-300, widths 1 to
+    600,000 (past a step's 262,144, and not a multiple of 4), k 1-1024 (at,
+    below and above a slice's 8,192 columns' worth of passing scores), valid
+    counts cutting any step, a row stride wider than the block, and scores
+    drawn from a normal, from a few integers (ties everywhere) or sorted;
+    the kernel bit-equal to the plain version at every step."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for case in range(cases):
+        q, c = int(rng.integers(1, 301)), int(rng.choice([1, 7, 1001, 8192, 8193, 70_000, 262_144, 600_001]))
+        k = int(rng.choice([1, 5, 100, 400, 1000, 1024]))
+        n_valid = int(rng.integers(0, 3 * c + 1))
+        kind = ["normal", "integers", "sorted"][case % 3]
+        s_k = torch.full((q, k), ct.NEG, device="cuda")
+        i_k = torch.zeros((q, k), dtype=torch.int64, device="cuda")
+        s_p, i_p = s_k.clone(), i_k.clone()
+        for step in range(3):
+            if kind == "normal":
+                block = torch.randn(q, c + 3, generator=gen, device="cuda")[:, :c]  # row stride c + 3
+            elif kind == "integers":
+                block = torch.randint(-2, 3, (q, c + 3), generator=gen, device="cuda").float()[:, :c]
+            else:
+                block = torch.arange(step * c, (step + 1) * c, dtype=torch.float32, device="cuda").expand(q, -1)
+                block = block * (1 - 2 * (q % 2))
+            s_k, i_k = ct.chunk_topk(s_k, i_k, block, step * c, n_valid)
+            s_p, i_p = ct.chunk_topk_plain(s_p, i_p, block, step * c, n_valid)
+            check(torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)) and torch.equal(i_k, i_p),
+                  f"chunk_topk != plain: case {case} ({kind}, q={q}, c={c}, k={k}, n_valid={n_valid}), step {step}")
+    return {"cases": cases, "steps": 3 * cases}
+
+
+def chunk_topk_phase(flush: torch.Tensor | None) -> list[dict]:
+    """The index scan's top-k kernel at the serving cells' shape, k 100 and
+    400, on random, ascending and tied scores: the 39-chunk scan bit-equal
+    to the plain version (scores and rows), its scores equal to torch.topk's
+    and ``_merge_topk``'s, and each order's device tally; with ``flush``,
+    the ms a chunk (the whole scan over 39, the first chunk, a later chunk)
+    beside the bound (the block's bytes read once), the plain version's and
+    the library's. Then :func:`topk_index_check` at each k."""
+    rows = [{"case": "fuzz", **topk_fuzz_check()}]
+    print("kernel chunk_topk", json.dumps(rows[0]), flush=True)
+    per_chunk = bound(0, TOPK_QUERIES * TOPK_ROWS * 4)
+    for order in ("random", "ascending", "tied"):
+        blocks = topk_blocks(order)
+        for k in TOPK_KS:
+            ct.reset_tally()
+            got = topk_scan(blocks, k, "kernel")
+            tally = ct.tally()
+            want = topk_scan(blocks, k, "plain")
+            lib = topk_scan(blocks, k, "library")
+            torch.cuda.synchronize()
+            equal = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) and torch.equal(got[1], want[1])
+            check(equal, f"chunk_topk != plain version, {order} k={k}")
+            check(torch.equal(got[0], lib[0]), f"chunk_topk's scores != torch.topk's, {order} k={k}")
+            if order == "ascending":
+                top = torch.arange(TOPK_VALID - 1, TOPK_VALID - 1 - k, -1, device="cuda")
+                check(torch.equal(got[1], top.expand(TOPK_QUERIES, -1)), f"ascending k={k}: not the last k rows")
+            if order == "tied":
+                check(torch.equal(got[1], torch.arange(k, device="cuda").expand(TOPK_QUERIES, -1)),
+                      f"tied k={k}: not the first k rows")
+            row = {"case": f"{order} [{TOPK_QUERIES}, {TOPK_ROWS}] x {TOPK_CHUNKS} chunks, {TOPK_VALID} valid, k={k}",
+                   "equal": equal, "max_abs_err": 0.0, "rows_unlike_library": int((got[1] != lib[1]).sum()),
+                   "tally": {**tally, "no_select_share": 1 - tally["selected"] / tally["slices"]}, **per_chunk}
+            if flush is not None and order != "tied":
+                row["ms"] = median_ms(lambda: topk_scan(blocks, k, "kernel"), flush, TOPK_TIMED_RUNS) / TOPK_CHUNKS
+                row["plain_ms"] = median_ms(lambda: topk_scan(blocks, k, "plain"), flush, 3) / TOPK_CHUNKS
+                row["library_ms"] = median_ms(lambda: topk_scan(blocks, k, "library"), flush,
+                                              TOPK_TIMED_RUNS) / TOPK_CHUNKS
+                fresh_s = torch.full((TOPK_QUERIES, k), ct.NEG, device="cuda")
+                fresh_i = torch.zeros((TOPK_QUERIES, k), dtype=torch.int64, device="cuda")
+                late_s, late_i = topk_scan(blocks[:-2], k, "kernel")
+                state_s, state_i = fresh_s.clone(), fresh_i.clone()
+                work = ct.workspace(TOPK_QUERIES, k, TOPK_ROWS, state_s.device)
+                # each call restores the running top-k first (two copies of [256, k])
+                row["first_chunk_ms"] = median_ms(
+                    lambda: ct.chunk_topk(state_s.copy_(fresh_s), state_i.copy_(fresh_i), blocks[0], 0, TOPK_VALID,
+                                          work), flush)
+                row["later_chunk_ms"] = median_ms(
+                    lambda: ct.chunk_topk(state_s.copy_(late_s), state_i.copy_(late_i), blocks[-2],
+                                          (TOPK_CHUNKS - 2) * TOPK_ROWS, TOPK_VALID, work), flush)
+            print("kernel chunk_topk", json.dumps(row), flush=True)
+            rows.append(row)
+        del blocks
+        torch.cuda.empty_cache()
+    for k in TOPK_KS:
+        rows.append({"case": f"index scan k={k}", **topk_index_check(k)})
+        print("kernel chunk_topk", json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def kernel_phase(flush: torch.Tensor) -> dict:
     table_grad, table_grad_bmajor = table_grad_phase(flush)
     out = {
@@ -1141,6 +1346,7 @@ def kernel_phase(flush: torch.Tensor) -> dict:
         "table_grad": table_grad,
         "table_grad_bmajor": table_grad_bmajor,
         "row_gather": row_gather_phase(flush),
+        "chunk_topk": chunk_topk_phase(flush),
         **ce_phase(flush),
         **stats_phase(flush),
         "largest_batch": largest_batch_check(),
@@ -1295,6 +1501,7 @@ def serving_phase() -> dict:
     launches = read_counters()
     print("serving main path launches", json.dumps(launches), flush=True)
     check(launches["dense_table_lookup"] > 0, "kernel dense_table_lookup was not launched on the serving path")
+    check(launches["chunk_topk"] > 0, "the scan's top-k kernel was not launched on the serving path")
 
     # -- checks ----------------------------------------------------------------
     gather_model = build_model(
@@ -1663,6 +1870,17 @@ def _jsonl_hits(path: Path) -> list[tuple[str, list[str]]]:
             for row in map(json.loads, path.read_text().splitlines())]
 
 
+def auto_config_pick(stderr: str) -> tuple[str, dict[str, float], str]:
+    """The serve CLI's ``--target-recall`` pick from its auto-config line:
+    (the pick's note, each measured candidate's recall and "exact", the
+    equivalent flags)."""
+    (auto_line,) = [x for x in stderr.splitlines() if x.startswith("auto-config")]
+    m = re.search(r": (.*) — measured recall@\d+ (.*); equivalent to (.*)$", auto_line)
+    check(m is not None, f"serve CLI: no pick in {auto_line!r}")
+    measured = dict(item.rsplit(": ", 1) for item in m.group(2).split(", "))
+    return m.group(1), {k: float(v) for k, v in measured.items()}, m.group(3)
+
+
 def serve_cli_phase(model_dir: Path) -> tuple[dict, dict]:
     """``python -m jodalrob_twotower_torch.serve`` in-process on the
     headline's trained weights (``TrainConfig()`` at full width) over the
@@ -1674,24 +1892,29 @@ def serve_cli_phase(model_dir: Path) -> tuple[dict, dict]:
     (``serve_cli_answers``); ``--target-recall``
     CALIBRATION_TARGET, whose pick's measured recall must meet it; and
     ``--qps-bench``. Each run's K1 launches must equal its corpus encode
-    chunks plus its query batches exactly, and no other kernel may launch."""
+    chunks plus its query batches exactly, the scan's top-k kernel two a
+    searched block of 1,024 queries (the corpus is one step wide), and no
+    other kernel may launch."""
     tmp = model_dir.parent / "serve"
     tmp.mkdir()
     base = ["--model-dir", model_dir, "--synthetic", "--synthetic-scale", "bench", "--k", TOP_K]
     answer = ["--queries", SERVE_QUERIES]
     corpus_chunks = math.ceil(bench.N_COMPANIES / 8192)  # Evaluator.encode_corpus's chunk
     query_batches = math.ceil(SERVE_QUERIES / serve.QUERY_BATCH)
-    runs = {  # name: (argv, expected K1 launches)
+    topk_per_block = 2 * math.ceil(bench.N_COMPANIES / ct.WINDOW)  # the top-k kernel's launches a query block
+    runs = {  # name: (argv, expected K1 launches, query blocks searched; None: the calibration's, read after)
         "int8": (base + answer + ["--output", tmp / "int8.jsonl", "--save-index", tmp / "int8.npz"],
-                 corpus_chunks + query_batches),
-        "loaded": (base + answer + ["--output", tmp / "loaded.jsonl", "--load-index", tmp / "int8.npz"], query_batches),
-        "exact": (base + answer + ["--index", "exact", "--output", tmp / "exact.jsonl"], corpus_chunks + query_batches),
+                 corpus_chunks + query_batches, query_batches),
+        "loaded": (base + answer + ["--output", tmp / "loaded.jsonl", "--load-index", tmp / "int8.npz"], query_batches,
+                   query_batches),
+        "exact": (base + answer + ["--index", "exact", "--output", tmp / "exact.jsonl"], corpus_chunks + query_batches,
+                  query_batches),
         "target_recall": (base + answer + ["--target-recall", CALIBRATION_TARGET, "--output", tmp / "auto.jsonl"],
-                          corpus_chunks + math.ceil(CALIBRATION_QUERIES / 8192) + query_batches),
-        "qps_bench": (base + ["--qps-bench"], corpus_chunks + SERVE_QPS_BATCHES),
+                          corpus_chunks + math.ceil(CALIBRATION_QUERIES / 8192) + query_batches, None),
+        "qps_bench": (base + ["--qps-bench"], corpus_chunks + SERVE_QPS_BATCHES, SERVE_QPS_BATCHES),
     }
     row, launches, streams = {}, {}, {}
-    for name, (argv, k1) in runs.items():
+    for name, (argv, k1, blocks) in runs.items():
         # -- the main path: counters from 0, read right after ------------------
         reset_counters()
         torch.cuda.synchronize()
@@ -1701,7 +1924,11 @@ def serve_cli_phase(model_dir: Path) -> tuple[dict, dict]:
         row[f"{name}_wall_s"] = time.perf_counter() - t0
         launches[f"serve_cli_{name}"] = got = read_counters()
         print(f"serve_cli_{name} main path launches", json.dumps(got), flush=True)
-        want = {c: 0 for c in got} | {"dense_table_lookup": k1}
+        if blocks is None:  # each index the calibration searched with its sample, then the answers
+            searches = len(auto_config_pick(streams[name][1])[1]) - 1  # the candidates measured
+            searches += "moved to the host" not in streams[name][1]  # the exact reference, unless streamed
+            blocks = searches * math.ceil(CALIBRATION_QUERIES / serve.QUERY_BATCH) + query_batches
+        want = {c: 0 for c in got} | {"dense_table_lookup": k1, "chunk_topk": topk_per_block * blocks}
         check(got == want, f"serve CLI {name}: launches {got}, expected {want}")
     check((tmp / "int8.jsonl").read_text() == (tmp / "loaded.jsonl").read_text(),
           "serve CLI: the loaded index's JSONL differs from the built index's")
@@ -1709,11 +1936,8 @@ def serve_cli_phase(model_dir: Path) -> tuple[dict, dict]:
     check(len(int8) == len(exact) == SERVE_QUERIES and all(a[0] == b[0] for a, b in zip(int8, exact)),
           "serve CLI: the int8 and exact runs answered different notices")
     row.update(serve_cli_answers(model_dir, int8, exact))
-    (auto_line,) = [x for x in streams["target_recall"][1].splitlines() if x.startswith("auto-config")]
-    m = re.search(r": (.*) — measured recall@\d+ (.*); equivalent to (.*)$", auto_line)
-    check(m is not None, f"serve CLI: no pick in {auto_line!r}")
-    note, measured = m.group(1), dict(item.rsplit(": ", 1) for item in m.group(2).split(", "))
-    row["target_recall_pick"], row["target_recall_measured"] = m.group(3), {k: float(v) for k, v in measured.items()}
+    note, measured, row["target_recall_pick"] = auto_config_pick(streams["target_recall"][1])
+    row["target_recall_measured"] = measured
     check(note == "exact brute-force f32 scan" or float(measured[note]) >= CALIBRATION_TARGET,
           f"serve CLI: --target-recall {CALIBRATION_TARGET} picked {note} at recall {measured.get(note)}")
     qps = json.loads([x for x in streams["qps_bench"][0].splitlines() if x.startswith('{"bench"')][-1])
@@ -2333,10 +2557,12 @@ def quickstart_launches() -> dict[str, int]:
     """The full quickstart's launches: its float32 towers demote the lookup
     to the gather (``resolve_lookup_mode``), whose backward is K2 on the
     card, twice per step; D = 32 lies outside the CE kernels' envelope, so
-    the loss, the validation and the corpus eval are materialized."""
+    the loss, the validation and the corpus eval are materialized; its one
+    search (three notices over its companies, one step wide) is the scan's
+    top-k kernel's two launches."""
     size = quickstart.sizes(fast=False)
     steps = size["epochs"] * ((size["rows"] - size["val"]) // quickstart.BATCH_SIZE)
-    return {name: 0 for name in read_counters()} | {"dense_table_grad": 2 * steps}
+    return {name: 0 for name in read_counters()} | {"dense_table_grad": 2 * steps, "chunk_topk": 2}
 
 
 def etl_serve_check(svc: RetrievalService, queries: list, hits: list, corpus: torch.Tensor) -> dict:
@@ -2501,7 +2727,8 @@ def etl_phase() -> tuple[dict, dict]:
         serve_s = time.perf_counter() - t0
         serve_launches = read_counters()
         print("etl_serve main path launches", json.dumps(serve_launches), flush=True)
-        want = {c: 0 for c in serve_launches} | {"dense_table_lookup": math.ceil(ETL_COMPANIES / 8192) + len(queries)}
+        want = {c: 0 for c in serve_launches} | {"dense_table_lookup": math.ceil(ETL_COMPANIES / 8192) + len(queries),
+                                                 "chunk_topk": 2 * math.ceil(ETL_COMPANIES / ct.WINDOW) * len(queries)}
         check(serve_launches == want, f"etl_serve: launches {serve_launches}, expected {want}")
         corpus = svc._evaluator.encode_corpus(svc.state, c_store.dense, c_store.cat_ids, side="company")
         answers = etl_serve_check(svc, queries, hits, corpus)
@@ -4028,18 +4255,19 @@ def mesh_scripts_phase() -> tuple[dict, dict]:
 def studies_phase() -> tuple[dict, dict]:
     """The one-device studies in-process: ``onehot_rowsharded_study`` (K1 at
     (R, B), (R/8, B), (R, B/8)), ``embgrad_microbench`` (K2 against K3: K3's
-    first driven path), ``topk_microbench`` and ``scatter_microbench``
-    (plain PyTorch; each scatter variant held to its group's first). The
-    counters run from 0 across each script: K1 on the study, K2 and K3
-    on the microbench, exactly as its warm-up, check and timed launches
-    ask; none on the plain ones."""
+    first driven path), ``topk_microbench`` (plain PyTorch but for the
+    scan's top-k kernel) and ``scatter_microbench`` (plain PyTorch; each
+    scatter variant held to its group's first). The counters run from 0
+    across each script: K1 on the study, K2 and K3 on the embgrad
+    microbench, the top-k kernel on the top-k one, exactly as their
+    warm-up, check and timed launches ask; none on the plain ones."""
     out, launches = {}, {}
     for name, module, expect in (
             ("onehot_study", onehot_rowsharded_study,
              {"dense_table_lookup": len(onehot_rowsharded_study.SHAPES) * (onehot_rowsharded_study.RUNS + 2)}),
             ("embgrad", embgrad_microbench, {"dense_table_grad": embgrad_microbench.RUNS + 2,
                                              "dense_table_grad_bmajor": embgrad_microbench.RUNS + 2}),
-            ("topk", topk_microbench, {}),
+            ("topk", topk_microbench, {"chunk_topk": topk_microbench.kernel_launches_per_run()}),
             ("scatter", scatter_microbench, {})):
         t0 = time.perf_counter()
         reset_counters()
@@ -4147,6 +4375,7 @@ def main() -> int:
     stats_build = stats_build_report()
     lookup_build = build_report("onehot_lookup")
     gather_build = build_report("row_gather")
+    topk_build = build_report("chunk_topk")
 
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     kernels = kernel_phase(flush)
@@ -4234,7 +4463,12 @@ def main() -> int:
                       kernels["fused_ce_bwd_blocked"], launches, "fused_ce_bwd", "train_b16384"),
         kernel_record("fused_ce_bwd", "K11", "fused_ce_bwd.cu", "fused_logits.py:819",
                       kernels["fused_ce_bwd"], launches, "fused_ce_bwd", "training"),
-    ], "training": {k: training[k] for k in ("examples_per_sec", "ms_per_step", "mfu", "device_busy_share",
+    ], "chunk_topk": {  # the index scan's top-k: it replaces no TPU kernel
+        "source": "jodalrob_twotower_torch/csrc/chunk_topk.cu", "launches_serving": launches["serving"]["chunk_topk"],
+        "equal": all(r.get("equal", True) for r in kernels["chunk_topk"]),
+        "cases": [{key: r[key] for key in ("case", "ms", "bound_ms", "plain_ms", "library_ms", "first_chunk_ms",
+                                          "later_chunk_ms", "tally") if key in r} for r in kernels["chunk_topk"]]},
+        "training": {k: training[k] for k in ("examples_per_sec", "ms_per_step", "mfu", "device_busy_share",
                                          "device_busy_share_timed")},
         "evaluation": {path: {**{k: evaluation[path][k] for k in ("ms_per_batch", "ms_per_batch_min", "ms_per_batch_max")},
                               "recall@10": evaluation[path]["metrics"]["recall@10"],

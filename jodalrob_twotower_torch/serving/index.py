@@ -11,13 +11,17 @@
 ``corpus_chunk`` stores the corpus as [n_chunks, C, D] and searches chunk by
 chunk with a running top-k, so peak memory is one [Q, C] score block.
 
-The scoring products and top-k stay ``torch.matmul`` and ``torch.topk``, as
-the reference left them to XLA. Products of bf16-rounded values are formed
-in float32: exact, and the same sum as a bf16 product with float32
-accumulation. ``approx_recall`` is the reference's ``jax.lax.approx_max_k``
-recall target: it is checked against the range that function accepts,
-(0, 1], kept and saved, and the selection stays exact, as the reference's
-is everywhere but on a TPU (XLA's CPU and GPU backends lower
+The scoring products stay ``torch.matmul``, as the reference left them to
+XLA. Products of bf16-rounded values are formed in float32: exact, and the
+same sum as a bf16 product with float32 accumulation. The scan's selection
+is the running top-k of ``ops/chunk_topk`` (a CUDA kernel on the card that
+reads each score once, its plain version on the CPU), exact, with ties
+broken toward the lower row as ``jax.lax.top_k`` breaks them; only a k above
+the kernel's cap (``chunk_topk.MAX_K``) takes ``torch.topk`` and a merge.
+``approx_recall`` is the reference's ``jax.lax.approx_max_k`` recall
+target: it is checked against the range that function accepts, (0, 1],
+kept and saved, and the selection stays exact, as the reference's is
+everywhere but on a TPU (XLA's CPU and GPU backends lower
 ``approx_max_k`` to an exact top-k). :class:`ShardedIndex` row-shards the
 corpus over a mesh's ranks (``parallel/mesh.py``). The npz format of ``save_index``/``load_index`` is the
 reference's, so an index saved by either package loads in the other.
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from jodalrob_twotower_torch.device import resolve_device
+from jodalrob_twotower_torch.ops import chunk_topk as ct
 from jodalrob_twotower_torch.utils.profiling import span
 
 
@@ -40,7 +45,7 @@ class SearchResult(NamedTuple):
     indices: np.ndarray  # [Q, k] int32 corpus rows
 
 
-_NEG = float(np.finfo(np.float32).min)
+_NEG = ct.NEG  # the float32 minimum: a padding entry's score
 
 
 class HostCopy:
@@ -128,23 +133,32 @@ def _scanned_topk(chunk_sims_fn, n_chunks: int | None, chunk_rows: int, n_valid:
     """An index's first pass, a span (``serve.scan``): the running top-k
     over corpus chunks; peak memory is one [Q, chunk] block.
 
-    ``chunk_sims_fn(queries, ci) -> [Q, chunk_rows] f32`` scores chunk ci.
-    Padding rows (global row >= n_valid) are masked to the float32 minimum.
-    ``n_chunks`` None is the unchunked corpus: one top-k over
-    ``chunk_sims_fn(queries, None)``, the scores of every row."""
+    ``chunk_sims_fn(queries, ci) -> [Q, chunk_rows] f32`` scores chunk ci,
+    whose column c is row ci * chunk_rows + c. ``n_chunks`` None is the
+    unchunked corpus: one block, ``chunk_sims_fn(queries, None)``. Rows at
+    or past ``n_valid`` never enter; slots no valid row fills hold (the
+    float32 minimum, row 0). Up to ``chunk_topk.MAX_K`` the selection is
+    :func:`ops.chunk_topk.chunk_topk`; past it, ``torch.topk`` of each
+    block merged with ``_merge_topk``."""
     with span("serve.scan"):
-        if n_chunks is None:
-            return torch.topk(chunk_sims_fn(queries, None), k, dim=1)
-        q = queries.shape[0]
-        best_s = torch.full((q, k), _NEG, dtype=torch.float32, device=queries.device)
-        best_i = torch.zeros((q, k), dtype=torch.int64, device=queries.device)
-        cols = torch.arange(chunk_rows, device=queries.device)
-        for ci in range(n_chunks):
+        q, dev = queries.shape[0], queries.device
+        best_s = torch.full((q, k), _NEG, dtype=torch.float32, device=dev)
+        best_i = torch.zeros((q, k), dtype=torch.int64, device=dev)
+        chunks = [None] if n_chunks is None else range(n_chunks)
+        if k <= ct.MAX_K:
+            work = ct.workspace(q, k, chunk_rows, dev)
+            for ci in chunks:
+                best_s, best_i = ct.chunk_topk(best_s, best_i, chunk_sims_fn(queries, ci), (ci or 0) * chunk_rows,
+                                               n_valid, work)
+            return best_s, best_i
+        cols = torch.arange(chunk_rows, device=dev)
+        for ci in chunks:
+            row0 = (ci or 0) * chunk_rows
             sims = chunk_sims_fn(queries, ci)
-            if (ci + 1) * chunk_rows > n_valid:
-                sims = torch.where(ci * chunk_rows + cols[None, :] < n_valid, sims, _NEG)
+            if row0 + chunk_rows > n_valid:
+                sims = torch.where(row0 + cols[None, :] < n_valid, sims, _NEG)
             s, i = torch.topk(sims, k, dim=1)
-            best_s, best_i = _merge_topk(best_s, best_i, s, i + ci * chunk_rows, k)
+            best_s, best_i = _merge_topk(best_s, best_i, s, i + row0, k)
         return best_s, best_i
 
 
@@ -401,15 +415,11 @@ class ShardedIndex:
 
         def shard_sims(qs, _):
             if self.kind == "int8":
-                sims = (qs.to(torch.bfloat16).float() @ self.values.float().T).mul_(self.scales[:, 0][None, :])
-            else:
-                sims = qs.float() @ self.corpus.T
-            if self.row0 + self.shard_rows > self.n_valid:
-                cols = torch.arange(self.shard_rows, device=sims.device)
-                sims = torch.where(self.row0 + cols[None, :] < self.n_valid, sims, _NEG)
-            return sims
+                return (qs.to(torch.bfloat16).float() @ self.values.float().T).mul_(self.scales[:, 0][None, :])
+            return qs.float() @ self.corpus.T
 
-        s, i = _scanned_topk(shard_sims, None, self.shard_rows, self.n_valid, queries, kk)
+        # the rank's rows are local: those at or past n_valid - row0 are padding
+        s, i = _scanned_topk(shard_sims, None, self.shard_rows, self.n_valid - self.row0, queries, kk)
         if self.rescore_depth:
             if self.kind == "exact":  # fixes the selection only
                 s, i = _rescore_topk(queries.float(), s, i, k, self.corpus)
