@@ -224,6 +224,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmark import gen_kanana
 from jodalrob_twotower_torch import bench, profile_step, quickstart, serve, train, train_headline
 from jodalrob_twotower_torch import (
     embgrad_microbench,
@@ -252,7 +253,7 @@ from jodalrob_twotower_torch.config import LossConfig, MeshConfig, ModelConfig, 
 from jodalrob_twotower_torch.data.parquet_stream import streaming_index_batches
 from jodalrob_twotower_torch.data.pipeline import index_stacks, train_batches
 from jodalrob_twotower_torch.data.synthetic import make_synthetic_dataset
-from jodalrob_twotower_torch.data.types import PairBatch, default_tower_gather
+from jodalrob_twotower_torch.data.types import PairBatch, TowerBatch, default_tower_gather
 from jodalrob_twotower_torch.evaluation.evaluator import (
     Evaluator,
     corpus_retrieval_eval,
@@ -262,10 +263,13 @@ from jodalrob_twotower_torch.evaluation.evaluator import (
 )
 from jodalrob_twotower_torch.models import build_model
 from jodalrob_twotower_torch.models.embedding import table_layout, tile_feature_map
+from jodalrob_twotower_torch.models import text_encoder as text_encoder_mod
+from jodalrob_twotower_torch.models.text_encoder import rope_tables
 from jodalrob_twotower_torch.ops import _build
 from jodalrob_twotower_torch.ops import chunk_topk as ct
 from jodalrob_twotower_torch.ops import embedding_grad as eg
 from jodalrob_twotower_torch.ops import fused_logits as fl
+from jodalrob_twotower_torch.ops import moe
 from jodalrob_twotower_torch.ops.embedding_grad import (
     TILE_ROWS,
     dense_table_grad_bmajor_plain,
@@ -284,6 +288,7 @@ from jodalrob_twotower_torch.ops.fused_logits import (
 )
 from jodalrob_twotower_torch.schema import (
     CategoricalSpec,
+    EncodedTextSpec,
     NumericSpec,
     SideSchema,
     TwoTowerSchema,
@@ -333,7 +338,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at the 700 W limit
 # at the 1.98 GHz boost clock (H100 SXM data sheet)
 H100_EXP_PER_S = 132 * 16 * 1.98e9
 KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd", "fused_stats", "row_gather",
-                  "chunk_topk"]  # csrc/<name>.cu
+                  "chunk_topk", "moe_dispatch"]  # csrc/<name>.cu
 TIMED_RUNS = 100
 LARGE_TIMED_RUNS = 20  # B >= 16384, where the plain versions take tens of ms
 CE_BATCH, CE_DIM = 8192, 128  # the training path's loss shape
@@ -2095,8 +2100,9 @@ def hostfed_features_phase(work: bench.Workload) -> tuple[dict, dict]:
                               device="cuda"))
     state, m = step(state, warm)
     m["loss"].cpu()
-    batch_bytes = sum(t.numel() * t.element_size() for side in warm for t in side)
-    pinned = [torch.empty_like(t, device="cpu", pin_memory=True).copy_(t) for side in warm for t in side]
+    batch_bytes = sum(t.numel() * t.element_size() for side in warm for t in side if t is not None)
+    pinned = [torch.empty_like(t, device="cpu", pin_memory=True).copy_(t) for side in warm for t in side
+              if t is not None]
 
     def copy_once():
         for t in pinned:
@@ -4349,6 +4355,190 @@ def kernel_record(name: str, tpu_kernel: str, source: str, replaces: str, rows: 
     return rec
 
 
+TITLE_BATCH = 256  # titles a search, as the benchmark's title cell sends them
+TITLE_CORPUS = 1_000_000
+
+
+def title_schema() -> TwoTowerSchema:
+    """The reference's notice tower with its title encoded by kanana2 at the
+    published widths (max_length 32), the company tower as it is."""
+    base = reference_shaped_schema()
+    notice = dataclasses.replace(base.notice, text=(), encoded_text=(EncodedTextSpec("bidntcenm"),))
+    return TwoTowerSchema(notice=notice, company=base.company)
+
+
+def moe_kernel_checks(gen: torch.Generator, flush: torch.Tensor) -> list[dict]:
+    """The four dispatch kernels against their plain versions at the
+    published widths: a router's choices over the 8,192 slots of 256 titles
+    of 32 positions, of which about two thirds are real tokens; each timed
+    (median of 20, CUDA events)."""
+    t_, h, i, e, k = 8192, 2048, 768, 128, 6
+    valid = torch.rand(t_, generator=gen, device="cuda") < 0.66
+    x = torch.randn(t_, h, generator=gen, device="cuda").bfloat16()
+    s = torch.sigmoid(torch.randn(t_, e, generator=gen, device="cuda"))
+    chosen = torch.topk(s, k, dim=-1).indices
+    w = s.gather(1, chosen)
+    w = (w / w.sum(-1, keepdim=True) * 2.448).reshape(-1).contiguous()
+    ids = torch.where(valid[:, None], chosen, e).int().reshape(-1).contiguous()
+    tally, tally_plain = (torch.zeros(e, 2, dtype=torch.int64, device="cuda") for _ in range(2))
+    sorted_ = moe.sort_pairs(ids, e, tally)
+    plain = moe.sort_pairs_plain(ids, e, tally_plain)
+    check(all(torch.equal(a, b) for a, b in zip(sorted_, plain)) and torch.equal(tally, tally_plain),
+          "moe sort_pairs differs from its plain version")
+    perm, inv, counts, offsets = sorted_
+    real = int(counts[:e].sum())
+    w_gu = (torch.randn(e, 2 * i, h, generator=gen, device="cuda") * h ** -0.5).bfloat16()
+    w_d = (torch.randn(e, h, i, generator=gen, device="cuda") * i ** -0.5).bfloat16()
+    hh, hh_plain = moe.grouped_gate_up(x, w_gu, perm, counts, offsets, k), moe.grouped_gate_up_plain(
+        x, w_gu, perm, counts, offsets, k)
+    y, y_plain = moe.grouped_down(hh_plain, w_d, perm, counts, offsets, w), moe.grouped_down_plain(
+        hh_plain, w_d, perm, counts, offsets, w)
+    shared, resid = (torch.randn(t_, h, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    out, out_plain = moe.combine(y_plain, inv, ids, shared, resid, e), moe.combine_plain(y_plain, inv, ids, shared,
+                                                                                       resid, e)
+
+    def rel(a, b):
+        return float((a[:real].float() - b[:real].float()).norm() / b[:real].float().norm())
+
+    rows = [{"kernel": "moe_sort", "equal": True},
+            {"kernel": "moe_gate_up", "rel_err": rel(hh, hh_plain), "tol": 4e-3},
+            {"kernel": "moe_down", "rel_err": rel(y, y_plain), "tol": 4e-3},
+            {"kernel": "moe_combine", "equal": bool(torch.equal(out, out_plain))}]
+    for r in rows:
+        check(r.get("equal", True) and r.get("rel_err", 0.0) <= r.get("tol", 0.0), f"{r['kernel']} {r}")
+    flops_pair = 6 * h * i
+    calls = {"moe_sort": (lambda: moe.sort_pairs(ids, e, tally), bound(0, real * 12)),
+             "moe_gate_up": (lambda: moe.grouped_gate_up(x, w_gu, perm, counts, offsets, k),
+                             bound(real * flops_pair * 2 / 3, e * 2 * i * h * 2 + real * (h + i) * 2)),
+             "moe_down": (lambda: moe.grouped_down(hh, w_d, perm, counts, offsets, w),
+                          bound(real * flops_pair / 3, e * h * i * 2 + real * (h + i) * 2)),
+             "moe_combine": (lambda: moe.combine(y, inv, ids, shared, resid, e),
+                             bound(0, t_ * (k * 8 + 6 * h) + real * h * 2))}
+    for r in rows:
+        fn, cost = calls[r["kernel"]]
+        r.update(ms=median_ms(fn, flush, runs=20), pairs=real, **cost)
+    return rows
+
+
+@contextlib.contextmanager
+def plain_dispatch():
+    """The encoder's kernels swapped for their plain versions while open."""
+    swaps = [(moe, n, getattr(moe, f"{n}_plain")) for n in ("sort_pairs", "grouped_gate_up", "grouped_down", "combine")]
+    kept = [getattr(mod, n) for mod, n, _ in swaps]
+    try:
+        for mod, n, f in swaps:
+            setattr(mod, n, f)
+        yield
+    finally:
+        for (mod, n, _), f in zip(swaps, kept):
+            setattr(mod, n, f)
+
+
+def encoder_layer_check(encoder, ids: torch.Tensor, lengths: torch.Tensor) -> dict:
+    """Layer 1's MoE block on the titles' own hidden states, the kernels
+    against the plain dispatch on the same input (one routing, so the two
+    differ by bf16 rounding alone): the share of the block's output norm by
+    which they differ."""
+    c = encoder.config
+    b, n = ids.shape
+    eps = c.rms_norm_eps
+    valid = (torch.arange(n, device="cuda")[None, :] < lengths[:, None]).reshape(-1)
+    cos, sin = rope_tables(n, c.qk_rope_head_dim, c.rope_theta, "cuda")
+    l0, l1 = encoder.layers[0], encoder.layers[1]
+    x = el.embedding_lookup_pallas(encoder.embed_tokens.weight, ids.reshape(-1))
+    x = x + encoder._attention(l0.self_attn, text_encoder_mod.rms_norm(x, l0.input_layernorm.weight, eps), b, cos, sin)
+    x = x + text_encoder_mod._swiglu(l0.mlp, text_encoder_mod.rms_norm(x, l0.post_attention_layernorm.weight, eps))
+    x = x + encoder._attention(l1.self_attn, text_encoder_mod.rms_norm(x, l1.input_layernorm.weight, eps), b, cos, sin)
+    h = text_encoder_mod.rms_norm(x, l1.post_attention_layernorm.weight, eps)
+    tally = torch.zeros(c.n_routed_experts, 2, dtype=torch.int64, device="cuda")
+    zero = torch.zeros_like(x)  # the block's own output, not rounded at the residual's scale
+    out = encoder._moe(l1.mlp, h, zero, valid, tally).float()
+    with plain_dispatch():
+        out_plain = encoder._moe(l1.mlp, h, zero, valid, tally).float()
+    row = {"moe_rel": float((out - out_plain).norm() / out_plain.norm()), "tol": 0.01}
+    check(row["moe_rel"] <= row["tol"], f"encoder layers {row}")
+    return row
+
+
+def text_encoder_phase() -> dict:
+    """kanana2 at its published widths (48 layers, 128 experts, bf16, seeded
+    random weights) inside the notice tower: the dispatch kernels against
+    their plain versions, then ``search_device`` over an int8 index of 1M
+    companies with 256-title batches; one attention and one MoE block of the
+    model against the plain dispatch (gated), the pooled titles against it
+    (recorded), launches per search counted, the card's time a search and
+    the peak memory."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    kernels = moe_kernel_checks(gen, flush)
+    print("text_encoder kernels " + json.dumps(kernels), flush=True)
+    cfg = TrainConfig()
+    with torch.device("meta"):
+        model = build_model(title_schema(), cfg)
+    model.to_empty(device="cuda")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".encoder_" not in name:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") / math.sqrt(p.shape[-1]))
+        for name, b in model.named_buffers():
+            b.copy_(torch.rand(b.shape, generator=gen, device="cuda") + 0.5 if name.endswith("var")
+                    else 0.1 * torch.randn(b.shape, generator=gen, device="cuda"))
+    encoder = model.notice_tower.encoder_bidntcenm
+    enc_cfg = dataclasses.asdict(encoder.config)  # the HF keys the benchmark's draw reads
+    with torch.no_grad():
+        enc_params = dict(encoder.named_parameters())
+        for piece in gen_kanana.pieces(enc_cfg):
+            for name, v in gen_kanana.draw(enc_cfg, SEED, piece, "cuda").items():
+                enc_params[name].copy_(v)
+                del v
+    encoder_gb = sum(p.numel() * p.element_size() for p in encoder.parameters()) / 1e9
+    state = FrozenState(dict(model.state_dict()))
+    corpus = torch.nn.functional.normalize(torch.randn(TITLE_CORPUS, 128, generator=gen, device="cuda"), dim=1)
+    svc = RetrievalService(model, cfg, state, None, index_kind="int8", corpus_chunk=262_144, rescore_depth=400,
+                           rescore_dtype="bfloat16", precomputed_corpus_emb=corpus)
+    del corpus
+    ids = torch.randint(0, encoder.config.vocab_size, (TITLE_BATCH, 32), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    lengths = torch.randint(6, 33, (TITLE_BATCH,), generator=gen, device="cuda", dtype=torch.int32)
+    batch = TowerBatch(torch.randn(TITLE_BATCH, 29, generator=gen, device="cuda"),
+                       torch.randint(0, 1000, (TITLE_BATCH, 32), generator=gen, device="cuda", dtype=torch.int32),
+                       ids, lengths)
+    res = svc.search(batch, 100)  # warm: Triton compiles the combine once
+    torch.cuda.synchronize()
+    before_moe, before_k4 = moe.launches(), el.embedding_lookup_pallas.launches
+    svc.search_device(batch, 100)
+    torch.cuda.synchronize()
+    per_search = {k: v - before_moe[k] for k, v in moe.launches().items()}
+    per_search["embedding_lookup_pallas"] = el.embedding_lookup_pallas.launches - before_k4
+    n_moe = encoder.config.n_moe_layers
+    want = {"sort_pairs": 2 * n_moe, "grouped_gate_up": n_moe, "grouped_down": n_moe, "combine": n_moe,
+            "embedding_lookup_pallas": 1}
+    check(per_search == want, f"text encoder launches per search {per_search}, want {want}")
+    check(np.isfinite(res.scores).all() and (np.diff(res.scores, axis=1) <= 0).all(), "title search scores")
+    with torch.inference_mode():
+        layer_check = encoder_layer_check(encoder, ids, lengths)
+        pooled = encoder(ids, lengths)
+        with plain_dispatch():
+            pooled_plain = encoder(ids, lengths)
+    diff = ((pooled - pooled_plain).norm(dim=1) / pooled_plain.norm(dim=1)).cpu()
+    search_ms = median_ms(lambda: svc.search_device(batch, 100), flush, runs=10)
+    encode_ms = median_ms(lambda: encoder(ids, lengths), flush, runs=10)
+    out = {"encoder_gb": encoder_gb, "kernels": kernels, "launches_per_search": per_search,
+           "layer_check": layer_check,
+           # recorded, not gated: after 48 layers a bf16 rounding and a routing near-tie
+           # apart move a title's vector by a share its weights set (PERF.md section 2)
+           "pooled_vs_plain_rel": {"median": float(diff.median()), "max": float(diff.max())},
+           "search_ms": search_ms, "encode_ms": encode_ms, "queries_per_s": TITLE_BATCH / search_ms * 1e3,
+           "tokens": int(lengths.sum()), "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "phase_s": time.perf_counter() - t0}
+    del svc, state, model, encoder, flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -4376,6 +4566,7 @@ def main() -> int:
     lookup_build = build_report("onehot_lookup")
     gather_build = build_report("row_gather")
     topk_build = build_report("chunk_topk")
+    build_report("moe_dispatch")
 
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     kernels = kernel_phase(flush)
@@ -4435,6 +4626,8 @@ def main() -> int:
                       ("reference_scale", reference_scale)):
         print(f"{name} " + json.dumps({**row, "card": card}), flush=True)
     print("new phases s " + json.dumps(phase_s), flush=True)
+    text_encoder = text_encoder_phase()
+    print("text_encoder " + json.dumps({**text_encoder, "card": card}), flush=True)
 
     launches = {"serving": serving["launches"], "training": training["launches"], **eval_launches, **extra_launches,
                 **headline_counts, **serve_launches, **resume_launches, **profile_launches, **hostfed_launches_by_path,
@@ -4564,6 +4757,8 @@ def main() -> int:
                                                             "auc", "corpus_recall", "corpus_mrr", "examples_per_sec",
                                                             "wall_s")},
         "new_phases_s": phase_s,
+        "text_encoder": {k: text_encoder[k] for k in ("launches_per_search", "pooled_vs_plain_rel", "search_ms",
+                                                      "encode_ms", "peak_memory_gb")},
         "card": card}
     by_kernel = {rec["tpu_kernel"]: rec for rec in record["kernels"]}
     by_kernel["K6"]["also_replaces"] = "jodalrob_twotower_tpu/ops/fused_logits.py:241"

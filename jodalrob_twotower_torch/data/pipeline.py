@@ -165,7 +165,7 @@ def _tree_map(fn: Callable[[torch.Tensor], torch.Tensor], x):
 
 
 def _leaves(x) -> list[torch.Tensor]:
-    return [t for side in x for t in side] if isinstance(x, PairBatch) else [x]
+    return [t for side in x for t in side if t is not None] if isinstance(x, PairBatch) else [x]
 
 
 class _Uploader:

@@ -18,17 +18,23 @@ class TowerBatch(NamedTuple):
 
     dense: float32 [B, dense_dim] - numeric features ++ text embeddings.
     cat_ids: int32 [B, K] - one label-encoded id per categorical feature.
+    text_ids: int32 [B, max_length] - the token ids of the side's encoded
+        text column (``SideSchema.encoded_text``), right-padded; None for a
+        side without one.
+    text_lengths: int32 [B] - each text's token count (at most max_length).
     """
 
     dense: torch.Tensor | np.ndarray
     cat_ids: torch.Tensor | np.ndarray
+    text_ids: torch.Tensor | np.ndarray | None = None
+    text_lengths: torch.Tensor | np.ndarray | None = None
 
     @property
     def batch_size(self) -> int:
         return self.dense.shape[0]
 
     def to(self, device: torch.device) -> "TowerBatch":
-        """Both fields as tensors on ``device``. Host data bound for the card
+        """Every field as tensors on ``device``. Host data bound for the card
         goes through pinned memory with a ``non_blocking`` copy, so the host
         does not wait for the work already queued on the card."""
         device = torch.device(device)
@@ -39,7 +45,8 @@ class TowerBatch(NamedTuple):
                 return (t if t.is_pinned() else t.pin_memory()).to(device, non_blocking=True)
             return t.to(device)
 
-        return TowerBatch(move(self.dense), move(self.cat_ids))
+        text = () if self.text_ids is None else (move(self.text_ids), move(self.text_lengths))
+        return TowerBatch(move(self.dense), move(self.cat_ids), *text)
 
 
 class PairBatch(NamedTuple):

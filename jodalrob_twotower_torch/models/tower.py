@@ -28,8 +28,10 @@ from torch import nn
 from jodalrob_twotower_torch.config import ModelConfig
 from jodalrob_twotower_torch.data.types import TowerBatch
 from jodalrob_twotower_torch.models.embedding import EmbeddingCollection, resolve_lookup_mode
+from jodalrob_twotower_torch.models.text_encoder import build_text_encoder
 from jodalrob_twotower_torch.parallel.mesh import all_reduce_sum
 from jodalrob_twotower_torch.schema import SideSchema
+from jodalrob_twotower_torch.utils.profiling import span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -126,7 +128,8 @@ class Tower(nn.Module):
         self.mesh = None if per_rank else multi
         self.compute_dtype = _DTYPES[config.compute_dtype]
         proj = config.dense_projection_dim
-        self.blocks: list[tuple[str, int, int]] = []  # (layer name, start, width) in dense
+        # (layer name, start in dense or None for an encoded column, width)
+        self.blocks: list[tuple[str, int | None, int]] = []
         off = 0
         if schema.num_numeric:
             self.blocks.append(("proj_numeric", 0, schema.num_numeric))
@@ -134,6 +137,10 @@ class Tower(nn.Module):
         for t in schema.text:
             self.blocks.append((f"proj_{t.name}", off, t.embed_dim))
             off += t.embed_dim
+        for t in schema.encoded_text:
+            # the frozen encoder of the column, its weights in the compute dtype
+            self.blocks.append((f"proj_{t.name}", None, t.embed_dim))
+            self.add_module(f"encoder_{t.name}", build_text_encoder(t, self.compute_dtype))
         for name, _, width in self.blocks:
             self.add_module(name, nn.Linear(width, proj))
         if self.blocks:
@@ -177,6 +184,11 @@ class Tower(nn.Module):
         (train/sparse_tables.py)."""
         cfg = self.config
         train = self.training if train is None else train
+        if train and self.schema.encoded_text:
+            raise ValueError(
+                f"tower {self.schema.table!r}: its text encoder is frozen and runs in inference form only; "
+                "train on the vectors it produces, stored as a text column"
+            )
         if train and cfg.dropout_rate > 0 and generator is None:
             raise ValueError(
                 f"training form with dropout_rate={cfg.dropout_rate} needs a torch.Generator "
@@ -186,7 +198,8 @@ class Tower(nn.Module):
         parts = []
         if self.blocks:
             projected = [
-                F.relu(_dense(getattr(self, name), dense[:, start : start + width]))
+                F.relu(_dense(getattr(self, name),
+                              self._encoded(batch) if start is None else dense[:, start : start + width]))
                 for name, start, width in self.blocks
             ]
             parts.append(_dense(self.dense_projection, torch.cat(projected, dim=1)))
@@ -202,3 +215,14 @@ class Tower(nn.Module):
                 x = dropout(x, cfg.dropout_rate, generator, self.mesh)
         x = _dense(self.head, x).float()
         return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
+
+    def _encoded(self, batch: TowerBatch) -> torch.Tensor:
+        """The encoded text column's pooled vector [B, embed_dim] in the
+        compute dtype, from the batch's token ids and lengths."""
+        (t,) = self.schema.encoded_text
+        if batch.text_ids is None or batch.text_lengths is None:
+            raise ValueError(f"tower {self.schema.table!r} encodes {t.name!r}: the batch needs text_ids and text_lengths")
+        if batch.text_ids.shape[1] > t.max_length:
+            raise ValueError(f"{t.name!r}: {batch.text_ids.shape[1]} tokens a text, max_length {t.max_length}")
+        with span("serve.text"):
+            return getattr(self, f"encoder_{t.name}")(batch.text_ids, batch.text_lengths).to(self.compute_dtype)

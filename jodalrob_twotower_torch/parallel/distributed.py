@@ -106,7 +106,9 @@ def host_local_batch_to_global(mesh, host_arrays):
     reference assembles one global array from every host's rows
     (``make_array_from_process_local_data``); a port rank's rows already
     are its block of the batch, so they are put on its device as they
-    are."""
+    are. An absent field (a TowerBatch without text ids) stays None."""
+    if host_arrays is None:
+        return None
     if isinstance(host_arrays, dict):
         return {k: host_local_batch_to_global(mesh, v) for k, v in host_arrays.items()}
     if isinstance(host_arrays, tuple) and hasattr(host_arrays, "_fields"):  # PairBatch, TowerBatch

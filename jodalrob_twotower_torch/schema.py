@@ -64,6 +64,38 @@ class TextSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncodedTextSpec:
+    """A text feature that a named encoder produces on the card from the
+    text's token ids and lengths (``TowerBatch.text_ids`` /
+    ``text_lengths``, right-padded to ``max_length``), in place of a stored
+    vector. ``encoder`` names the architecture (``models/text_encoder.py``:
+    "kanana2"); ``config`` holds (key, value) pairs of its config that
+    differ from the published one (empty: the published model);
+    ``embed_dim`` is the pooled width, the encoder's hidden size."""
+
+    name: str
+    encoder: str = "kanana2"
+    max_length: int = 32
+    embed_dim: int = 2048
+    config: tuple[tuple[str, object], ...] = ()
+
+    def __post_init__(self) -> None:
+        if self.max_length <= 0:
+            raise ValueError(f"max_length for {self.name!r} must be positive, got {self.max_length}")
+
+    def to_dict(self) -> dict:
+        d = {"name": self.name, "encoder": self.encoder, "max_length": self.max_length, "embed_dim": self.embed_dim}
+        if self.config:
+            d["config"] = dict(self.config)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "EncodedTextSpec":
+        return cls(d["name"], d.get("encoder", "kanana2"), int(d.get("max_length", 32)),
+                   int(d.get("embed_dim", 2048)), tuple(sorted(dict(d.get("config", {})).items())))
+
+
+@dataclasses.dataclass(frozen=True)
 class SideSchema:
     """Schema for one tower side (notice or company): table name, PK columns
     and the numeric/categorical/text feature lists."""
@@ -73,14 +105,18 @@ class SideSchema:
     numeric: tuple[NumericSpec, ...] = ()
     categorical: tuple[CategoricalSpec, ...] = ()
     text: tuple[TextSpec, ...] = ()
+    encoded_text: tuple[EncodedTextSpec, ...] = ()
 
     def __post_init__(self) -> None:
-        names = [f.name for f in (*self.numeric, *self.categorical, *self.text)]
+        names = [f.name for f in (*self.numeric, *self.categorical, *self.text, *self.encoded_text)]
         dupes = {n for n in names if names.count(n) > 1}
         if dupes:
             raise ValueError(f"duplicate feature names in {self.table!r} schema: {sorted(dupes)}")
         if not self.pk:
             raise ValueError(f"side schema {self.table!r} needs at least one PK column")
+        if len(self.encoded_text) > 1:
+            raise ValueError(f"side schema {self.table!r}: at most one encoded text column, "
+                             f"got {[f.name for f in self.encoded_text]}")
 
     @property
     def num_numeric(self) -> int:
@@ -123,6 +159,7 @@ class SideSchema:
             "numeric": [f.name for f in self.numeric],
             "categorical": [{"name": f.name, "vocab_size": f.vocab_size} for f in self.categorical],
             "text": [{"name": f.name, "embed_dim": f.embed_dim} for f in self.text],
+            **({"encoded_text": [f.to_dict() for f in self.encoded_text]} if self.encoded_text else {}),
         }
 
     @classmethod
@@ -138,6 +175,7 @@ class SideSchema:
                 TextSpec(t["name"], int(t.get("embed_dim", DEFAULT_TEXT_EMBED_DIM)))
                 for t in d.get("text", ())
             ),
+            encoded_text=tuple(EncodedTextSpec.from_dict(t) for t in d.get("encoded_text", ())),
         )
 
 

@@ -65,6 +65,7 @@ from jodalrob_twotower_torch.parallel.mesh import sync_grads
 from jodalrob_twotower_torch.parallel.sharded_embedding import exchange_rows, local_rows
 from jodalrob_twotower_torch.train.metrics import in_batch_metrics
 from jodalrob_twotower_torch.train.optimizer import Optimizer, build_optimizer, warmup_constant_schedule
+from jodalrob_twotower_torch.utils.profiling import span
 from jodalrob_twotower_torch.train.train_step import (
     _forward_loss,
     dropout_generator,
@@ -293,6 +294,10 @@ def make_sparse_train_step(
         return st.table.index_select(0, rows.reshape(-1))
 
     def step(state: SparseTrainState, pair_idx, notice_store, company_store):
+        with span("train.sparse_step", root=state.step):
+            return _step(state, pair_idx, notice_store, company_store)
+
+    def _step(state: SparseTrainState, pair_idx, notice_store, company_store):
         if callable(pair_idx):
             pair_idx = pair_idx(state)
         batch = PairBatch(notice=gather(notice_store, pair_idx[:, 0]),
@@ -315,19 +320,20 @@ def make_sparse_train_step(
             g_dense, scale = sync(g_dense), sync.scale
         elif mesh is not None:
             g_dense = sync_grads(g_dense, mesh)
-        tx.update(state.dense_params, g_dense, state.opt_state)
-        rows_n, rows_c = rows_n.reshape(-1), rows_c.reshape(-1)
-        if scale != 1.0:
-            # the cotangents carry the dense gradients' objective scale
-            # (reference compressed_grads.py:665-670)
-            g_n, g_c = g_n * scale, g_c * scale
-        g_n, g_c = g_n.reshape(-1, emb_dim).float(), g_c.reshape(-1, emb_dim).float()
-        if not defer_table_updates:
-            lr_t = emb_schedule(state.step)
-            for st, rows, g in ((state.notice_table, rows_n, g_n), (state.company_table, rows_c, g_c)):
-                if sharded:
-                    rows, g = gather_occurrences(mesh, rows, g)
-                update_shard(st, rows, g, mesh, lr=lr_t, eps=eps, dedup=dedup)
+        with span("train.sparse_update"):
+            tx.update(state.dense_params, g_dense, state.opt_state)
+            rows_n, rows_c = rows_n.reshape(-1), rows_c.reshape(-1)
+            if scale != 1.0:
+                # the cotangents carry the dense gradients' objective scale
+                # (reference compressed_grads.py:665-670)
+                g_n, g_c = g_n * scale, g_c * scale
+            g_n, g_c = g_n.reshape(-1, emb_dim).float(), g_c.reshape(-1, emb_dim).float()
+            if not defer_table_updates:
+                lr_t = emb_schedule(state.step)
+                for st, rows, g in ((state.notice_table, rows_n, g_n), (state.company_table, rows_c, g_c)):
+                    if sharded:
+                        rows, g = gather_occurrences(mesh, rows, g)
+                    update_shard(st, rows, g, mesh, lr=lr_t, eps=eps, dedup=dedup)
         state.step += 1
         metrics = {"loss": loss.detach()}
         if with_metrics and sim is not None:

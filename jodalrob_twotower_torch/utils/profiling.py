@@ -56,8 +56,11 @@ SPANS = (
     "train.forward",  # functional_call of the towers and the loss (loss_and_grads)
     "train.backward",  # torch.autograd.grad and any gradient sync (loss_and_grads)
     "train.update",  # the optimizer's update, whichever the config picks (_train_on_batch)
+    "train.sparse_step",  # root: one sparse-table step, its draw and gather included (train/sparse_tables)
+    "train.sparse_update",  # AdamW on the dense leaves and rowwise Adagrad on the touched rows (sparse_tables)
     "serve.search",  # root: one RetrievalService.search_device
     "serve.encode",  # the notice tower (search_device)
+    "serve.text",  # the tower's frozen text encoder, inside serve.encode (models/tower.Tower._encoded)
     "serve.scan",  # the index's first pass (serving/index._scanned_topk)
     "serve.rescore",  # the exact second pass (serving/index._rescore_topk)
     "serve.copy",  # root: a HostCopy's page-locked buffers and enqueued copies
