@@ -20,6 +20,14 @@ NVIDIA card.
    chunks at k 100 and 400 on random, ascending and tied scores, timed a
    chunk beside torch.topk and the merge, with its device tally, and in
    ``_scanned_topk`` with no torch top-k kernel on the profiler's trace;
+   the int8 scan's product (``ops/int8_scan``, which replaces no TPU
+   kernel) within INT8_SCAN_ULPS float32 ulps of sum |q v| x scale of its
+   plain version on drawn shapes (ragged queries, rows and depths) and the
+   serving cells' [256, 262,144, 128] chunks, a row scored bit for bit
+   alike at any offset and query count, timed a chunk beside its bound, the
+   plain version and torch.matmul of bf16-widened rows, and in
+   ``Int8Index.topk_body`` over 39 chunks one launch a chunk with no GEMM
+   on the profiler's trace;
    the table gradient (K2) and its [D, R] form (K3,
    equal to K2's output transposed) at the training path's two shapes, on a
    skewed batch and at R=65,536 (K2 also at each cluster size), with a
@@ -31,7 +39,8 @@ NVIDIA card.
    D=1024, its chunked branch past the wgmma one, for agreement only), and
    K8's diagonal against the sweep's S_ii bit for bit at D=128, 256 and 512;
    the backward's, the lean forward's, the statistics', the lookup's, the
-   row gather's and the top-k's builds must not spill, nor the wgmma ones serialize (their ptxas reports
+   row gather's, the top-k's and the int8 scan's builds must not spill, nor the wgmma ones serialize (their
+   ptxas reports
    are printed); at
    B=65536 the statistics forward against the lean forward, and the
    label-smoothed loss and its gradients finite.
@@ -74,7 +83,8 @@ NVIDIA card.
    each equal to a plain scan of the same embeddings except at ties; the
    int8 recall@100 against exact measured), ``--target-recall 0.95`` (the
    pick's measured recall meets it) and ``--qps-bench``; K1 launched exactly once per corpus encode chunk
-   and query batch, no other kernel.
+   and query batch, the top-k twice and the int8 product once a block the
+   int8 index searched, no other kernel.
 9. Resume phase: 8 sampled steps with dropout at B=8192, ``save_step``, a
    restore into a freshly built state and 8 more steps equal 16
    uninterrupted steps bit for bit (every param, moment and BatchNorm
@@ -204,6 +214,7 @@ the per-kernel JSON record, the last line ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -269,6 +280,7 @@ from jodalrob_twotower_torch.ops import _build
 from jodalrob_twotower_torch.ops import chunk_topk as ct
 from jodalrob_twotower_torch.ops import embedding_grad as eg
 from jodalrob_twotower_torch.ops import fused_logits as fl
+from jodalrob_twotower_torch.ops import int8_scan as i8
 from jodalrob_twotower_torch.ops import moe
 from jodalrob_twotower_torch.ops.embedding_grad import (
     TILE_ROWS,
@@ -306,7 +318,7 @@ from jodalrob_twotower_torch.parallel.sharded_sparse import make_sharded_sampled
 from jodalrob_twotower_torch.parallel.sharded_store import resolve_store_placement
 from jodalrob_twotower_torch.parallel.sharded_train import make_sharded_indexed_train
 from jodalrob_twotower_torch.serving.index import (BruteForceIndex, Int8Index, ShardedIndex, _merge_topk,
-                                                   _scanned_topk, recall_vs_exact)
+                                                   _scanned_topk, quantize_int8, recall_vs_exact)
 from jodalrob_twotower_torch.serving.service import FrozenState, RetrievalService, qps_bench
 from jodalrob_twotower_torch.train.metrics import diagonal_ranks, in_batch_metrics, random_baselines
 from jodalrob_twotower_torch.train import sparse_tables
@@ -338,7 +350,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at the 700 W limit
 # at the 1.98 GHz boost clock (H100 SXM data sheet)
 H100_EXP_PER_S = 132 * 16 * 1.98e9
 KERNEL_SOURCES = ["onehot_lookup", "table_grad", "fused_ce_fwd", "fused_ce_bwd", "fused_stats", "row_gather",
-                  "chunk_topk", "moe_dispatch"]  # csrc/<name>.cu
+                  "chunk_topk", "moe_dispatch", "int8_scan"]  # csrc/<name>.cu
 TIMED_RUNS = 100
 LARGE_TIMED_RUNS = 20  # B >= 16384, where the plain versions take tens of ms
 CE_BATCH, CE_DIM = 8192, 128  # the training path's loss shape
@@ -461,6 +473,10 @@ COMPRESSED_WIRE_RANKS = (2, 4, 8)  # the wire bytes a rank sends per step, from 
 TOPK_QUERIES, TOPK_ROWS, TOPK_CHUNKS, TOPK_VALID = 256, 262_144, 39, 10_000_000
 TOPK_KS = (100, 400)
 TOPK_TIMED_RUNS = 10  # timed scans of 39 chunks (the plain version's: 3)
+# the int8 scan's product against its plain version: both sum the same exact
+# float32 products in another order, so they may differ by a few float32
+# ulps of the score's own scale, sum |q v| x scale
+INT8_SCAN_ULPS = 8
 # torch's top-k kernels, by name (benchmark/metrics/topk_share.py's pattern)
 TORCH_TOPK_KERNELS = re.compile(r"at::native::mbtopk::|at::native::sbtopk::|at::native::radixSortKVInPlace<")
 N_COMPANIES = 1_000_000
@@ -1344,6 +1360,151 @@ def chunk_topk_phase(flush: torch.Tensor | None) -> list[dict]:
     return rows
 
 
+def int8_scan_operands(q: int, c: int, d: int, gen: torch.Generator) -> tuple[torch.Tensor, ...]:
+    """bf16 queries [q, d] (normal, spread over four binades), int8 rows [c,
+    d] over the whole range, float32 scales [c] with every seventh 0 (the
+    index's zero rows and chunk padding)."""
+    queries = (torch.randn(q, d, generator=gen, device="cuda")
+               * 2.0 ** torch.randint(-2, 2, (q, 1), generator=gen, device="cuda")).to(torch.bfloat16)
+    values = torch.randint(-127, 128, (c, d), generator=gen, device="cuda", dtype=torch.int8)
+    scales = torch.rand(c, generator=gen, device="cuda") * 0.02
+    scales[::7] = 0.0
+    return queries, values, scales
+
+
+def int8_scan_gap(got: torch.Tensor, queries: torch.Tensor, values: torch.Tensor,
+                  scales: torch.Tensor) -> tuple[float, float]:
+    """The kernel's widest distance from the plain version, in float32 ulps
+    of sum |q v| x scale (its score's own scale: both sum the same exact
+    products, in another order), and in absolute terms; fails above
+    INT8_SCAN_ULPS or on a zero-scale row that is not 0."""
+    diff = (got - i8.int8_scan_plain(queries, values, scales)).abs()
+    mag = (queries.float().abs() @ values.float().abs().T) * scales[None, :]
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 24)
+    gap = float((diff / ulp).nan_to_num(0.0).max())  # 0 / 0 where mag is 0
+    check(gap <= INT8_SCAN_ULPS, f"int8_scan != plain: {gap:.3g} ulps of sum |q v| x scale, "
+                                 f"shape {tuple(queries.shape)} x {tuple(values.shape)}")
+    check(not got[:, scales == 0].any(), "int8_scan: a zero-scale row scored other than 0")
+    return gap, float(diff.max())
+
+
+def int8_scan_fuzz_check(cases: int = 40, seed: int = SEED + 24) -> dict:
+    """The kernel against its plain version at drawn shapes: queries 1-1,100
+    (one to five query tiles, ragged), rows 1 to 300,000 (ragged against
+    the 64-row tile and the 4-column row stride), depths 1-1024 (each query
+    tile width, ragged K tiles, the byte loads where D is not a multiple of
+    16), the rows at an odd offset into a larger block; then the same rows
+    at another offset, and fewer queries, scored bit for bit alike."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst = 0.0
+    for case in range(cases):
+        q = int(rng.choice([1, 7, 64, 255, 256, 257, 600, 1100]))
+        c = int(rng.choice([1, 3, 63, 65, 1001, 4097, 70_001, 262_144, 300_000]))
+        d = int(rng.choice([1, 8, 16, 32, 48, 64, 100, 128, 130, 200, 256, 320, 500, 512, 513, 700, 1024]))
+        queries, values, scales = int8_scan_operands(q, c + 5, d, gen)
+        values, scales = values[5:], scales[5:].contiguous()  # rows 5 x d bytes in
+        got = i8.int8_scan(queries, values, scales)
+        worst = max(worst, int8_scan_gap(got, queries, values, scales)[0])
+        off = int(rng.integers(0, c))
+        part = i8.int8_scan(queries[: max(1, q // 3)], values[off:], scales[off:])
+        check(torch.equal(part.view(torch.int32), got[: max(1, q // 3), off:].view(torch.int32)),
+              f"int8_scan: case {case} (q={q}, c={c}, d={d}) scored rows {off}.. or the first queries differently "
+              f"when they start the block")
+    return {"cases": cases, "max_gap_ulps": worst}
+
+
+def int8_scan_index_check(k: int = 100) -> dict:
+    """``Int8Index.topk_body`` over the serving cells' corpus, 10,000,000
+    rows in 39 chunks of 262,144 (no rescore), profiled: one int8_scan
+    launch a chunk, counted by the wrapper, no float32 GEMM and no kernel
+    whose count grows with the chunks but the scan's; its top-k scores
+    within the kernel's gap of the plain version's scan."""
+    from torch.profiler import profile
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    corpus = torch.nn.functional.normalize(torch.randn(TOPK_VALID, CE_DIM, generator=gen, device="cuda"), dim=1)
+    index = Int8Index(corpus, corpus_chunk=TOPK_ROWS, device="cuda")
+    del corpus
+    q = torch.nn.functional.normalize(torch.randn(TOPK_QUERIES, CE_DIM, generator=gen, device="cuda"), dim=1)
+    nc = index.values.shape[0]
+    index.topk_body(q, k)
+    torch.cuda.synchronize()
+    before = i8.int8_scan.launches
+    with profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got_s, _ = index.topk_body(q, k)
+        torch.cuda.synchronize()
+    launches = i8.int8_scan.launches - before
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = sum("int8_scan_kernel" in x for x in names)
+    topk = sum("slice_select_kernel" in x or "merge_kernel" in x for x in names)
+    gemms = sorted({x for x in names if "gemm" in x.lower()})
+    others = collections.Counter(x for x in names
+                                 if "int8_scan_kernel" not in x and "slice_select_kernel" not in x
+                                 and "merge_kernel" not in x)
+    check(ours == launches == nc, f"Int8Index.topk_body: {ours} int8_scan events, {launches} counted, {nc} chunks")
+    check(topk == 2 * nc, f"Int8Index.topk_body: {topk} top-k kernel events for {nc} chunks")
+    check(not gemms, f"Int8Index.topk_body ran GEMMs: {gemms}")
+    check(sum(others.values()) < nc, f"Int8Index.topk_body: kernels besides the scan's grow with the chunks: {others}")
+    qbf = q.to(torch.bfloat16)
+    want_s, _ = _scanned_topk(lambda qs, ci: i8.int8_scan_plain(qs, index.values[ci], index.scales[ci, :, 0]),
+                              nc, TOPK_ROWS, TOPK_VALID, qbf, k)
+    mag = max(float((qbf.float().abs() @ index.values[ci].float().abs().T * index.scales[ci, :, 0]).max())
+              for ci in range(nc))
+    top_gap = float((got_s - want_s).abs().max())
+    check(top_gap <= INT8_SCAN_ULPS * mag * 2.0**-23, f"Int8Index.topk_body: top-k scores {top_gap} from the plain scan's")
+    return {"chunks": nc, "kernel_events": ours, "launches": launches, "topk_events": topk, "gemms": gemms,
+            "other_kernels": dict(others), "top_k_score_gap": top_gap}
+
+
+def int8_scan_phase(flush: torch.Tensor | None) -> list[dict]:
+    """The int8 scan's product (``ops/int8_scan``): the fuzz check, then the
+    serving cells' chunk [256, 262,144, 128] on four chunks against the
+    plain version and, with ``flush``, timed a chunk beside its bound (the
+    int8 rows, scales and queries read once, the float32 block written
+    once), the plain version (the rows widened to float32, a float32 GEMM,
+    the scale) and torch.matmul of the rows widened to bf16 beforehand (bf16
+    out); a 39-chunk scan of products a chunk; then
+    :func:`int8_scan_index_check`."""
+    rows = [{"case": "fuzz", **int8_scan_fuzz_check()}]
+    print("kernel int8_scan", json.dumps(rows[0]), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    q = torch.nn.functional.normalize(torch.randn(TOPK_QUERIES, CE_DIM, generator=gen, device="cuda"), dim=1)
+    qbf = q.to(torch.bfloat16)
+    blocks = []
+    for _ in range(4):
+        rows_f = torch.nn.functional.normalize(torch.randn(TOPK_ROWS, CE_DIM, generator=gen, device="cuda"), dim=1)
+        blocks.append(quantize_int8(rows_f))
+    gaps = [int8_scan_gap(i8.int8_scan(qbf, v, s[:, 0]), qbf, v, s[:, 0]) for v, s in blocks]
+    nbytes = TOPK_QUERIES * TOPK_ROWS * 4 + TOPK_ROWS * CE_DIM + TOPK_ROWS * 4 + TOPK_QUERIES * CE_DIM * 2
+    row = {"case": f"serving chunk [{TOPK_QUERIES}, {TOPK_ROWS}, {CE_DIM}]", "max_gap_ulps": max(g[0] for g in gaps),
+           "max_abs_err": max(g[1] for g in gaps), **bound(2 * TOPK_QUERIES * TOPK_ROWS * CE_DIM, nbytes)}
+    if flush is not None:
+        v, s = blocks[0]
+        s0 = s[:, 0]
+        vbf = v.to(torch.bfloat16)
+        timed(row, lambda: i8.int8_scan(qbf, v, s0), lambda: i8.int8_scan_plain(qbf, v, s0),
+              lambda: torch.matmul(qbf, vbf.T), flush)
+        del vbf
+        scan_v = torch.stack([b[0] for b in blocks] * 10)[:TOPK_CHUNKS]
+        scan_s = torch.stack([b[1][:, 0] for b in blocks] * 10)[:TOPK_CHUNKS]
+
+        def scan():
+            for ci in range(TOPK_CHUNKS):
+                i8.int8_scan(qbf, scan_v[ci], scan_s[ci])
+
+        row["scan_ms_per_chunk"] = median_ms(scan, flush, TOPK_TIMED_RUNS) / TOPK_CHUNKS
+        del scan_v, scan_s
+    print("kernel int8_scan", json.dumps(row), flush=True)
+    rows.append(row)
+    del blocks
+    torch.cuda.empty_cache()
+    rows.append({"case": "Int8Index.topk_body", **int8_scan_index_check()})
+    print("kernel int8_scan", json.dumps(rows[-1]), flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_phase(flush: torch.Tensor) -> dict:
     table_grad, table_grad_bmajor = table_grad_phase(flush)
     out = {
@@ -1352,6 +1513,7 @@ def kernel_phase(flush: torch.Tensor) -> dict:
         "table_grad_bmajor": table_grad_bmajor,
         "row_gather": row_gather_phase(flush),
         "chunk_topk": chunk_topk_phase(flush),
+        "int8_scan": int8_scan_phase(flush),
         **ce_phase(flush),
         **stats_phase(flush),
         "largest_batch": largest_batch_check(),
@@ -1507,6 +1669,7 @@ def serving_phase() -> dict:
     print("serving main path launches", json.dumps(launches), flush=True)
     check(launches["dense_table_lookup"] > 0, "kernel dense_table_lookup was not launched on the serving path")
     check(launches["chunk_topk"] > 0, "the scan's top-k kernel was not launched on the serving path")
+    check(launches["int8_scan"] > 0, "the int8 scan's product kernel was not launched on the serving path")
 
     # -- checks ----------------------------------------------------------------
     gather_model = build_model(
@@ -1898,8 +2061,9 @@ def serve_cli_phase(model_dir: Path) -> tuple[dict, dict]:
     CALIBRATION_TARGET, whose pick's measured recall must meet it; and
     ``--qps-bench``. Each run's K1 launches must equal its corpus encode
     chunks plus its query batches exactly, the scan's top-k kernel two a
-    searched block of 1,024 queries (the corpus is one step wide), and no
-    other kernel may launch."""
+    searched block of 1,024 queries (the corpus is one step wide), the int8
+    product one a block the int8 index searched (the corpus is one chunk),
+    and no other kernel may launch."""
     tmp = model_dir.parent / "serve"
     tmp.mkdir()
     base = ["--model-dir", model_dir, "--synthetic", "--synthetic-scale", "bench", "--k", TOP_K]
@@ -1907,19 +2071,20 @@ def serve_cli_phase(model_dir: Path) -> tuple[dict, dict]:
     corpus_chunks = math.ceil(bench.N_COMPANIES / 8192)  # Evaluator.encode_corpus's chunk
     query_batches = math.ceil(SERVE_QUERIES / serve.QUERY_BATCH)
     topk_per_block = 2 * math.ceil(bench.N_COMPANIES / ct.WINDOW)  # the top-k kernel's launches a query block
-    runs = {  # name: (argv, expected K1 launches, query blocks searched; None: the calibration's, read after)
+    runs = {  # name: (argv, expected K1 launches, query blocks searched and those by the int8 index; None: the
+        # calibration's, read after)
         "int8": (base + answer + ["--output", tmp / "int8.jsonl", "--save-index", tmp / "int8.npz"],
-                 corpus_chunks + query_batches, query_batches),
+                 corpus_chunks + query_batches, query_batches, query_batches),
         "loaded": (base + answer + ["--output", tmp / "loaded.jsonl", "--load-index", tmp / "int8.npz"], query_batches,
-                   query_batches),
+                   query_batches, query_batches),
         "exact": (base + answer + ["--index", "exact", "--output", tmp / "exact.jsonl"], corpus_chunks + query_batches,
-                  query_batches),
+                  query_batches, 0),
         "target_recall": (base + answer + ["--target-recall", CALIBRATION_TARGET, "--output", tmp / "auto.jsonl"],
-                          corpus_chunks + math.ceil(CALIBRATION_QUERIES / 8192) + query_batches, None),
-        "qps_bench": (base + ["--qps-bench"], corpus_chunks + SERVE_QPS_BATCHES, SERVE_QPS_BATCHES),
+                          corpus_chunks + math.ceil(CALIBRATION_QUERIES / 8192) + query_batches, None, None),
+        "qps_bench": (base + ["--qps-bench"], corpus_chunks + SERVE_QPS_BATCHES, SERVE_QPS_BATCHES, SERVE_QPS_BATCHES),
     }
     row, launches, streams = {}, {}, {}
-    for name, (argv, k1, blocks) in runs.items():
+    for name, (argv, k1, blocks, int8_blocks) in runs.items():
         # -- the main path: counters from 0, read right after ------------------
         reset_counters()
         torch.cuda.synchronize()
@@ -1930,10 +2095,14 @@ def serve_cli_phase(model_dir: Path) -> tuple[dict, dict]:
         launches[f"serve_cli_{name}"] = got = read_counters()
         print(f"serve_cli_{name} main path launches", json.dumps(got), flush=True)
         if blocks is None:  # each index the calibration searched with its sample, then the answers
-            searches = len(auto_config_pick(streams[name][1])[1]) - 1  # the candidates measured
-            searches += "moved to the host" not in streams[name][1]  # the exact reference, unless streamed
-            blocks = searches * math.ceil(CALIBRATION_QUERIES / serve.QUERY_BATCH) + query_batches
-        want = {c: 0 for c in got} | {"dense_table_lookup": k1, "chunk_topk": topk_per_block * blocks}
+            note, measured, _ = auto_config_pick(streams[name][1])
+            candidates = len(measured) - 1  # the int8 candidates measured
+            searches = candidates + ("moved to the host" not in streams[name][1])  # the exact reference, unless streamed
+            sample_blocks = math.ceil(CALIBRATION_QUERIES / serve.QUERY_BATCH)
+            blocks = searches * sample_blocks + query_batches
+            int8_blocks = candidates * sample_blocks + (query_batches if note != autoconfig.EXACT.note else 0)
+        want = {c: 0 for c in got} | {"dense_table_lookup": k1, "chunk_topk": topk_per_block * blocks,
+                                      "int8_scan": int8_blocks}
         check(got == want, f"serve CLI {name}: launches {got}, expected {want}")
     check((tmp / "int8.jsonl").read_text() == (tmp / "loaded.jsonl").read_text(),
           "serve CLI: the loaded index's JSONL differs from the built index's")
@@ -1970,7 +2139,6 @@ def serve_cli_answers(model_dir: Path, int8: list[tuple[str, list[str]]], exact:
     to 255 share their categorical ids; a company has one numeric feature)
     within about 1e-3 of each other in score, where int8's scoring error
     lies, so that recall measures the data as much as the index."""
-    from jodalrob_twotower_torch.serving.index import quantize_int8
     from jodalrob_twotower_torch.train.cli import synthetic_data
 
     cfg = TrainConfig.from_json(model_dir / "config.json")
@@ -2564,11 +2732,11 @@ def quickstart_launches() -> dict[str, int]:
     to the gather (``resolve_lookup_mode``), whose backward is K2 on the
     card, twice per step; D = 32 lies outside the CE kernels' envelope, so
     the loss, the validation and the corpus eval are materialized; its one
-    search (three notices over its companies, one step wide) is the scan's
-    top-k kernel's two launches."""
+    search (three notices over its companies, one step wide and one int8
+    chunk) is the scan's top-k kernel's two launches and one int8 product."""
     size = quickstart.sizes(fast=False)
     steps = size["epochs"] * ((size["rows"] - size["val"]) // quickstart.BATCH_SIZE)
-    return {name: 0 for name in read_counters()} | {"dense_table_grad": 2 * steps, "chunk_topk": 2}
+    return {name: 0 for name in read_counters()} | {"dense_table_grad": 2 * steps, "chunk_topk": 2, "int8_scan": 1}
 
 
 def etl_serve_check(svc: RetrievalService, queries: list, hits: list, corpus: torch.Tensor) -> dict:
@@ -2734,7 +2902,8 @@ def etl_phase() -> tuple[dict, dict]:
         serve_launches = read_counters()
         print("etl_serve main path launches", json.dumps(serve_launches), flush=True)
         want = {c: 0 for c in serve_launches} | {"dense_table_lookup": math.ceil(ETL_COMPANIES / 8192) + len(queries),
-                                                 "chunk_topk": 2 * math.ceil(ETL_COMPANIES / ct.WINDOW) * len(queries)}
+                                                 "chunk_topk": 2 * math.ceil(ETL_COMPANIES / ct.WINDOW) * len(queries),
+                                                 "int8_scan": len(queries)}  # the flat int8 index: one product a batch
         check(serve_launches == want, f"etl_serve: launches {serve_launches}, expected {want}")
         corpus = svc._evaluator.encode_corpus(svc.state, c_store.dense, c_store.cat_ids, side="company")
         answers = etl_serve_check(svc, queries, hits, corpus)
@@ -4567,6 +4736,7 @@ def main() -> int:
     gather_build = build_report("row_gather")
     topk_build = build_report("chunk_topk")
     build_report("moe_dispatch")
+    build_report("int8_scan", {d: i8._lib().int8_scan_smem_bytes(d) for d in (32, 128, 512, 1024)})
 
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     kernels = kernel_phase(flush)
@@ -4661,6 +4831,12 @@ def main() -> int:
         "equal": all(r.get("equal", True) for r in kernels["chunk_topk"]),
         "cases": [{key: r[key] for key in ("case", "ms", "bound_ms", "plain_ms", "library_ms", "first_chunk_ms",
                                           "later_chunk_ms", "tally") if key in r} for r in kernels["chunk_topk"]]},
+        "int8_scan": {  # the int8 scan's product: it replaces no TPU kernel
+            "source": "jodalrob_twotower_torch/csrc/int8_scan.cu", "launches_serving": launches["serving"]["int8_scan"],
+            "launches_by_path": {p: counts["int8_scan"] for p, counts in launches.items() if "int8_scan" in counts},
+            "cases": [{key: r[key] for key in ("case", "ms", "bound_ms", "plain_ms", "library_ms", "scan_ms_per_chunk",
+                                              "max_gap_ulps", "launches", "other_kernels") if key in r}
+                      for r in kernels["int8_scan"]]},
         "training": {k: training[k] for k in ("examples_per_sec", "ms_per_step", "mfu", "device_busy_share",
                                          "device_busy_share_timed")},
         "evaluation": {path: {**{k: evaluation[path][k] for k in ("ms_per_batch", "ms_per_batch_min", "ms_per_batch_max")},

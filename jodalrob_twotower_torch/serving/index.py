@@ -11,9 +11,13 @@
 ``corpus_chunk`` stores the corpus as [n_chunks, C, D] and searches chunk by
 chunk with a running top-k, so peak memory is one [Q, C] score block.
 
-The scoring products stay ``torch.matmul``, as the reference left them to
-XLA. Products of bf16-rounded values are formed in float32: exact, and the
-same sum as a bf16 product with float32 accumulation. The scan's selection
+The exact scan's product stays ``torch.matmul`` in float32, as the
+reference left it to XLA. The int8 scan's is ``ops/int8_scan`` (a CUDA
+kernel on the card: bf16 tensor-core products of the int8 rows widened on
+chip, the row scale in its epilogue; its plain version on the CPU): products
+of bf16-rounded values are exact in float32, so only the order of the
+float32 sum differs from the reference's bf16 product with float32
+accumulation. The scan's selection
 is the running top-k of ``ops/chunk_topk`` (a CUDA kernel on the card that
 reads each score once, its plain version on the CPU), exact, with ties
 broken toward the lower row as ``jax.lax.top_k`` breaks them; only a k above
@@ -37,6 +41,7 @@ import torch
 
 from jodalrob_twotower_torch.device import resolve_device
 from jodalrob_twotower_torch.ops import chunk_topk as ct
+from jodalrob_twotower_torch.ops.int8_scan import int8_scan
 from jodalrob_twotower_torch.utils.profiling import span
 
 
@@ -308,25 +313,19 @@ class Int8Index:
 
     def topk_body(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Device search of one query block: (scores [Q, k] f32, rows [Q, k] int32)."""
-        qbf = queries.to(torch.bfloat16).float()
+        qbf = queries.to(torch.bfloat16).contiguous()  # once a search; each chunk's product reads it
         values, scales = self.values, self.scales
         kk = max(k, self.rescore_depth or 0)
         if self.corpus_chunk is None:
             kk = max(k, min(kk, values.shape[0]))
-
-            def flat_sims(qs, _):
-                return (qs @ values.float().T).mul_(scales[:, 0][None, :])
-
-            s, i = _scanned_topk(flat_sims, None, values.shape[0], self.n_valid, qbf, kk)
+            s, i = _scanned_topk(lambda qs, _: int8_scan(qs, values, scales[:, 0]), None, values.shape[0],
+                                 self.n_valid, qbf, kk)
             values_flat, scales_flat = values, scales
         else:
             nc, c, _ = values.shape
             kk = max(k, min(kk, c))  # per-chunk candidate cap
-
-            def chunk_sims(qs, ci):
-                return (qs @ values[ci].float().T).mul_(scales[ci][:, 0][None, :])
-
-            s, i = _scanned_topk(chunk_sims, nc, c, self.n_valid, qbf, kk)
+            s, i = _scanned_topk(lambda qs, ci: int8_scan(qs, values[ci], scales[ci, :, 0]), nc, c, self.n_valid,
+                                 qbf, kk)
             values_flat = values.reshape(-1, values.shape[-1])
             scales_flat = scales.reshape(-1, 1)
         if self.rescore_depth:
@@ -415,11 +414,12 @@ class ShardedIndex:
 
         def shard_sims(qs, _):
             if self.kind == "int8":
-                return (qs.to(torch.bfloat16).float() @ self.values.float().T).mul_(self.scales[:, 0][None, :])
-            return qs.float() @ self.corpus.T
+                return int8_scan(qs, self.values, self.scales[:, 0])
+            return qs @ self.corpus.T
 
+        qs = queries.to(torch.bfloat16).contiguous() if self.kind == "int8" else queries.float()
         # the rank's rows are local: those at or past n_valid - row0 are padding
-        s, i = _scanned_topk(shard_sims, None, self.shard_rows, self.n_valid - self.row0, queries, kk)
+        s, i = _scanned_topk(shard_sims, None, self.shard_rows, self.n_valid - self.row0, qs, kk)
         if self.rescore_depth:
             if self.kind == "exact":  # fixes the selection only
                 s, i = _rescore_topk(queries.float(), s, i, k, self.corpus)

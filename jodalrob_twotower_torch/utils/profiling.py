@@ -305,14 +305,16 @@ def median_ms(fn, flush: torch.Tensor, runs: int = 100) -> float:
 
 def _kernel_wrappers() -> tuple:
     """Every CUDA kernel wrapper that counts its launches (K1, K2, K3, K4,
-    K6/K7, K11/K10, K8, K5/K9, and the index scan's top-k)."""
+    K6/K7, K11/K10, K8, K5/K9, and the index scan's top-k and int8 product)."""
     from jodalrob_twotower_torch.ops import chunk_topk as ct
     from jodalrob_twotower_torch.ops import embedding_grad as eg
     from jodalrob_twotower_torch.ops import embedding_lookup as el
     from jodalrob_twotower_torch.ops import fused_logits as fl
+    from jodalrob_twotower_torch.ops import int8_scan as i8
 
     return (eg.dense_table_lookup, eg.dense_table_grad, eg.dense_table_grad_bmajor, el.embedding_lookup_pallas,
-            fl.fused_lean_lse, fl.fused_ce_bwd, fl.same_tile_diag, fl.fused_stats_sweep, ct.chunk_topk)
+            fl.fused_lean_lse, fl.fused_ce_bwd, fl.same_tile_diag, fl.fused_stats_sweep, ct.chunk_topk,
+            i8.int8_scan)
 
 
 def kernel_launches() -> dict[str, int]:
