@@ -47,7 +47,7 @@ NVIDIA card.
 3. Serving phase: drives the serving path at full width - ``TrainConfig()``
    on ``reference_shaped_schema()`` (2.19M params), random weights from a
    seeded generator, a synthetic corpus of 1,000,000 companies - through
-   ``RetrievalService`` (exact flat, and int8 chunked with a bf16 rescore),
+   ``RetrievalService`` (exact in one chunk, and int8 chunked with a bf16 rescore),
    checks its answers against plain float32 scans, shows through the launch
    counters that the path ran the kernels, and measures throughput; then the
    serve CLI's auto-configuration (``calibrate_serving_config`` at recall
@@ -1223,9 +1223,10 @@ def topk_index_check(k: int) -> dict:
     """``_scanned_topk`` on the card over a chunked exact index of 2,000,000
     rows (8 chunks of 262,144, the last part padding), profiled: no kernel
     of torch's top-k runs, the kernel's two launches a chunk do, and the
-    wrapper counts them; then the unchunked block (the flat indexes and a
-    ShardedIndex rank's form: 8 steps of 262,144 columns) and an odd width
-    (1,001 columns, scalar loads), each equal to the plain version."""
+    wrapper counts them; then one chunk of every row (an index without
+    corpus_chunk and a ShardedIndex rank's form: 8 steps of 262,144
+    columns) and an odd width (1,001 columns, scalar loads), each equal to
+    the plain version."""
     from torch.profiler import profile
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
@@ -1256,11 +1257,11 @@ def topk_index_check(k: int) -> dict:
                                torch.zeros((TOPK_QUERIES, k), dtype=torch.int64, device="cuda"), q @ flat.T, 0, n)
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           "chunked _scanned_topk != one plain step over the whole corpus")
-    whole = _scanned_topk(lambda qs, _: qs @ flat.T, None, flat.shape[0], n, q, k)
+    whole = _scanned_topk(lambda qs, _: qs @ flat.T, 1, flat.shape[0], n, q, k)
     check(torch.equal(whole[0], want[0]) and torch.equal(whole[1], want[1]),
-          "unchunked _scanned_topk != the plain version")
+          "one-chunk _scanned_topk != the plain version")
     odd = (q @ flat[:1001].T)[:, :1001]
-    got_odd = _scanned_topk(lambda qs, _: odd, None, 1001, 999, q, min(k, 999))
+    got_odd = _scanned_topk(lambda qs, _: odd, 1, 1001, 999, q, min(k, 999))
     want_odd = ct.chunk_topk_plain(torch.full((TOPK_QUERIES, min(k, 999)), ct.NEG, device="cuda"),
                                    torch.zeros((TOPK_QUERIES, min(k, 999)), dtype=torch.int64, device="cuda"),
                                    odd, 0, 999)
@@ -1536,6 +1537,12 @@ def check_result(res, n_corpus: int, what: str) -> None:
     check(bool(((res.indices >= 0) & (res.indices < n_corpus)).all()), f"{what}: index out of range")
 
 
+def index_rows(index, rows: torch.Tensor) -> torch.Tensor:
+    """An index's [n_chunks, C, ...] rows as the corpus's [N, ...]: the
+    chunks laid end to end, the padding past its N rows cut."""
+    return rows.reshape(-1, *rows.shape[2:])[: len(index)]
+
+
 def check_exact_vs_plain_scan(res, q: torch.Tensor, corpus: torch.Tensor) -> int:
     """The exact service's answer equals a plain float32 scan: scores within
     1e-5, index sets equal except where scores tie at the k-th place.
@@ -1677,11 +1684,12 @@ def serving_phase() -> dict:
     )
     encode_gather = make_encode_fn(gather_model, "notice")
     recalls, ties, emb_err = [], 0, 0.0
+    exact_rows = index_rows(exact.index, exact.index.corpus)
     for b, (res_e, res_8, keys_e, keys_8) in zip(batches, answers):
         check_result(res_e, N_COMPANIES, "exact")
         check_result(res_8, N_COMPANIES, "int8")
         q = exact.encode_queries(b)
-        ties += check_exact_vs_plain_scan(res_e, q, exact.index.corpus)
+        ties += check_exact_vs_plain_scan(res_e, q, exact_rows)
         # int8 + bf16 rescore: returned scores are the bf16 dots of their rows
         idx = torch.from_numpy(res_8.indices).long().cuda()
         rows = int8.index.rescore_rows[idx].float()
@@ -1722,7 +1730,7 @@ def serving_phase() -> dict:
     rows = np.sort(gen.choice(N_NOTICES, size=CALIBRATION_QUERIES, replace=False))
     cal_q = exact._evaluator.encode_corpus(exact.state, ds.notice_store.dense[rows], ds.notice_store.cat_ids[rows],
                                            side="notice")
-    calibration = calibration_check(exact.index.corpus, cal_q)
+    calibration = calibration_check(exact_rows, cal_q)
     print("calibration " + json.dumps(calibration), flush=True)
     return {
         "params": n_params, "companies": N_COMPANIES, "notices": N_NOTICES,
@@ -2745,7 +2753,7 @@ def etl_serve_check(svc: RetrievalService, queries: list, hits: list, corpus: to
     against the index's int8 rows times their scales, float32 sums), equal
     except at ties; and the int8 recall@k against an exact float32 scan of
     ``corpus``. The queries are encoded again in the service's batches."""
-    values, scales = svc.index.values, svc.index.scales[:, 0]
+    values, scales = index_rows(svc.index, svc.index.values), index_rows(svc.index, svc.index.scales)[:, 0]
     tied, overlap, n = 0, 0, 0
     for batch, got in zip(queries, hits):
         q = svc.encode_queries(batch)
@@ -3411,7 +3419,7 @@ def mesh_index(mesh) -> dict:
         score = None
         if kind == "int8":
             ref = Int8Index(corpus, device=mesh.device)
-            values, scales = ref.values, ref.scales
+            values, scales = index_rows(ref, ref.values), index_rows(ref, ref.scales)
 
             def score(r, rows, values=values, scales=scales):
                 q = queries[r].to(torch.bfloat16).float()

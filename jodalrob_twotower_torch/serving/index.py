@@ -8,8 +8,14 @@
   with float32 accumulation, optionally rescored exactly on the best
   ``rescore_depth`` candidates.
 
-``corpus_chunk`` stores the corpus as [n_chunks, C, D] and searches chunk by
-chunk with a running top-k, so peak memory is one [Q, C] score block.
+Every index keeps its rows in one layout, [n_chunks, C, D] (the int8
+scales [n_chunks, C, 1]; the bf16 rescore copy [n_chunks C, D]), and
+searches chunk by chunk with a running top-k, so peak memory is one [Q, C]
+score block. ``corpus_chunk=C`` sets the chunk; None is one chunk of all N
+rows, a view of them with no padding. Both kinds share one search
+(``_ScanIndex.topk_body``: the first pass, then the rescore of its
+candidates) and differ only in the query their product reads, one chunk's
+product and the rows their second pass reads.
 
 The exact scan's product stays ``torch.matmul`` in float32, as the
 reference left it to XLA. The int8 scan's is ``ops/int8_scan`` (a CUDA
@@ -27,7 +33,9 @@ target: it is checked against the range that function accepts, (0, 1],
 kept and saved, and the selection stays exact, as the reference's is
 everywhere but on a TPU (XLA's CPU and GPU backends lower
 ``approx_max_k`` to an exact top-k). :class:`ShardedIndex` row-shards the
-corpus over a mesh's ranks (``parallel/mesh.py``). The npz format of ``save_index``/``load_index`` is the
+corpus over a mesh's ranks (``parallel/mesh.py``): each rank's block is an
+index of the kind, one chunk, and the ranks' answers are all-gathered and
+merged. The npz format of ``save_index``/``load_index`` is the
 reference's, so an index saved by either package loads in the other.
 """
 
@@ -133,32 +141,29 @@ def _rescore_topk(queries, cand_scores, cand_idx, k: int, rescore_rows, rescore_
         return s2, torch.gather(cand_idx, 1, sel)
 
 
-def _scanned_topk(chunk_sims_fn, n_chunks: int | None, chunk_rows: int, n_valid: int,
-                  queries: torch.Tensor, k: int):
+def _scanned_topk(chunk_sims_fn, n_chunks: int, chunk_rows: int, n_valid: int, queries: torch.Tensor, k: int):
     """An index's first pass, a span (``serve.scan``): the running top-k
     over corpus chunks; peak memory is one [Q, chunk] block.
 
     ``chunk_sims_fn(queries, ci) -> [Q, chunk_rows] f32`` scores chunk ci,
-    whose column c is row ci * chunk_rows + c. ``n_chunks`` None is the
-    unchunked corpus: one block, ``chunk_sims_fn(queries, None)``. Rows at
-    or past ``n_valid`` never enter; slots no valid row fills hold (the
-    float32 minimum, row 0). Up to ``chunk_topk.MAX_K`` the selection is
+    whose column c is row ci * chunk_rows + c. Rows at or past ``n_valid``
+    never enter; slots no valid row fills hold (the float32 minimum, row
+    0). Up to ``chunk_topk.MAX_K`` the selection is
     :func:`ops.chunk_topk.chunk_topk`; past it, ``torch.topk`` of each
     block merged with ``_merge_topk``."""
     with span("serve.scan"):
         q, dev = queries.shape[0], queries.device
         best_s = torch.full((q, k), _NEG, dtype=torch.float32, device=dev)
         best_i = torch.zeros((q, k), dtype=torch.int64, device=dev)
-        chunks = [None] if n_chunks is None else range(n_chunks)
         if k <= ct.MAX_K:
             work = ct.workspace(q, k, chunk_rows, dev)
-            for ci in chunks:
-                best_s, best_i = ct.chunk_topk(best_s, best_i, chunk_sims_fn(queries, ci), (ci or 0) * chunk_rows,
-                                               n_valid, work)
+            for ci in range(n_chunks):
+                best_s, best_i = ct.chunk_topk(best_s, best_i, chunk_sims_fn(queries, ci), ci * chunk_rows, n_valid,
+                                               work)
             return best_s, best_i
         cols = torch.arange(chunk_rows, device=dev)
-        for ci in chunks:
-            row0 = (ci or 0) * chunk_rows
+        for ci in range(n_chunks):
+            row0 = ci * chunk_rows
             sims = chunk_sims_fn(queries, ci)
             if row0 + chunk_rows > n_valid:
                 sims = torch.where(row0 + cols[None, :] < n_valid, sims, _NEG)
@@ -177,13 +182,61 @@ def _search(index, queries, k: int) -> SearchResult:
     return SearchResult(np.concatenate(scores), np.concatenate(indices))
 
 
-class BruteForceIndex:
-    """Exact MIPS: corpus [N, D] f32 resident on the device.
+class _ScanIndex:
+    """The search of both single-device kinds, and of a :class:`ShardedIndex`
+    rank's block. An index keeps its rows as [n_chunks, C, ...] tensors
+    (``corpus_chunk`` None: one chunk of all N rows, a view of them); a kind
+    gives the query its product reads (``_query``), one chunk's product
+    (``_chunk_sims``) and the rows its second pass reads
+    (``_second_pass_rows``)."""
 
-    ``corpus_chunk=None`` keeps one flat [N, D] tensor and a single-matmul
-    search. With ``corpus_chunk=C`` the corpus lives as [n_chunks, C, D] and
-    search scans the chunks.
-    """
+    kind: str
+
+    def _init(self, n_rows: int, query_chunk: int, corpus_chunk: int | None, approx_recall: float | None,
+              rescore_depth: int | None, rescore_dtype: str, device: torch.device) -> None:
+        """The options every index keeps, checked, and the layout of its
+        ``n_rows`` rows as ``_pad_chunks`` cuts them: without
+        ``corpus_chunk`` one chunk of them all (an empty corpus: one padding
+        row)."""
+        self.approx_recall = _check_approx(approx_recall)
+        if rescore_dtype not in ("int8", "bfloat16"):
+            raise ValueError(f"rescore_dtype must be 'int8' or 'bfloat16', got {rescore_dtype!r}")
+        self.device = device
+        self.query_chunk = query_chunk
+        self.corpus_chunk = corpus_chunk
+        self.rescore_depth = _check_rescore_depth(rescore_depth)
+        self.n_valid = n_rows
+        self._chunk_rows = corpus_chunk or max(1, n_rows)
+        self._n_chunks = max(1, -(-n_rows // self._chunk_rows))
+
+    def topk_body(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device search of one query block: (scores [Q, k] f32, rows [Q, k] int32)."""
+        s, i = self._local_topk(queries, k)
+        return s, i.to(torch.int32)
+
+    def _local_topk(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The first pass and its rescore over this index's rows: (scores
+        [Q, k] f32, rows [Q, k] int64)."""
+        q = self._query(queries)  # once a search; each chunk's product reads it
+        c = self._chunk_rows
+        kk = max(k, min(max(k, self.rescore_depth or 0), c))  # per-chunk candidate cap
+        s, i = _scanned_topk(self._chunk_sims, self._n_chunks, c, self.n_valid, q, kk)
+        if self.rescore_depth:
+            # second pass over the kk candidates: re-ranks the chunk-merge
+            # selection, with exact f32 or bf16 scores where the kind keeps them
+            s, i = _rescore_topk(queries, s, i, k, *self._second_pass_rows())
+        return s, i
+
+    def __len__(self) -> int:
+        return self.n_valid
+
+    def search(self, queries, k: int = 10) -> SearchResult:
+        return _search(self, queries, k)
+
+
+class BruteForceIndex(_ScanIndex):
+    """Exact MIPS: the corpus f32 on the device as [n_chunks, C, D]; the
+    product is a float32 matmul, and the rescore reads the same rows."""
 
     kind = "exact"
 
@@ -192,48 +245,34 @@ class BruteForceIndex:
                  approx_recall: float | None = None,
                  rescore_depth: int | None = None,
                  device=None) -> None:
-        self.approx_recall = _check_approx(approx_recall)
-        self.device = resolve_device(device)
-        corpus = _as_corpus(corpus_emb, self.device)
-        self.query_chunk = query_chunk
-        self.corpus_chunk = corpus_chunk
-        self.rescore_depth = _check_rescore_depth(rescore_depth)
-        self.n_valid = corpus.shape[0]
-        self.corpus = corpus if corpus_chunk is None else _pad_chunks(corpus, corpus_chunk)
+        self._build(corpus_emb, query_chunk, corpus_chunk, approx_recall, rescore_depth, "int8",
+                    resolve_device(device))
 
-    def topk_body(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Device search of one query block: (scores [Q, k] f32, rows [Q, k] int32)."""
-        q32 = queries.float()
-        corpus = self.corpus
-        kk = max(k, self.rescore_depth or 0)
-        if self.corpus_chunk is None:
-            kk = max(k, min(kk, corpus.shape[0]))
-            s, i = _scanned_topk(lambda qs, _: qs @ corpus.T, None, corpus.shape[0], self.n_valid, q32, kk)
-            flat = corpus
-        else:
-            nc, c, _ = corpus.shape
-            kk = max(k, min(kk, c))  # per-chunk candidate cap
-            s, i = _scanned_topk(lambda qs, ci: qs @ corpus[ci].T, nc, c, self.n_valid, q32, kk)
-            flat = corpus.reshape(-1, corpus.shape[-1])
-        if self.rescore_depth:
-            # exact second pass over the kk candidates: scores become exact
-            # f32 dots and the chunk-merge selection is re-ranked
-            s, i = _rescore_topk(q32, s, i, k, flat)
-        return s, i.to(torch.int32)
+    def _build(self, rows, query_chunk: int, corpus_chunk: int | None, approx_recall: float | None,
+               rescore_depth: int | None, rescore_dtype: str, device: torch.device) -> None:
+        corpus = _as_corpus(rows, device)
+        self._init(corpus.shape[0], query_chunk, corpus_chunk, approx_recall, rescore_depth, rescore_dtype,
+                   device)
+        self.corpus = _pad_chunks(corpus, self._chunk_rows)  # [n_chunks, C, D] f32
 
-    def __len__(self) -> int:
-        return self.n_valid
+    def _query(self, queries: torch.Tensor) -> torch.Tensor:
+        return queries.float()
 
-    def search(self, queries, k: int = 10) -> SearchResult:
-        return _search(self, queries, k)
+    def _chunk_sims(self, q32: torch.Tensor, ci: int) -> torch.Tensor:
+        return q32 @ self.corpus[ci].T
+
+    def _second_pass_rows(self) -> tuple:
+        return (self.corpus.reshape(-1, self.corpus.shape[-1]),)
 
     def _host_corpus(self) -> np.ndarray:
         flat = self.corpus.reshape(-1, self.corpus.shape[-1])[: self.n_valid]
         return flat.cpu().numpy()
 
 
-class Int8Index:
-    """Row-wise symmetric int8 quantized MIPS."""
+class Int8Index(_ScanIndex):
+    """Row-wise symmetric int8 quantized MIPS: int8 values [n_chunks, C, D]
+    and f32 scales [n_chunks, C, 1] on the device, and the bf16 rescore
+    copy [n_chunks C, D] when the rescore is bf16."""
 
     kind = "int8"
 
@@ -243,10 +282,14 @@ class Int8Index:
                  rescore_depth: int | None = None,
                  rescore_dtype: str = "int8",
                  device=None) -> None:
-        device = resolve_device(device)
+        self._build(corpus_emb, query_chunk, corpus_chunk, approx_recall, rescore_depth, rescore_dtype,
+                    resolve_device(device))
+
+    def _build(self, rows, query_chunk: int, corpus_chunk: int | None, approx_recall: float | None,
+               rescore_depth: int | None, rescore_dtype: str, device: torch.device) -> None:
         # host rows are quantized on the host: only the int8 values, scales
         # and bf16 rescore rows reach the device, never the f32 corpus
-        corpus = _as_corpus(corpus_emb, device if isinstance(corpus_emb, torch.Tensor) else torch.device("cpu"))
+        corpus = _as_corpus(rows, device if isinstance(rows, torch.Tensor) else torch.device("cpu"))
         values, scales = quantize_int8(corpus)
         rescore_rows = corpus if rescore_depth and rescore_dtype == "bfloat16" else None
         self._init_from_quantized(values, scales, query_chunk, corpus_chunk, approx_recall,
@@ -259,11 +302,8 @@ class Int8Index:
                              rescore_dtype: str,
                              rescore_rows,
                              device: torch.device) -> None:
-        self.approx_recall = _check_approx(approx_recall)
-        if rescore_dtype not in ("int8", "bfloat16"):
-            raise ValueError(
-                f"rescore_dtype must be 'int8' or 'bfloat16', got {rescore_dtype!r}"
-            )
+        self._init(values.shape[0], query_chunk, corpus_chunk, approx_recall, rescore_depth, rescore_dtype,
+                   device)
         if rescore_depth and rescore_dtype == "bfloat16" and rescore_rows is None:
             raise ValueError(
                 "bfloat16 rescore needs the full-precision corpus; build via "
@@ -274,27 +314,15 @@ class Int8Index:
                 f"rescore_rows has {rescore_rows.shape[0]} rows but values has "
                 f"{values.shape[0]} - they must cover the same corpus"
             )
-        self.device = device
-        self.query_chunk = query_chunk
-        self.corpus_chunk = corpus_chunk
-        self.rescore_depth = _check_rescore_depth(rescore_depth)
         self.rescore_dtype = rescore_dtype
-        values = torch.as_tensor(values).to(device)
-        scales = torch.as_tensor(scales).to(device)
-        self.n_valid = values.shape[0]
-        if corpus_chunk is None:
-            self.values, self.scales = values, scales  # [N, D] int8, [N, 1] f32
-        else:
-            self.values = _pad_chunks(values, corpus_chunk)  # [nc, C, D]
-            self.scales = _pad_chunks(scales, corpus_chunk)  # [nc, C, 1]
+        self.values = _pad_chunks(torch.as_tensor(values).to(device), self._chunk_rows)  # [nc, C, D] int8
+        self.scales = _pad_chunks(torch.as_tensor(scales).to(device), self._chunk_rows)  # [nc, C, 1] f32
         self.rescore_rows = None
         if self.rescore_depth and rescore_dtype == "bfloat16":
             rows = torch.as_tensor(rescore_rows).to(torch.bfloat16).to(device)  # cast where the rows are
-            if corpus_chunk is not None:
-                # pad to the chunked row count so candidate indices into
-                # padding rows stay in bounds (their scores are masked)
-                rows = _pad_chunks(rows, corpus_chunk).reshape(-1, rows.shape[-1])
-            self.rescore_rows = rows  # [N_pad, D] bf16
+            # padded as the chunks are, so candidate indices into padding
+            # rows stay in bounds (their scores are masked)
+            self.rescore_rows = _pad_chunks(rows, self._chunk_rows).reshape(-1, rows.shape[-1])  # [N_pad, D] bf16
 
     @classmethod
     def from_quantized(cls, values, scales, *, query_chunk: int = 1024,
@@ -311,32 +339,17 @@ class Int8Index:
                                  resolve_device(device))
         return idx
 
-    def topk_body(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Device search of one query block: (scores [Q, k] f32, rows [Q, k] int32)."""
-        qbf = queries.to(torch.bfloat16).contiguous()  # once a search; each chunk's product reads it
-        values, scales = self.values, self.scales
-        kk = max(k, self.rescore_depth or 0)
-        if self.corpus_chunk is None:
-            kk = max(k, min(kk, values.shape[0]))
-            s, i = _scanned_topk(lambda qs, _: int8_scan(qs, values, scales[:, 0]), None, values.shape[0],
-                                 self.n_valid, qbf, kk)
-            values_flat, scales_flat = values, scales
-        else:
-            nc, c, _ = values.shape
-            kk = max(k, min(kk, c))  # per-chunk candidate cap
-            s, i = _scanned_topk(lambda qs, ci: int8_scan(qs, values[ci], scales[ci, :, 0]), nc, c, self.n_valid,
-                                 qbf, kk)
-            values_flat = values.reshape(-1, values.shape[-1])
-            scales_flat = scales.reshape(-1, 1)
-        if self.rescore_depth:
-            if self.rescore_rows is not None:  # bf16 full-precision second pass
-                s, i = _rescore_topk(queries, s, i, k, self.rescore_rows)
-            else:  # dequantized int8: re-ranks the chunk-merge selection only
-                s, i = _rescore_topk(queries, s, i, k, values_flat, scales_flat)
-        return s, i.to(torch.int32)
+    def _query(self, queries: torch.Tensor) -> torch.Tensor:
+        return queries.to(torch.bfloat16).contiguous()
 
-    def __len__(self) -> int:
-        return self.n_valid
+    def _chunk_sims(self, qbf: torch.Tensor, ci: int) -> torch.Tensor:
+        return int8_scan(qbf, self.values[ci], self.scales[ci, :, 0])
+
+    def _second_pass_rows(self) -> tuple:
+        if self.rescore_rows is not None:  # bf16 full-precision second pass
+            return (self.rescore_rows,)
+        # dequantized int8: re-ranks the chunk-merge selection only
+        return self.values.reshape(-1, self.values.shape[-1]), self.scales.reshape(-1, 1)
 
     @property
     def nbytes(self) -> int:
@@ -347,27 +360,29 @@ class Int8Index:
             n += self.rescore_rows.numel() * 2
         return n
 
-    def search(self, queries, k: int = 10) -> SearchResult:
-        return _search(self, queries, k)
-
     def _host_quantized(self) -> tuple[np.ndarray, np.ndarray]:
         v = self.values.reshape(-1, self.values.shape[-1])[: self.n_valid]
         s = self.scales.reshape(-1, 1)[: self.n_valid]
         return v.cpu().numpy(), s.cpu().numpy()
 
 
+_KINDS = {"exact": BruteForceIndex, "int8": Int8Index}
+
+
 class ShardedIndex:
     """MIPS over a corpus row-sharded across a mesh (reference
     ``ShardedIndex``, serving/index.py:408-596): each rank keeps its block
     of the corpus, padded to a multiple of the mesh size
-    (``parallel/mesh.row_sharding``), scores only those rows and takes a
-    local top-k; the k candidates and their global rows are all-gathered
-    and merged on every rank, so the traffic per query block is O(ranks k),
-    never the corpus. ``kind`` picks float32-exact or int8 shards; the
-    rescore options run on the rank's rows before the merge, so the merge
-    orders exact scores, and ``approx_recall`` is kept as the single-device
-    indexes keep it (the selection stays exact). Every rank calls
-    :meth:`search` with the same queries and gets the same answers."""
+    (``parallel/mesh.row_sharding``), as a single-device index of the kind
+    (``kind``: float32-exact or int8) with one chunk of the block's rows,
+    so the rows past the corpus's end are that chunk's padding. The block
+    searches as that index does, rescore included, so the merge orders the
+    scores the rescore gave, and ``approx_recall`` is kept as the
+    single-device indexes keep it (the selection stays exact). The block's
+    k candidates and their global rows are all-gathered and merged on every
+    rank, so the traffic per query block is O(ranks k), never the corpus.
+    Every rank calls :meth:`search` with the same queries and gets the same
+    answers."""
 
     def __init__(self, corpus_emb, mesh, *, kind: str = "exact", query_chunk: int = 1024,
                  approx_recall: float | None = None,
@@ -375,34 +390,20 @@ class ShardedIndex:
                  rescore_dtype: str = "int8") -> None:
         from jodalrob_twotower_torch.parallel.mesh import row_sharding
 
-        if rescore_dtype not in ("int8", "bfloat16"):
-            raise ValueError(f"rescore_dtype must be 'int8' or 'bfloat16', got {rescore_dtype!r}")
-        if kind not in ("exact", "int8"):
+        if kind not in _KINDS:
             raise ValueError(f"unknown kind: {kind}")
         self.mesh = mesh
         self.kind = kind
         self.device = mesh.device
         self.query_chunk = query_chunk
-        self.approx_recall = _check_approx(approx_recall)
-        self.rescore_depth = _check_rescore_depth(rescore_depth)
-        self.rescore_dtype = rescore_dtype
         corpus = torch.as_tensor(corpus_emb).float()
         self.n_valid = corpus.shape[0]
         block = row_sharding(mesh, self.n_valid)
         self.shard_rows = block.stop - block.start
         self.row0 = block.start
-        mine = corpus[block.start : min(block.stop, self.n_valid)]
-        pad = self.shard_rows - mine.shape[0]
-        if pad:
-            mine = torch.cat([mine, mine.new_zeros((pad, mine.shape[1]))])
-        self.rescore_rows = None
-        if kind == "int8":
-            # quantized on the device the rows came from, as Int8Index does
-            self.values, self.scales = (t.to(self.device) for t in quantize_int8(mine))
-            if self.rescore_depth and rescore_dtype == "bfloat16":
-                self.rescore_rows = mine.to(torch.bfloat16).to(self.device)
-        else:
-            self.corpus = mine.to(self.device)
+        self.block = _KINDS[kind].__new__(_KINDS[kind])
+        self.block._build(corpus[block], query_chunk, self.shard_rows, approx_recall, rescore_depth, rescore_dtype,
+                          self.device)
 
     def __len__(self) -> int:
         return self.n_valid
@@ -410,23 +411,7 @@ class ShardedIndex:
     def topk_body(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Search of one query block, the same on every rank: (scores [Q, k]
         f32, global rows [Q, k] int32)."""
-        kk = max(k, min(self.rescore_depth or 0, self.shard_rows))
-
-        def shard_sims(qs, _):
-            if self.kind == "int8":
-                return int8_scan(qs, self.values, self.scales[:, 0])
-            return qs @ self.corpus.T
-
-        qs = queries.to(torch.bfloat16).contiguous() if self.kind == "int8" else queries.float()
-        # the rank's rows are local: those at or past n_valid - row0 are padding
-        s, i = _scanned_topk(shard_sims, None, self.shard_rows, self.n_valid - self.row0, qs, kk)
-        if self.rescore_depth:
-            if self.kind == "exact":  # fixes the selection only
-                s, i = _rescore_topk(queries.float(), s, i, k, self.corpus)
-            elif self.rescore_rows is not None:  # bf16 full-precision second pass
-                s, i = _rescore_topk(queries, s, i, k, self.rescore_rows)
-            else:  # dequantized int8
-                s, i = _rescore_topk(queries, s, i, k, self.values, self.scales)
+        s, i = self.block._local_topk(queries, k)
         i = i + self.row0
         s_all = self.mesh.all_gather_rows(s.T.contiguous()).T  # [Q, ranks k]
         i_all = self.mesh.all_gather_rows(i.T.contiguous()).T

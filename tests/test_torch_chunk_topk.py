@@ -3,7 +3,7 @@ which the CPU runs and the card's kernel is held bit-equal to in
 ``chip_smoke.py``, against ``torch.topk`` (the scores) and the JAX
 reference's ``jax.lax.top_k`` over the whole masked score row (scores and
 rows, ties to the lower row), through ``serving/index._scanned_topk``
-chunked and unchunked, and the indexes built on it."""
+over many chunks and over one, and the indexes built on it."""
 
 import jax
 import jax.numpy as jnp
@@ -35,15 +35,15 @@ def _scores(kind: str, q: int, n: int, seed: int) -> np.ndarray:
 
 def _scan(scores: np.ndarray, chunk: int | None, n_valid: int, k: int):
     """``_scanned_topk`` over ``scores`` cut into chunks of ``chunk`` columns
-    (None: one block), the last padded with zero scores past n_valid."""
+    (None: one chunk of all of them, an index's form without
+    ``corpus_chunk``), the last padded with zero scores past n_valid."""
     q, n = scores.shape
     rows = chunk or n
     n_chunks = -(-n // rows)
     padded = np.zeros((q, n_chunks * rows), np.float32)
     padded[:, :n] = scores
     blocks = torch.from_numpy(padded).reshape(q, n_chunks, rows)
-    fn = (lambda qs, ci: blocks[:, ci]) if chunk else (lambda qs, _: blocks[:, 0])
-    s, i = t_index._scanned_topk(fn, n_chunks if chunk else None, rows, n_valid, torch.zeros(q, 4), k)
+    s, i = t_index._scanned_topk(lambda qs, ci: blocks[:, ci], n_chunks, rows, n_valid, torch.zeros(q, 4), k)
     return s.numpy(), i.numpy()
 
 
@@ -65,7 +65,7 @@ CASES = [  # (kind, queries, columns, chunk, valid, k)
     ("tied", 2, 3000, 700, 2900, 400),
     ("few", 4, 4000, 333, 3999, 100),
     ("random", 3, 700, 100, 700, 100),  # k equal to a chunk's width: every column passes
-    ("random", 3, 1500, None, 1500, 100),  # the unchunked block (flat indexes)
+    ("random", 3, 1500, None, 1500, 100),  # one chunk of every row (indexes without corpus_chunk)
     ("few", 3, 1500, None, 1400, 400),  # a ShardedIndex rank's form: padding rows past the valid count
     ("random", 2, 9000, 4096, 9000, 1024),  # the kernel's largest k
 ]

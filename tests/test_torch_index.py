@@ -2,12 +2,14 @@
 queries: int8 quantization bit for bit, exact and int8 top-k (flat and
 chunked, with and without rescore, with and without an ``approx_recall``
 target) index for index with scores within float32 summation-order error,
-the recall targets both refuse, and the npz format both ways."""
+the recall targets both refuse, and the npz format both ways; and a one-rank
+``ShardedIndex`` against the port's own single-device index of its kind."""
 
 import numpy as np
 import pytest
 import torch
 
+from jodalrob_twotower_torch.parallel.mesh import Mesh
 from jodalrob_twotower_torch.serving import index as t_index
 from jodalrob_twotower_tpu.serving import index as j_index
 
@@ -156,3 +158,25 @@ def test_int8_zero_rows_safe():
     corpus[0, 0] = 1.0
     res = t_index.Int8Index(corpus, device="cpu").search(np.ones((2, 16), np.float32), k=3)
     assert np.isfinite(res.scores).all() and res.indices[0, 0] == 0
+
+
+SHARDED = [  # (kind, keyword arguments): each rescore below the corpus's 1000 rows and above them
+    ("exact", {}),
+    *(("exact", {"rescore_depth": d}) for d in (20, 5000)),
+    ("int8", {}),
+    *(("int8", {"rescore_depth": d, "rescore_dtype": "int8"}) for d in (20, 5000)),
+    *(("int8", {"rescore_depth": d, "rescore_dtype": "bfloat16"}) for d in (20, 5000)),
+]
+
+
+@pytest.mark.parametrize("kind,kw", SHARDED, ids=lambda x: str(x))
+def test_one_rank_sharded_index_equals_the_single_device_index(data, kind, kw):
+    """A one-rank mesh's block is the whole corpus, unpadded: its search,
+    merge included, gives the single-device index's answers bit for bit."""
+    corpus, queries = data
+    mesh = Mesh("cpu")
+    assert mesh.size == 1
+    got = t_index.ShardedIndex(corpus, mesh, kind=kind, query_chunk=16, **kw).search(queries, k=7)
+    want = _build(t_index, kind, corpus, kw).search(queries, k=7)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.scores.view(np.int32), want.scores.view(np.int32))

@@ -114,43 +114,34 @@ def test_counter_is_listed_by_kernel_launches():
 # -- the indexes ------------------------------------------------------------------
 
 
-def _before(index, queries: torch.Tensor, k: int):
+def _scored_before(index, queries: torch.Tensor, k: int):
     """An int8 index's first pass and rescore as they were scored before the
-    wrapper: the bf16 queries widened, the rows widened, a float32 product,
-    then the scale."""
+    wrapper: the bf16 queries widened, each chunk's rows widened, a float32
+    product, then the scale; rows int64."""
     qbf = queries.to(torch.bfloat16).float()
-    values, scales = index.values, index.scales
-    kk = max(k, index.rescore_depth or 0)
-    if values.dim() == 2:
-        kk = max(k, min(kk, values.shape[0]))
-        s, i = t_index._scanned_topk(lambda qs, _: (qs @ values.float().T).mul_(scales[:, 0][None, :]), None,
-                                     values.shape[0], index.n_valid, qbf, kk)
-        values_flat, scales_flat = values, scales
-    else:
-        nc, c, _ = values.shape
-        kk = max(k, min(kk, c))
-        s, i = t_index._scanned_topk(lambda qs, ci: (qs @ values[ci].float().T).mul_(scales[ci][:, 0][None, :]),
-                                     nc, c, index.n_valid, qbf, kk)
-        values_flat, scales_flat = values.reshape(-1, values.shape[-1]), scales.reshape(-1, 1)
+    values, scales = index.values, index.scales  # [nc, C, D], [nc, C, 1]
+    nc, c, d = values.shape
+    kk = max(k, min(max(k, index.rescore_depth or 0), c))
+    s, i = t_index._scanned_topk(lambda qs, ci: (qs @ values[ci].float().T).mul_(scales[ci][:, 0][None, :]),
+                                 nc, c, index.n_valid, qbf, kk)
     if index.rescore_depth:
         if index.rescore_rows is not None:
             s, i = t_index._rescore_topk(queries, s, i, k, index.rescore_rows)
         else:
-            s, i = t_index._rescore_topk(queries, s, i, k, values_flat, scales_flat)
+            s, i = t_index._rescore_topk(queries, s, i, k, values.reshape(-1, d), scales.reshape(-1, 1))
+    return s, i
+
+
+def _before(index, queries: torch.Tensor, k: int):
+    s, i = _scored_before(index, queries, k)
     return s, i.to(torch.int32)
 
 
 def _sharded_before(index, queries: torch.Tensor, k: int):
-    """A one-rank ``ShardedIndex``'s int8 search as it was scored before the wrapper."""
-    kk = max(k, min(index.rescore_depth or 0, index.shard_rows))
-    s, i = t_index._scanned_topk(
-        lambda qs, _: (qs.to(torch.bfloat16).float() @ index.values.float().T).mul_(index.scales[:, 0][None, :]),
-        None, index.shard_rows, index.n_valid - index.row0, queries, kk)
-    if index.rescore_depth:
-        if index.rescore_rows is not None:
-            s, i = t_index._rescore_topk(queries, s, i, k, index.rescore_rows)
-        else:
-            s, i = t_index._rescore_topk(queries, s, i, k, index.values, index.scales)
+    """A one-rank ``ShardedIndex``'s int8 search as it was scored before the
+    wrapper: its block's rows, their global numbers, then the merge."""
+    assert index.block.values.shape[:2] == (1, index.shard_rows) and index.block.n_valid == index.n_valid - index.row0
+    s, i = _scored_before(index.block, queries, k)
     s2, sel = torch.topk(s, k, dim=1)
     return s2, torch.gather(i + index.row0, 1, sel).to(torch.int32)
 
